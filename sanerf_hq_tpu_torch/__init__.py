@@ -1,0 +1,14 @@
+"""PyTorch / CUDA port of SANeRF-HQ-TPU for NVIDIA Hopper.
+
+The JAX package `sanerf_hq_tpu` is the reference; this package mirrors its
+layout (`ops/`, `models/`, `render/`, `data/`, `train/`, `cli.py`) in plain
+PyTorch, and every Pallas kernel on a ported path becomes a hand-written
+CUDA kernel under `csrc/` with a plain PyTorch twin beside its wrapper.
+
+Slice 1 covers inference of the flagship stage-1 field
+(`--field_type mlp --cp_rank 64`): `python -m sanerf_hq_tpu_torch <scene>
+--test`.  Entry points run on `cuda` unless the caller passes
+`device="cpu"`.
+"""
+
+__version__ = "0.1.0"

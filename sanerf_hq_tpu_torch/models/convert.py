@@ -1,0 +1,63 @@
+"""Carry weights across from the JAX package.
+
+`params_from_jax` takes the flax parameter tree of an `MLPField` as numpy
+arrays, nested (`jax.device_get(params)`) or flattened with `/` keys as in
+an `.npz` written by `save_npz`, and returns the port's `state_dict`.  flax
+kernels are [in, out]; they are transposed once here into the port's
+[out, in] layout.
+"""
+from __future__ import annotations
+
+import re
+from typing import Mapping
+
+import numpy as np
+import torch
+
+_RULES = (
+    # (flax path, port key template, transpose)
+    (re.compile(r"(trunk|prop_mlp_[01])/(w\d+)"), r"\1.\2", True),
+    (re.compile(r"(cp_[xyz])"), r"\1", False),
+    (re.compile(r"view_mlp/Dense_(\d+)/kernel"), r"view_mlp.layers.\1.weight",
+     True),
+)
+
+
+def flatten(tree: Mapping, prefix: str = "") -> dict:
+    """Nested mapping -> {'a/b/c': leaf}."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
+def save_npz(path: str, tree: Mapping):
+    """Write a (nested) parameter tree of numpy arrays as a flat `.npz`."""
+    np.savez(path, **{k: np.asarray(v) for k, v in flatten(tree).items()})
+
+
+def params_from_jax(tree: Mapping) -> dict:
+    """Flax MLPField parameters -> the port's state_dict (CPU float32).
+
+    Keys: params/trunk/w0..w3, params/cp_x|cp_y|cp_z,
+    params/prop_mlp_{0,1}/w0..w2, params/view_mlp/Dense_{0,1,2}/kernel.
+    Leaves outside the stage-1 field (stage-2/3 heads) are not carried; a
+    strict `load_state_dict` reports anything the field still lacks."""
+    flat = flatten(tree) if any(isinstance(v, Mapping) for v in tree.values()) \
+        else dict(tree)
+    state = {}
+    for key, value in flat.items():
+        path = key[len("params/"):] if key.startswith("params/") else key
+        for pattern, template, transpose in _RULES:
+            m = pattern.fullmatch(path)
+            if m:
+                arr = np.asarray(value, dtype=np.float32)
+                if transpose:
+                    arr = arr.T
+                state[m.expand(template)] = torch.tensor(arr)
+                break
+    return state

@@ -1,0 +1,18 @@
+"""MERF / mip-NeRF-360 infinity-norm scene contraction.
+
+Points with inf-norm magnitude below 1 pass through; outside, every
+coordinate is divided by the magnitude except the arg-max coordinate, which
+maps to sign(x) * (2 - 1/mag), keeping the contracted domain inside
+[-2, 2]^3.
+"""
+import torch
+
+
+def contract(x):
+    """x: [..., C] -> contracted z: [..., C]."""
+    ax = x.abs()
+    mag = ax.amax(dim=-1, keepdim=True)
+    is_max = ax == mag  # ties apply the max-scale to every tied coordinate
+    inv = 1.0 / mag.clamp_min(1e-38)
+    scale = torch.where(is_max, (2.0 - inv) * inv, inv)
+    return torch.where(mag < 1.0, x, x * scale)

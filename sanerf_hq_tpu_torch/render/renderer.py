@@ -1,0 +1,134 @@
+"""Proposal-network volume renderer, inference.
+
+Fixed per-ray sample counts (default 128, 64, 32).  Two routes:
+  - the level-kernel route: both proposal levels through K5 (proposal MLP,
+    compositing and inverse-CDF resampling in one kernel) and the final
+    level through K3 (trunk with CP features and compositing in one
+    kernel);
+  - the composable route: per-sample densities and colours from the
+    field's plain methods, `compute_weights`, `sample_pdf`.  It is the
+    oracle for the kernels and the route of fields without level kernels.
+Training (losses, gradient gating) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops.composite import compute_weights
+from ..ops.contraction import contract
+from ..ops.ray import (near_far_from_aabb, sample_pdf, spacing_fn,
+                       spacing_fn_inv, stratified_queries)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderSettings:
+    num_steps: Tuple[int, ...] = (128, 64, 32)
+    use_contract: bool = True
+    min_near: float = 0.2
+    background: str = "last_sample"  # white | random | last_sample
+    bound: float = 128.0  # world-space aabb half-edge
+    perturb: bool = False
+    training: bool = False
+    max_ray_batch: int = 16384
+    # False forces the composable route (the oracle the kernels are held to)
+    level_kernels: bool = True
+
+
+def render_rays(field, rays_o, rays_d, settings: RenderSettings,
+                generator: Optional[torch.Generator] = None, bg_color=1.0,
+                cam_near_far=None, aabb=None):
+    """Render a batch of rays.  rays_o, rays_d: [N, 3] float32 (rays_d
+    unnormalised, so depth is z-distance).  `generator` jitters the samples
+    when settings.perturb.  Returns {'image' [N, 3], 'depth' [N],
+    'weights_sum' [N]}."""
+    if settings.training:
+        raise NotImplementedError("the training render is not ported yet")
+    N, dev = rays_o.shape[0], rays_o.device
+    n_levels = len(settings.num_steps)
+    gen = generator if settings.perturb else None
+    if aabb is None:
+        b = settings.bound
+        aabb = torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32,
+                            device=dev)
+
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, settings.min_near)
+    if cam_near_far is not None:
+        nears = torch.maximum(nears, cam_near_far[:, :1])
+        fars = torch.minimum(fars, cam_near_far[:, 1:2])
+    s_nears, s_fars = spacing_fn(nears), spacing_fn(fars)
+
+    opaque = settings.background == "last_sample"
+    kernels = settings.level_kernels and getattr(
+        field, "supports_fused_final", False)
+    bins = weights = rays_t = colors = fused_out = folded = None
+    for level, T in enumerate(settings.num_steps):
+        if level == 0:
+            bins = torch.linspace(0.0, 1.0, T + 1, device=dev).expand(N, T + 1)
+            if gen is not None:
+                bins = (bins + (torch.rand((N, T + 1), generator=gen,
+                                           device=dev) - 0.5) / T).clamp(0, 1)
+            bins = bins.contiguous()
+        elif folded is not None:
+            bins, folded = folded, None
+        else:
+            bins = sample_pdf(bins, weights, T + 1, generator=gen)
+
+        real_bins = spacing_fn_inv(s_nears * (1.0 - bins) + s_fars * bins)
+        if kernels and level == n_levels - 1:
+            fused_out = field.fused_final_render(rays_o, rays_d, real_bins,
+                                                 opaque_last=opaque)
+            break
+        if kernels:
+            # next level's s-space edges straight from the proposal kernel;
+            # the per-sample weights never reach device memory
+            u = stratified_queries(N, settings.num_steps[level + 1] + 1, dev,
+                                   gen).contiguous()
+            folded = field.fused_prop_next_bins(rays_o, rays_d, real_bins,
+                                                bins, u, proposal=level,
+                                                opaque_last=opaque)
+            continue
+
+        rays_t = (real_bins[..., 1:] + real_bins[..., :-1]) / 2.0  # [N, T]
+        xyzs = rays_o[:, None, :] + rays_d[:, None, :] * rays_t[..., None]
+        if settings.use_contract:
+            xyzs = contract(xyzs)
+        if level != n_levels - 1:
+            sigmas = field.density(xyzs, proposal=level)
+        else:
+            dirs = rays_d[:, None, :].expand(xyzs.shape)
+            dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+            sigmas, _, colors, _ = field.forward_color(xyzs, dirs)
+        deltas = real_bins[..., 1:] - real_bins[..., :-1]
+        weights, _ = compute_weights(deltas, sigmas, opaque_last=opaque)
+
+    if fused_out is not None:
+        f_image, depth, weights_sum = fused_out
+    else:
+        weights_sum = weights.sum(dim=-1)
+        depth = (weights * rays_t).sum(dim=-1)
+        f_image = (weights[..., None] * colors).sum(dim=-2)  # [N, 31]
+    image = torch.sigmoid(field.apply_view_mlp(f_image))
+    image = image + (1.0 - weights_sum)[..., None] * bg_color
+    return {"weights_sum": weights_sum, "depth": depth, "image": image}
+
+
+def render_staged(field, rays_o, rays_d, settings: RenderSettings,
+                  bg_color=1.0, cam_near_far=None, aabb=None,
+                  generator: Optional[torch.Generator] = None):
+    """Chunked full-frame inference: render_rays over chunks of
+    settings.max_ray_batch rays.  cam_near_far is per ray [N, 2] or shared
+    [1, 2]."""
+    N = rays_o.shape[0]
+    chunk = settings.max_ray_batch
+    per_ray = cam_near_far is not None and cam_near_far.shape[0] == N
+    outs = []
+    for i in range(0, N, chunk):
+        nf = cam_near_far[i:i + chunk] if per_ray else cam_near_far
+        outs.append(render_rays(field, rays_o[i:i + chunk],
+                                rays_d[i:i + chunk], settings,
+                                generator=generator, bg_color=bg_color,
+                                cam_near_far=nf, aabb=aabb))
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}

@@ -1,0 +1,151 @@
+"""The port's entry points on the CPU: `python -m sanerf_hq_tpu_torch
+<scene> --test` against the JAX Trainer.render_view with the same weights
+(carried across as an .npz), the device rule, and the rule that nothing of
+the port imports JAX or the JAX package.
+
+Bar: max abs < 2e-2 on image, depth and weights_sum.  The JAX trainer
+renders through the composable route on the CPU and the port through its
+level-kernel route (plain twins here), so this is also the route bar.
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from sanerf_hq_tpu.config import Config as JaxConfig
+from sanerf_hq_tpu.data.provider import load_scene as jax_load_scene
+from sanerf_hq_tpu.models import make_field as jax_make_field
+from sanerf_hq_tpu.train.trainer import Trainer as JaxTrainer
+from sanerf_hq_tpu_torch import cli
+from sanerf_hq_tpu_torch.data.png import read_png
+from sanerf_hq_tpu_torch.data.synthetic import write_llff_scene
+from sanerf_hq_tpu_torch.device import resolve_device
+from sanerf_hq_tpu_torch.models import make_field
+from sanerf_hq_tpu_torch.models.convert import save_npz
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HW = 32
+SMALL = ["--num_steps", "16", "8", "8", "--cp_rank", "8", "--cp_res", "32"]
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("scene"))
+    write_llff_scene(root, n_views=17, H=HW, W=HW)  # val views: v00, v16
+    return root
+
+
+def _argv(scene, ws, *extra):
+    return [scene, "--test", "--field_type", "mlp", "--data_type", "llff",
+            "--workspace", ws, *SMALL, *extra]
+
+
+def test_cli_test_matches_jax_render_view(scene, tmp_path, capsys):
+    cfg = JaxConfig(path=scene, data_type="llff", field_type="mlp",
+                    num_steps=(16, 8, 8), cp_rank=8, cp_res=32,
+                    workspace=str(tmp_path / "jax"))
+    model = jax_make_field("mlp", grid_bound=cfg.grid_bound, cp_rank=8,
+                           cp_res=32)
+    jt = JaxTrainer("ngp", cfg, model, cfg.workspace, use_checkpoint="none")
+    npz = str(tmp_path / "params.npz")
+    save_npz(npz, jax.device_get(jt.state.ema_params))
+    js = jax_load_scene(scene, "llff")
+    want = jt.render_view(js.poses[0], js.intrinsics[0], HW, HW)
+
+    ws = str(tmp_path / "port")
+    trainer = cli.main(_argv(scene, ws, "--ckpt", npz, "--device", "cpu"))
+    assert "[EVAL] PSNR" in capsys.readouterr().out
+    got = trainer.render_view(js.poses[0], js.intrinsics[0], HW, HW)
+    for k in ("image", "depth", "weights_sum"):
+        assert got[k].shape == want[k].shape, k
+        err = np.abs(got[k] - want[k]).max()
+        assert err < 2e-2, f"{k}: max abs {err}"
+
+    res = os.path.join(ws, "results")
+    for stem in ("v00", "v16"):
+        assert os.path.exists(os.path.join(res, f"{stem}_rgb.png"))
+        assert os.path.exists(os.path.join(res, f"{stem}_depth.npy"))
+    img = (np.clip(got["image"], 0, 1) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(read_png(os.path.join(res, "v00_rgb.png")),
+                                  img.reshape(HW, HW, 3))
+    np.testing.assert_array_equal(np.load(os.path.join(res, "v00_depth.npy")),
+                                  got["depth"].reshape(HW, HW))
+
+
+def test_cli_seeded_init_without_ckpt(scene, tmp_path, capsys):
+    cli.main(_argv(scene, str(tmp_path), "--device", "cpu"))
+    assert "initialised from --seed 0" in capsys.readouterr().out
+
+
+def test_trainer_evaluate_and_perturbed_render(scene, tmp_path, capsys):
+    from sanerf_hq_tpu_torch.data.provider import load_scene
+
+    trainer = cli.main(_argv(scene, str(tmp_path / "ws"), "--device", "cpu"))
+    s = load_scene(scene, "llff")
+    s.images, s.poses, s.img_names = s.images[:2], s.poses[:2], s.img_names[:2]
+    psnr = trainer.evaluate(s, save_dir=str(tmp_path / "val"))
+    assert np.isfinite(psnr) and "[EVAL] PSNR" in capsys.readouterr().out
+    for name in ("v00_rgb.png", "v00_gt.png", "v00_error.png",
+                 "v01_depth.npy"):
+        assert os.path.exists(os.path.join(tmp_path / "val", name)), name
+    det = trainer.render_view(s.poses[0], s.intrinsics[0], HW, HW)
+    jittered = [trainer.render_view(s.poses[0], s.intrinsics[0], HW, HW,
+                               generator=torch.Generator().manual_seed(7))
+           for _ in range(2)]
+    np.testing.assert_array_equal(jittered[0]["depth"], jittered[1]["depth"])
+    assert not np.array_equal(jittered[0]["depth"], det["depth"])
+
+
+def test_cli_only_test_mode_is_ported(scene, tmp_path):
+    argv = _argv(scene, str(tmp_path), "--device", "cpu")
+    argv.remove("--test")
+    with pytest.raises(SystemExit):
+        cli.main(argv)
+
+
+def test_entry_points_need_a_device_or_cpu(scene, tmp_path, monkeypatch):
+    """Without a GPU and without device='cpu' the entry points raise; they
+    never quietly run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_field("mlp", cp_rank=4, cp_res=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(_argv(scene, str(tmp_path)))
+    assert resolve_device("cpu").type == "cpu"
+
+
+_NO_JAX = r"""
+import importlib, importlib.abc, pkgutil, sys
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "sanerf_hq_tpu"}
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import sanerf_hq_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(sanerf_hq_tpu_torch.__path__,
+                                              "sanerf_hq_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+print(len(mods))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 20  # every module was imported

@@ -1,0 +1,105 @@
+"""CUDA kernels K5 and K3 against their plain twins on the card, at shapes
+the flagship smoke (chip_smoke.py) does not reach: ragged ray counts,
+sample counts that do not divide the 128-point pass or span several passes,
+other widths, no CP features; plus the wrappers' input checks.
+
+Needs a CUDA device (the kernels have no CPU mode); skips without one.  On
+the card, where JAX (which tests/conftest.py imports) is not installed:
+`python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py`.
+Tolerances as chip_smoke.py: 1e-3 abs on K5's s-bins, rel-max 2e-2 on K3.
+"""
+import pytest
+import torch
+
+from sanerf_hq_tpu_torch.ops import render_level as rl
+from sanerf_hq_tpu_torch.ops.ray import stratified_queries
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 twins stay fp32
+    return torch.device("cuda")
+
+
+def _rays(dev, N, T, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    ro = torch.randn(N, 3, generator=g) * 0.5
+    rd = torch.randn(N, 3, generator=g)
+    real = torch.sort(torch.rand(N, T + 1, generator=g) * 6 + 0.2).values
+    s = torch.sort(torch.rand(N, T + 1, generator=g)).values
+    return [x.to(dev).contiguous() for x in (ro, rd, real, s)]
+
+
+def _w(dev, g, *shape):
+    return (torch.randn(*shape, generator=g) / shape[1] ** 0.5).to(dev)
+
+
+@pytest.mark.parametrize("N,T,Q,hidden", [
+    (1000, 48, 33, 64),   # 2 rays a CTA, 32 idle points
+    (333, 200, 17, 64),   # one ray over two passes
+    (5, 8, 9, 32),        # fewer rays than a CTA holds
+    (4099, 128, 65, 64),  # flagship shape, ragged last CTA
+])
+def test_prop_kernel_matches_twin(dev, N, T, Q, hidden):
+    ro, rd, real, s = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(1)
+    ws = [_w(dev, g, hidden, 39), _w(dev, g, hidden, hidden),
+          _w(dev, g, 1, hidden)]
+    u = stratified_queries(N, Q, dev, torch.Generator(dev).manual_seed(2))
+    u = u.contiguous()
+    args = (ro, rd, real, s, u, ws, 6, 2.0, True, -0.5)
+    got = rl.fused_prop_level_sample(*args)
+    want = rl.prop_level_sample_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("N,T,hidden,rank", [
+    (1000, 24, 64, 0),     # 5 rays a CTA, no CP features
+    (333, 160, 256, 64),   # one ray over two passes, flagship widths
+    (777, 32, 128, 16),
+])
+def test_final_kernel_matches_twin(dev, N, T, hidden, rank):
+    ro, rd, real, _ = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(3)
+    nin = 63 + rank
+    ws = [_w(dev, g, hidden, nin), _w(dev, g, hidden, hidden),
+          _w(dev, g, hidden, hidden + nin), _w(dev, g, 16, hidden)]
+    cps = [(torch.randn(64, rank, generator=g) * 0.3).to(dev)
+           for _ in range(3)] if rank else []
+    sh = torch.randn(N, 16, generator=g).to(dev)
+    args = (ro, rd, real, sh, ws, 10, 2, 2.0, True, -0.5, cps, 64)
+    got = rl.fused_final_level(*args)
+    want = rl.final_level_ref(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("f_image", "depth", "wsum", "weights"), got, want):
+        assert torch.isfinite(a).all(), name
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        assert rel < 2e-2, (name, rel)
+
+
+def test_wrappers_check_inputs_and_count_launches(dev):
+    N, T, Q = 64, 8, 9
+    ro, rd, real, s = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(4)
+    ws = [_w(dev, g, 64, 39), _w(dev, g, 64, 64), _w(dev, g, 1, 64)]
+    u = stratified_queries(N, Q, dev).contiguous()
+    before = rl.fused_prop_level_sample.launches
+    rl.fused_prop_level_sample(ro, rd, real, s, u, ws, 6, 2.0)
+    assert rl.fused_prop_level_sample.launches == before + 1
+    with pytest.raises(TypeError, match="float32"):
+        rl.fused_prop_level_sample(ro.double(), rd, real, s, u, ws, 6, 2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        rl.fused_prop_level_sample(ro, rd, real, s, u.t().contiguous().t(),
+                                   ws, 6, 2.0)
+    with pytest.raises(ValueError, match="shape"):
+        rl.fused_prop_level_sample(ro, rd, real, s[:, :-1].contiguous(), u,
+                                   ws, 6, 2.0)
+    with pytest.raises(ValueError, match="is on cpu"):
+        rl.fused_prop_level_sample(ro, rd, real, s.cpu(), u, ws, 6, 2.0)
+    assert rl.fused_prop_level_sample.launches == before + 1
