@@ -7,19 +7,36 @@ Phases, each printing its own lines; any failure exits non-zero before the
 last line:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc of every CUDA source (sm_90a), all started together;
-  3. kernels against their plain twins on the card, at the flagship shapes
-     of one 16384-ray chunk: K5 (proposal level + resampling) at
-     (T, Q) = (128, 65) and (64, 33), max abs error <= 1e-3 on the next
-     s-bins; K3 (final level, CP-64) rel-max < 2e-2 on f_image, depth,
-     weights_sum and weights.  Kernel and twin timed with CUDA events
-     (warm-up, median of 10);
-  4. main path: a synthetic llff scene written under build/, the port's CLI
-     `--test` on it at flagship width with a seeded field (2 views of
-     512x512, 16 chunks each), with the launch counts set to 0 just before
-     and read just after: K5 must launch twice a chunk and K3 once; then the
-     render rate, and the level-kernel route against the composable route
-     on a 128x128 view (max abs < 2e-2 on image, depth, weights_sum);
-  5. one JSON line with every kernel's numbers, the device line again, and
+  3. kernels against their plain twins on the card (CUDA events, warm-up,
+     median of 10), with bounds:
+     - inference, one 16384-ray chunk: K5 (proposal level + resampling) at
+       (T, Q) = (128, 65) and (64, 33), max abs error <= 1e-3 on the next
+       s-bins; K3 (final level, CP-64) rel-max < 2e-2 on f_image, depth,
+       weights_sum and weights;
+     - training, one 8192-ray batch with random cotangents: K1 at both
+       proposal levels (bins max abs <= 1e-3 and equal to K5's, weights
+       rel-max < 2e-2), K2 at T = 128 and 64 and K4 at T = 32 (rel-max
+       < 2e-2 on every weight and CP grad; the weight grads bitwise equal
+       over two launches; K4's CP grads, summed with atomics, print their
+       run-to-run difference);
+  4. inference path: a synthetic llff scene written under build/, the
+     port's CLI `--test` on it at flagship width with a seeded field (2
+     views of 512x512, 16 chunks each), with the launch counts set to 0
+     just before and read just after: K5 must launch twice a chunk and K3
+     once; then the render rate, and the level-kernel route against the
+     composable route on a 128x128 view (max abs < 2e-2);
+  5. training path: the port's CLI without --test on the same scene at
+     flagship width, 20 steps of 8192 rays, counts set to 0 just before and
+     read just after: per step K1 twice, K2 twice (every step <= 3000
+     updates the proposal MLPs), K3 once and K4 once (K3 and K5 also run in
+     the eval renders); a finite loss, checkpoints on disk, a later --test
+     resuming from them, and the train step rate (host clock around
+     synchronised steps);
+  6. grad parity: on one 8192-ray batch at step 2000 (distortion ramp fully
+     on, so K4's weights grad carries gradient), the level-kernel route's
+     grads against the composable route's (autograd through the plain
+     field), per-leaf rel-L2 <= 5%;
+  7. one JSON line with every kernel's numbers, the device line again, and
      the last line {"ok": true, "device": {...}}.
 """
 import json
@@ -34,7 +51,9 @@ import torch
 
 from sanerf_hq_tpu_torch import cli
 from sanerf_hq_tpu_torch.data.png import read_png
+from sanerf_hq_tpu_torch.data.provider import load_scene, split_indices
 from sanerf_hq_tpu_torch.data.rays import full_frame_rays
+from sanerf_hq_tpu_torch.data.sampler import sample_rgb_batch
 from sanerf_hq_tpu_torch.data.synthetic import look_at_pose, write_llff_scene
 from sanerf_hq_tpu_torch.models import make_field
 from sanerf_hq_tpu_torch.ops import cuda_lib
@@ -43,14 +62,21 @@ from sanerf_hq_tpu_torch.ops.ray import (near_far_from_aabb, spacing_fn,
                                          spacing_fn_inv, stratified_queries)
 from sanerf_hq_tpu_torch.ops.sh import sh_encode
 from sanerf_hq_tpu_torch.render.renderer import RenderSettings, render_rays
+from sanerf_hq_tpu_torch.train.steps import make_rgb_train_step
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "sanerf_hq_tpu_torch/csrc/render_level.cu"
+SOURCE_BWD = "sanerf_hq_tpu_torch/csrc/render_level_bwd.cu"
 TPU_FILE = "sanerf_hq_tpu/ops/render_level_pallas.py"
 # H100 SXM published peaks: bf16 dense tensor cores, fp32 outside them, HBM3
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 CHUNK = 16384  # rays in one render chunk (max_ray_batch)
+BATCH = 8192  # rays of a training step: num_points 2**18 / 32 samples
 VIEW = 512  # main-path views are VIEW x VIEW
+TRAIN_STEPS = 20
+COUNTERS = {"K5": rl.fused_prop_level_sample, "K3": rl.fused_final_level,
+            "K1": rl.fused_prop_level_sample_train,
+            "K2": rl.fused_prop_level_bwd, "K4": rl.fused_final_level_bwd}
 
 
 def device_line() -> str:
@@ -93,20 +119,40 @@ def mlp_macs(ws):
     return sum(w.shape[0] * w.shape[1] for w in ws)
 
 
-def check_kernels(field):
-    """Phase 3: each kernel against its plain twin on one flagship chunk."""
-    dev = field.cp_x.device
-    H = W = 128
+def rel_max(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+
+
+def reset_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in COUNTERS.items()}
+
+
+def view_rays(dev, H, W):
     pose = torch.as_tensor(look_at_pose([2.0, 0.4, 0.5]), device=dev)
     focal = 0.5 * H / np.tan(0.5 * np.deg2rad(50.0))
     intr = torch.tensor([focal, focal, W / 2, H / 2], device=dev)
-    ro, rd = full_frame_rays(pose, intr, H, W)
+    return full_frame_rays(pose, intr, H, W)
+
+
+def s_space(ro, rd):
+    b = 128.0
+    aabb = torch.tensor([-b, -b, -b, b, b, b], device=ro.device)
+    nears, fars = near_far_from_aabb(ro, rd, aabb, 0.2)
+    return spacing_fn(nears), spacing_fn(fars)
+
+
+def check_kernels(field):
+    """Phase 3: each kernel against its plain twin on one flagship chunk."""
+    dev = field.cp_x.device
+    ro, rd = view_rays(dev, 128, 128)
     N = ro.shape[0]
     assert N == CHUNK
-    b = 128.0
-    aabb = torch.tensor([-b, -b, -b, b, b, b], device=dev)
-    nears, fars = near_far_from_aabb(ro, rd, aabb, 0.2)
-    sn, sf = spacing_fn(nears), spacing_fn(fars)
+    sn, sf = s_space(ro, rd)
     args = dict(freq_degree=field.prop_freq_degree,
                 grid_bound=field.grid_bound, opaque_last=True,
                 density_bias=field.density_bias)
@@ -184,6 +230,148 @@ def check_kernels(field):
     return results
 
 
+def check_train_kernels(field):
+    """Phase 3, training: K1, K2 and K4 against their twins on one
+    8192-ray batch, with seeded random cotangents."""
+    dev = field.cp_x.device
+    ro, rd = view_rays(dev, 64, 128)
+    N = ro.shape[0]
+    assert N == BATCH
+    sn, sf = s_space(ro, rd)
+    g = torch.Generator(dev).manual_seed(0)
+    pargs = dict(freq_degree=field.prop_freq_degree,
+                 grid_bound=field.grid_bound, opaque_last=True,
+                 density_bias=field.density_bias)
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+          "per_shape": {}}
+    k2 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+          "per_shape": {}}
+    s_bins = torch.linspace(0.0, 1.0, 129, device=dev).expand(N, 129)
+    s_bins = s_bins.contiguous()
+    for level, (T, Q) in enumerate(((128, 65), (64, 33))):
+        real = spacing_fn_inv(sn * (1.0 - s_bins) + sf * s_bins)
+        u = stratified_queries(N, Q, dev).contiguous()
+        ws = (field.prop_mlp_0 if level == 0 else field.prop_mlp_1).weights
+        call = (ro, rd, real, s_bins, u, ws)
+        w, nb = rl.fused_prop_level_sample_train(*call, **pargs)
+        w_ref, nb_ref = rl.prop_level_train_sample_ref(*call, **pargs)
+        nb5 = rl.fused_prop_level_sample(*call, **pargs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(w).all() and torch.isfinite(nb).all()
+        err = (nb - nb_ref).abs().max().item()
+        rel = rel_max(w, w_ref)
+        assert err <= 1e-3, f"K1 (T={T}) bins max abs error {err}"
+        assert rel < 2e-2, f"K1 (T={T}) weights rel-max error {rel}"
+        assert torch.equal(nb, nb5), "K1's bins differ from K5's"
+        ms = cuda_ms(lambda: rl.fused_prop_level_sample_train(*call, **pargs))
+        plain = cuda_ms(
+            lambda: rl.prop_level_train_sample_ref(*call, **pargs))
+        pts = N * T
+        bms, by = bound(nbytes(ro, rd, real, s_bins, u, *ws, nb, w),
+                        2 * pts * mlp_macs(ws),
+                        2 * pts * 3 * field.prop_freq_degree)
+        print(f"[kernel] K1 fused_prop_level_sample_train T={T} Q={Q}: bins "
+              f"max abs err {err:.3e} (<= 1e-3, equal to K5's), weights "
+              f"rel-max {rel:.3e} (< 2e-2), {ms:.4f} ms, plain twin "
+              f"{plain:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+        k1["per_shape"][f"T{T}_Q{Q}"] = {"ms": ms, "plain_ms": plain,
+                                        "bound_ms": bms, "max_abs_err": err,
+                                        "weights_rel_max": rel}
+
+        # K2 on this level's weights grad
+        g_w = torch.randn(N, T, generator=g, device=dev)
+        bcall = (ro, rd, real, ws, g_w)
+        got = rl.fused_prop_level_bwd(*bcall, **pargs)
+        again = rl.fused_prop_level_bwd(*bcall, **pargs)
+        want = rl.prop_level_bwd_ref(*bcall, **pargs)
+        torch.cuda.synchronize()
+        rels = []
+        for i, (a, b_, c) in enumerate(zip(got, want, again)):
+            assert torch.isfinite(a).all(), f"K2 dW{i} not finite"
+            rels.append(rel_max(a, b_))
+            assert rels[-1] < 2e-2, f"K2 (T={T}) dW{i} rel-max {rels[-1]}"
+            assert torch.equal(a, c), f"K2 (T={T}) dW{i} not deterministic"
+        abs_err = max((a - b_).abs().max().item() for a, b_ in zip(got, want))
+        ms2 = cuda_ms(lambda: rl.fused_prop_level_bwd(*bcall, **pargs))
+        plain2 = cuda_ms(lambda: rl.prop_level_bwd_ref(*bcall, **pargs))
+        # forward recompute + dW (each the MLP's MACs) + dA of layers 2, 1
+        macs = 2 * mlp_macs(ws) + mlp_macs(ws[1:])
+        bms2, by2 = bound(nbytes(ro, rd, real, *ws, g_w, *got),
+                          2 * pts * macs,
+                          2 * pts * 3 * field.prop_freq_degree)
+        print(f"[kernel] K2 fused_prop_level_bwd T={T}: rel-max err "
+              + ", ".join(f"dW{i} {r:.3e}" for i, r in enumerate(rels))
+              + f" (< 2e-2), bitwise equal over two launches, {ms2:.4f} ms, "
+              f"plain twin {plain2:.4f} ms, bound {bms2:.4f} ms ({by2}, "
+              f"{macs} MAC a sample)", flush=True)
+        k2["per_shape"][f"T{T}"] = {"ms": ms2, "plain_ms": plain2,
+                                   "bound_ms": bms2, "max_abs_err": abs_err,
+                                   "rel_max_err": max(rels)}
+        for k, part in ((k1, k1["per_shape"][f"T{T}_Q{Q}"]),
+                        (k2, k2["per_shape"][f"T{T}"])):
+            k["ms"] += part["ms"]
+            k["plain_ms"] += part["plain_ms"]
+            k["bound_ms"] += part["bound_ms"]
+            k["max_abs_err"] = max(k["max_abs_err"], part["max_abs_err"])
+        k1["bound_by"], k2["bound_by"] = by, by2
+        s_bins = nb
+
+    # K4 on the final level's bins, cotangents on all four K3 outputs
+    real = spacing_fn_inv(sn * (1.0 - s_bins) + sf * s_bins)
+    T = real.shape[1] - 1
+    sh = sh_encode(rd / torch.linalg.norm(rd, dim=-1, keepdim=True))
+    ws, cps = field.trunk.weights, field.cp_basis
+    cots = [torch.randn(*shape, generator=g, device=dev)
+            for shape in ((N, 31), (N,), (N,), (N, T))]
+    fargs = dict(freq_degree=field.freq_degree, skip_layer=2,
+                 grid_bound=field.grid_bound, opaque_last=True,
+                 density_bias=field.density_bias, cps=cps,
+                 cp_res=field.cp_res)
+    call = (ro, rd, real, sh, ws, *cots)
+    dws, dcps = rl.fused_final_level_bwd(*call, **fargs)
+    dws2, dcps2 = rl.fused_final_level_bwd(*call, **fargs)
+    want_w, want_c = rl.final_level_bwd_ref(*call, **fargs)
+    torch.cuda.synchronize()
+    rels = {}
+    for i, (a, b_, c) in enumerate(zip(dws, want_w, dws2)):
+        assert torch.isfinite(a).all(), f"K4 dW{i} not finite"
+        rels[f"dW{i}"] = rel_max(a, b_)
+        assert rels[f"dW{i}"] < 2e-2, f"K4 dW{i} rel-max {rels[f'dW{i}']}"
+        assert torch.equal(a, c), f"K4 dW{i} not deterministic"
+    cp_run_diff = 0.0
+    for a, (x, y, z) in enumerate(zip(dcps, want_c, dcps2)):
+        assert torch.isfinite(x).all(), f"K4 dcp{a} not finite"
+        rels[f"dcp{a}"] = rel_max(x, y)
+        assert rels[f"dcp{a}"] < 2e-2, f"K4 dcp{a} rel-max {rels[f'dcp{a}']}"
+        cp_run_diff = max(cp_run_diff, (x - z).abs().max().item())
+    abs_err = max((a - b_).abs().max().item()
+                  for a, b_ in zip(dws + dcps, want_w + want_c))
+    ms = cuda_ms(lambda: rl.fused_final_level_bwd(*call, **fargs))
+    plain = cuda_ms(lambda: rl.final_level_bwd_ref(*call, **fargs))
+    H, rank = ws[1].shape[0], field.cp_rank
+    # forward recompute + dW (each the trunk's MACs) + dA: layer 3, the
+    # [act | CP] columns of layer 2, layer 1, the CP columns of layer 0
+    macs = (2 * mlp_macs(ws) + ws[3].numel() + (H + rank) * H + H * H
+            + rank * H)
+    pts = N * T
+    bms, by = bound(nbytes(ro, rd, real, sh, *ws, *cps, *cots, *dws, *dcps),
+                    2 * pts * macs, 2 * pts * 3 * field.freq_degree)
+    print("[kernel] K4 fused_final_level_bwd T=32 CP-64: rel-max err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (< 2e-2); dW bitwise equal over two launches; dCP run-to-run "
+          f"max abs difference {cp_run_diff:.3e} (fp32 atomics); {ms:.4f} ms, "
+          f"plain twin {plain:.4f} ms, bound {bms:.4f} ms ({by}, {macs} MAC "
+          "a sample)", flush=True)
+    k4 = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+          "max_abs_err": abs_err, "rel_max_err": max(rels.values()),
+          "dcp_run_to_run_max_abs": cp_run_diff}
+    # K3, the training forward, at the same 8192-ray shape
+    k3 = cuda_ms(lambda: rl.fused_final_level(ro, rd, real, sh, ws, **fargs))
+    print(f"[kernel] K3 fused_final_level at the training shape (8192 rays, "
+          f"T=32): {k3:.4f} ms", flush=True)
+    return {"K1": k1, "K2": k2, "K4": k4, "K3_train_ms": k3}
+
+
 def main_path(work):
     """Phase 4: the CLI --test path at flagship width, seeded init."""
     scene = os.path.join(work, "scene")
@@ -193,14 +381,12 @@ def main_path(work):
     argv = [scene, "--test", "--field_type", "mlp", "--data_type", "llff",
             "--workspace", ws_dir, "--seed", "0"]
 
-    rl.fused_prop_level_sample.launches = 0
-    rl.fused_final_level.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     trainer = cli.main(argv)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"K5": rl.fused_prop_level_sample.launches,
-                "K3": rl.fused_final_level.launches}
+    launches = read_counts()
 
     chunks = 2 * -(-H * W // trainer.cfg.max_ray_batch)
     print(f"[main] CLI --test: 2 views of {H}x{W}, {chunks} chunks in "
@@ -208,6 +394,7 @@ def main_path(work):
           flush=True)
     assert launches["K5"] == 2 * chunks, launches
     assert launches["K3"] == chunks, launches
+    assert launches["K1"] == launches["K2"] == launches["K4"] == 0, launches
     for stem in ("v00", "v16"):
         img = read_png(os.path.join(ws_dir, "results", f"{stem}_rgb.png"))
         depth = np.load(os.path.join(ws_dir, "results", f"{stem}_depth.npy"))
@@ -215,7 +402,7 @@ def main_path(work):
         assert depth.shape == (H, W) and np.isfinite(depth).all()
 
     # render rate on one warm 512x512 view
-    dset_pose = look_at_pose([2.0, 0.4, 0.0])
+    dset_pose = look_at_pose([2.0, 0.4, 0.0])  # not a view of the scene
     focal = 0.5 * H / np.tan(0.5 * np.deg2rad(50.0))
     intr = np.array([focal, focal, W / 2, H / 2], np.float32)
     times = []
@@ -251,6 +438,110 @@ def main_path(work):
     return launches, mrays
 
 
+def train_path(work):
+    """Phase 5: the CLI training run at flagship width, 8192 rays a step;
+    then the train step rate and a --test resuming the checkpoint."""
+    scene = os.path.join(work, "scene")
+    ws_dir = os.path.join(work, "train_ws")
+    argv = [scene, "--field_type", "mlp", "--data_type", "llff",
+            "--workspace", ws_dir, "--seed", "0", "--iters",
+            str(TRAIN_STEPS), "--eval_cnt", "1", "--save_cnt", "1"]
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    n = trainer.state.step
+    assert trainer.cfg.num_rays == BATCH, trainer.cfg.num_rays
+    print(f"[train] CLI: {n} steps of {trainer.cfg.num_rays} rays, eval and "
+          f"checkpoints in {dt:.2f} s; launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items()), flush=True)
+    assert n == TRAIN_STEPS, n
+    assert launches["K1"] == 2 * n and launches["K2"] == 2 * n, launches
+    assert launches["K4"] == n, launches
+    assert launches["K5"] > 0 and launches["K5"] % 2 == 0, launches
+    assert launches["K3"] == n + launches["K5"] // 2, launches
+    losses = trainer.stats["loss"]
+    assert losses and all(np.isfinite(losses)), losses
+    ckpts = sorted(os.listdir(os.path.join(ws_dir, "checkpoints")))
+    assert f"step_{n:08d}.pt" in ckpts and "best.pt" in ckpts, ckpts
+    assert os.path.exists(os.path.join(ws_dir, "validation", "v00_rgb.png"))
+    print(f"[train] losses by epoch {losses}; checkpoints {ckpts}",
+          flush=True)
+
+    # step rate: host clock around synchronised steps, batches sampled as
+    # the trainer samples them (steps past iters only lower the lr)
+    state, cfg = trainer.state, trainer.cfg
+    scene_t = train_tensors(scene, trainer.device)
+    gen = torch.Generator(trainer.device).manual_seed(1)
+
+    def step():
+        batch = sample_rgb_batch(gen, *scene_t, cfg.num_rays,
+                                 random_image_batch=cfg.random_image_batch)
+        return trainer.train_step(state, batch, gen)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        m = step()
+    torch.cuda.synchronize()
+    sps = reps / (time.perf_counter() - t0)
+    assert np.isfinite(float(m["loss"]))
+    print(f"[train] {sps:.3f} steps/s at {cfg.num_rays} rays a step "
+          f"({1e3 / sps:.2f} ms a step, mean of {reps} after 3 warm-up)",
+          flush=True)
+
+    resumed = cli.main([scene, "--test", "--field_type", "mlp", "--data_type",
+                        "llff", "--workspace", ws_dir])
+    assert resumed.resumed and resumed.state.step == n, resumed.state.step
+    print(f"[train] --test resumed at step {resumed.state.step}", flush=True)
+    return trainer, launches, sps
+
+
+def train_tensors(scene, dev):
+    """(images, poses, intrinsics) of the scene's training views on dev."""
+    s = load_scene(scene, "llff")
+    idx = split_indices(s.poses.shape[0], "train")
+    return tuple(torch.as_tensor(np.asarray(x[idx], np.float32), device=dev)
+                 for x in (s.images, s.poses, s.intrinsics))
+
+
+def grad_parity(trainer, scene):
+    """Phase 6: level-kernel route against the composable route, grads of
+    the training loss on one 8192-ray batch at step 2000."""
+    cfg, model = trainer.cfg, trainer.model
+    gen = torch.Generator(trainer.device).manual_seed(2)
+    batch = sample_rgb_batch(gen, *train_tensors(scene, trainer.device),
+                             BATCH, random_image_batch=True)
+    params = [p for _, p in model.named_parameters()]
+    grads = {}
+    for route in (True, False):
+        loss_fn = make_rgb_train_step(model, cfg, perturb=False,
+                                      level_kernels=route).loss_fn
+        loss, _ = loss_fn(batch, 2000, True)
+        grads[route] = torch.autograd.grad(loss, params)
+    per_leaf = {}
+    for (name, _), a, b_ in zip(model.named_parameters(), grads[True],
+                                grads[False]):
+        nb = b_.norm().item()
+        if nb <= 1e-9:
+            continue
+        per_leaf[name] = ((a - b_).norm() / nb).item()
+    worst = max(per_leaf, key=per_leaf.get)
+    ranked = sorted(per_leaf.items(), key=lambda kv: -kv[1])
+    print("[parity] per-leaf rel-L2, kernel vs composable route: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ranked), flush=True)
+    print(f"[parity] worst {worst} {per_leaf[worst]:.4f} (<= 0.05)",
+          flush=True)
+    assert per_leaf[worst] <= 0.05, (worst, per_leaf[worst])
+    assert len(per_leaf) == len(params), sorted(per_leaf)
+    return per_leaf
+
+
 def main():
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
@@ -277,19 +568,29 @@ def main():
                        cp_rank=64, cp_res=256)
     with torch.inference_mode():
         kernels = check_kernels(field)
+        kernels.update(check_train_kernels(field))
+    kernels["K3"]["train_shape_ms"] = kernels.pop("K3_train_ms")
     launches, mrays = main_path(work)
+    trainer, train_launches, sps = train_path(work)
+    parity = grad_parity(trainer, os.path.join(work, "scene"))
 
-    # K5 numbers are per chunk: the sum of its two launches (per_shape has
-    # each); K3 launches once a chunk
-    report = [
-        {"name": "fused_prop_level_sample", "route": "cuda", "source": SOURCE,
-         "replaces": f"{TPU_FILE}:258", "launches": launches["K5"],
-         "library_ms": None, **kernels["K5"]},
-        {"name": "fused_final_level", "route": "cuda", "source": SOURCE,
-         "replaces": f"{TPU_FILE}:695", "launches": launches["K3"],
-         "library_ms": None, **kernels["K3"]},
-    ]
-    print(json.dumps({"kernels": report, "render_mrays_per_s": mrays}))
+    # K5, K1 and K2 numbers are the sums over both proposal levels
+    # (per_shape has each); K5 and K3 launches are the inference path's,
+    # K1, K2 and K4 the training path's (K3 also ran there once a step)
+    rows = (("K5", "fused_prop_level_sample", SOURCE, 258, launches),
+            ("K3", "fused_final_level", SOURCE, 695, launches),
+            ("K1", "fused_prop_level_sample_train", SOURCE, 415,
+             train_launches),
+            ("K2", "fused_prop_level_bwd", SOURCE_BWD, 861, train_launches),
+            ("K4", "fused_final_level_bwd", SOURCE_BWD, 754, train_launches))
+    report = [{"name": name, "route": "cuda", "source": src,
+               "replaces": f"{TPU_FILE}:{line}", "launches": counts[kid],
+               "library_ms": None, **kernels[kid]}
+              for kid, name, src, line, counts in rows]
+    print(json.dumps({"kernels": report, "render_mrays_per_s": mrays,
+                      "train_steps_per_s": sps,
+                      "train_launches": train_launches,
+                      "grad_parity_worst_rel_l2": max(parity.values())}))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

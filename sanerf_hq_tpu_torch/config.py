@@ -1,8 +1,8 @@
-"""Static configuration: the `Config` fields the inference slice reads.
+"""Static configuration: the `Config` fields the stage-1 path reads.
 
 A copy of the matching fields of the JAX package's `Config` (defaults
-unchanged, including the post-parse hard overrides bound=128 and
-contract=True), plus `device`.
+unchanged, including the post-parse hard overrides bound=128,
+contract=True and adaptive_num_rays=True), plus `device`.
 """
 from __future__ import annotations
 
@@ -16,27 +16,46 @@ class Config:
     path: str = ""
     workspace: str = "workspace"
     seed: int = 0
-    ckpt: str = ""  # .npz of JAX parameters (models/convert.py); "" = seeded init
+    # "latest": resume <workspace>/checkpoints; a .npz of JAX parameters
+    # (models/convert.py); else a seeded init
+    ckpt: str = "latest"
 
     # testing
+    save_cnt: int = 20
+    eval_cnt: int = 5
     test: bool = False
 
     # dataset
+    train_split: str = "train"
     test_split: str = "val"
+    random_image_batch: bool = False
     val_type: str = "default"
     downscale: int = 1
     bound: float = 128.0
     scale: float = -1.0
     offset: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    enable_cam_near_far: bool = False
     enable_cam_center: bool = False
     min_near: float = 0.2
     data_type: str = "mip"
 
-    # rendering
+    # training
+    iters: int = 20000
+    lr: float = 1e-2
     num_steps: Tuple[int, ...] = (128, 64, 32)
     contract: bool = True
     background: str = "last_sample"  # white | random | last_sample
     max_ray_batch: int = 4096 * 4
+    num_rays: int = 4096
+    adaptive_num_rays: bool = True  # forced: num_rays = num_points / T_final
+    num_points: int = 2 ** 18
+
+    # regularizers
+    lambda_entropy: float = 0.0
+    lambda_proposal: float = 1.0
+    lambda_distort: float = 0.02
+    # ramp lambda_distort in over [w, 2w] steps; 0 = active from step 0
+    lambda_distort_warmup: int = 1000
 
     # field
     field_type: str = "hashgrid"

@@ -1,12 +1,16 @@
 // Render-level kernels for NVIDIA Hopper (sm_90a): the proposal level with
-// in-kernel inverse-CDF resampling (K5) and the final level with in-kernel
-// CP line features (K3).  Bound to Python through ctypes
-// (sanerf_hq_tpu_torch/ops/render_level.py); plain C interface, no PyTorch
-// headers.
+// in-kernel inverse-CDF resampling (K5, and K1 with its weights output) and
+// the final level with in-kernel CP line features (K3).  Bound to Python
+// through ctypes (sanerf_hq_tpu_torch/ops/render_level.py); plain C
+// interface, no PyTorch headers.  Shared device code:
+// render_level_common.cuh.
 //
 // Replaces (JAX reference, sanerf_hq_tpu/ops/render_level_pallas.py):
 //   K5  _make_prop_sample_kernel(weights_out=False)  (:258), reached through
 //       fused_prop_level_sample (:336)
+//   K1  _make_prop_sample_kernel(weights_out=True)   (:258), reached through
+//       prop_level_train_sample (:449) -> _prop_level_sample_train_impl
+//       (:391); the same kernel as K5 with the raw weights stored
 //   K3  _make_final_train_kernel                     (:695), reached through
 //       fused_final_level (:64) -> _final_train_fwd_impl (:968)
 //
@@ -24,146 +28,21 @@
 //   4. one thread per ray for the sequential transmittance loop, carried in
 //      registers across passes;
 //   5. (K5) per-ray cdf, prefix-max / suffix-min of the s-bins in shared
-//      memory, then one thread per (ray, query) binary search.
+//      memory, then one thread per (ray, query) binary search.  K1 also
+//      stores each raw weight (1-e)*trans; the cdf adds the 0.01 floor to
+//      it with __fadd_rn, so K1's bins are K5's bit for bit.
 // What bounds it on this card: K3 is tensor-core work (about 2e5 MAC a
 // sample against a few hundred bytes of I/O); K5 is tensor-core work plus
 // sin/cos and the serial compositing loop.  This first version keeps all
 // activations of a pass on chip, so device memory traffic is inputs and
 // outputs only; it does not yet use wgmma/TMA or overlap weight loads.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "render_level_common.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace sanerf;
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int P = 128;       // points per pass
-constexpr int MT = P / 16;   // 16-row tiles per pass
-constexpr int OUT = 16;      // padded width of the last layer
-constexpr int GEO = 15;      // geometry features composited by K3
-constexpr int SHD = 16;      // SH width (degree 4)
-constexpr size_t SMEM_LIMIT = 232448;
-
-// C[P x n] = A[P x k] * W^T.  A: bf16 in shared memory (row-major, lda);
-// W: [n x k] bf16 row-major in global memory, i.e. B col-major with ld k.
-// With O set, writes relu(C) as bf16 into O (ldo); else C as fp32 into F.
-__device__ void dense(const bf16* A, int lda, int k, const bf16* W, int n,
-                      bf16* O, int ldo, float* F, int ldf, float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ntiles = n / 16;
-  int wpn = 1;  // warps sharing one column tile (power of two dividing MT)
-  while (wpn * 2 * ntiles <= NWARPS && wpn * 2 <= MT) wpn *= 2;
-  const int mper = MT / wpn;
-  const int units = ntiles * wpn;
-  for (int u = warp; u < units; u += NWARPS) {
-    const int nt = u / wpn, m0 = (u % wpn) * mper;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-      if (i < mper) wmma::fill_fragment(acc[i], 0.0f);
-    const bf16* wt = W + (size_t)nt * 16 * k;
-    for (int kt = 0; kt < k; kt += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, wt + kt, k);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        if (i < mper) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, A + (m0 + i) * 16 * lda + kt, lda);
-          wmma::mma_sync(acc[i], a, b, acc[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      if (i < mper) {
-        wmma::store_matrix_sync(scratch, acc[i], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = (m0 + i) * 16 + (e >> 4), c = nt * 16 + (e & 15);
-          const float v = scratch[e];
-          if (O) O[r * ldo + c] = __float2bfloat16(fmaxf(v, 0.0f));
-          else F[r * ldf + c] = v;
-        }
-        __syncwarp();
-      }
-    }
-  }
-}
-
-// Midpoint, width and contracted / grid_bound position of one sample.
-__device__ __forceinline__ void geometry(const float* o, const float* d,
-                                         float b0, float b1, float grid_bound,
-                                         float* xn, float& t, float& delta) {
-  t = (b0 + b1) * 0.5f;
-  delta = b1 - b0;
-  float x[3], ax[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    x[i] = o[i] + d[i] * t;
-    ax[i] = fabsf(x[i]);
-  }
-  const float mag = fmaxf(fmaxf(ax[0], ax[1]), ax[2]);
-  const float inv = 1.0f / fmaxf(mag, 1e-38f);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float scale = ax[i] == mag ? (2.0f - inv) * inv : inv;
-    xn[i] = (mag < 1.0f ? x[i] : x[i] * scale) / grid_bound;
-  }
-}
-
-// Geometry of the pass's points (threads < P), then the block freq rows
-// [x | sin | cos] (3 + 6*deg columns) of each point into row q of `X`.
-__device__ void build_geometry_freq(const float* rays_o, const float* rays_d,
-                                    const float* bins, int n_rays, int T,
-                                    int ray0, int total_pts, int p0, int deg,
-                                    float grid_bound, float* xn, float* tt,
-                                    float* dl, bf16* X, int ldX) {
-  const int tid = threadIdx.x;
-  if (tid < P) {
-    const int gp = p0 + tid, r = gp / T, s = gp - r * T, ray = ray0 + r;
-    float o[3] = {0.f, 0.f, 0.f}, d[3] = {0.f, 0.f, 0.f}, b0 = 0.f, b1 = 0.f;
-    if (gp < total_pts && ray < n_rays) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        o[i] = rays_o[(size_t)ray * 3 + i];
-        d[i] = rays_d[(size_t)ray * 3 + i];
-      }
-      b0 = bins[(size_t)ray * (T + 1) + s];
-      b1 = bins[(size_t)ray * (T + 1) + s + 1];
-    }
-    geometry(o, d, b0, b1, grid_bound, xn + tid * 3, tt[tid], dl[tid]);
-  }
-  __syncthreads();
-  const int F3 = 3 * deg, per = 3 + F3;
-  for (int item = tid; item < P * per; item += NTHREADS) {
-    const int q = item / per, j = item - q * per;
-    bf16* row = X + q * ldX;
-    if (j < 3) {
-      row[j] = __float2bfloat16(xn[q * 3 + j]);
-    } else {
-      const int idx = j - 3, k = idx / 3, dd = idx - 3 * k;
-      float sv, cv;
-      sincosf(ldexpf(xn[q * 3 + dd], k), &sv, &cv);
-      row[3 + idx] = __float2bfloat16(sv);
-      row[3 + F3 + idx] = __float2bfloat16(cv);
-    }
-  }
-}
-
-// Zero columns [c0, c1) of the pass's rows: padding must not hold NaN bits.
-__device__ void zero_cols(bf16* X, int ldX, int c0, int c1) {
-  const int w = c1 - c0;
-  for (int item = threadIdx.x; item < P * w; item += NTHREADS) {
-    const int q = item / w;
-    X[q * ldX + c0 + (item - q * w)] = __float2bfloat16(0.0f);
-  }
-}
+constexpr int P = 128;  // points per pass
 
 struct FinalParams {
   const float *rays_o, *rays_d, *bins, *sh;
@@ -189,7 +68,7 @@ final_level_kernel(FinalParams p) {
   float* xn = scratch + NWARPS * 256;
   float* tt = xn + P * 3;
   float* dl = tt + P;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int ray0 = blockIdx.x * R, total_pts = R * T;
   const int nf = 3 + 6 * p.deg;  // freq columns; CP columns follow
   bf16* hin = X + H;
@@ -199,44 +78,20 @@ final_level_kernel(FinalParams p) {
   for (int c = 0; c < GEO; ++c) fe[c] = 0.0f;
 
   for (int p0 = 0; p0 < total_pts; p0 += P) {
-    build_geometry_freq(p.rays_o, p.rays_d, p.bins, p.n_rays, T, ray0,
-                        total_pts, p0, p.deg, p.grid_bound, xn, tt, dl, hin,
-                        ldX);
-    zero_cols(hin, ldX, nf + p.rank, KIN);
-    // CP line features: a warp per point, lanes over the rank
-    for (int q = warp; q < P && p.rank > 0; q += NWARPS) {
-      int i0[3];
-      float f[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float pp =
-            fminf(fmaxf((xn[q * 3 + a] + 1.0f) * 0.5f, 0.0f), 1.0f) *
-            (float)(p.res - 1);
-        const float fl = fminf(fmaxf(floorf(pp), 0.0f), (float)(p.res - 2));
-        i0[a] = (int)fl;
-        f[a] = pp - fl;
-      }
-      for (int r = lane; r < p.rank; r += 32) {
-        float g = 1.0f;
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float* B = p.cp[a];
-          const float la = B[(size_t)i0[a] * p.rank + r] * (1.0f - f[a]) +
-                           B[(size_t)(i0[a] + 1) * p.rank + r] * f[a];
-          g = a == 0 ? la : g * la;
-        }
-        hin[q * ldX + nf + r] = __float2bfloat16(g);
-      }
-    }
+    build_geometry_freq<P>(p.rays_o, p.rays_d, p.bins, p.n_rays, T, ray0,
+                           total_pts, p0, p.deg, p.grid_bound, xn, tt, dl,
+                           hin, ldX);
+    zero_cols<P>(hin, ldX, nf + p.rank, KIN);
+    build_cp<P>(p.cp, p.rank, p.res, xn, hin, ldX, nf);
     __syncthreads();
     float* ws = scratch + warp * 256;
-    dense(hin, ldX, KIN, p.w0, H, Y, ldY, nullptr, 0, ws);
+    dense<P>(hin, ldX, KIN, p.w0, H, Y, ldY, nullptr, 0, ws);
     __syncthreads();
-    dense(Y, ldY, H, p.w1, H, X, ldX, nullptr, 0, ws);
+    dense<P>(Y, ldY, H, p.w1, H, X, ldX, nullptr, 0, ws);
     __syncthreads();
-    dense(X, ldX, H + KIN, p.w2, H, Y, ldY, nullptr, 0, ws);
+    dense<P>(X, ldX, H + KIN, p.w2, H, Y, ldY, nullptr, 0, ws);
     __syncthreads();
-    dense(Y, ldY, H, p.w3, OUT, nullptr, 0, F, OUT, ws);
+    dense<P>(Y, ldY, H, p.w3, OUT, nullptr, 0, F, OUT, ws);
     __syncthreads();
     if (tid < R && ray0 + tid < p.n_rays) {
       const int ray = ray0 + tid;
@@ -272,7 +127,7 @@ final_level_kernel(FinalParams p) {
 struct PropParams {
   const float *rays_o, *rays_d, *bins, *s_bins, *u;
   const bf16 *w0, *w1, *w2;
-  float* out;
+  float *out, *weights;  // weights [N, T] raw (K1) or null (K5)
   int n_rays, T, Q, deg, hidden, kin, rays_per_cta, opaque_last;
   float grid_bound, db;
 };
@@ -302,17 +157,17 @@ prop_level_sample_kernel(PropParams p) {
 
   float trans = 1.0f, total = 0.0f;
   for (int p0 = 0; p0 < total_pts; p0 += P) {
-    build_geometry_freq(p.rays_o, p.rays_d, p.bins, p.n_rays, T, ray0,
-                        total_pts, p0, p.deg, p.grid_bound, xn, tt, dl, X,
-                        ldX);
-    zero_cols(X, ldX, 3 + 6 * p.deg, KIN);
+    build_geometry_freq<P>(p.rays_o, p.rays_d, p.bins, p.n_rays, T, ray0,
+                           total_pts, p0, p.deg, p.grid_bound, xn, tt, dl, X,
+                           ldX);
+    zero_cols<P>(X, ldX, 3 + 6 * p.deg, KIN);
     __syncthreads();
     float* ws = scratch + warp * 256;
-    dense(X, ldX, KIN, p.w0, H, Y, ldY, nullptr, 0, ws);
+    dense<P>(X, ldX, KIN, p.w0, H, Y, ldY, nullptr, 0, ws);
     __syncthreads();
-    dense(Y, ldY, H, p.w1, H, X, ldX, nullptr, 0, ws);
+    dense<P>(Y, ldY, H, p.w1, H, X, ldX, nullptr, 0, ws);
     __syncthreads();
-    dense(X, ldX, H, p.w2, OUT, nullptr, 0, F, OUT, ws);
+    dense<P>(X, ldX, H, p.w2, OUT, nullptr, 0, F, OUT, ws);
     __syncthreads();
     if (tid < R && ray0 + tid < p.n_rays) {
       const int lo = max(p0, tid * T), hi = min(p0 + P, (tid + 1) * T);
@@ -322,7 +177,9 @@ prop_level_sample_kernel(PropParams p) {
             expf(fminf(fmaxf(F[q * OUT] + p.db, -30.0f), 15.0f));
         const float e =
             (p.opaque_last && s == T - 1) ? 0.0f : expf(-dl[q] * sigma);
-        const float w = (1.0f - e) * trans + 0.01f;
+        const float wr = (1.0f - e) * trans;
+        if (p.weights) p.weights[(size_t)(ray0 + tid) * T + s] = wr;
+        const float w = __fadd_rn(wr, 0.01f);
         wb[tid * T + s] = w;
         total += w;
         trans *= e;
@@ -390,19 +247,6 @@ size_t prop_smem(int H, int KIN, int T, int R) {
          (size_t)(R * T + 3 * R * (T + 1) + R) * 4;
 }
 
-int launch_checked(const void* kernel, int grid, size_t smem,
-                   cudaStream_t stream, void* args) {
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  void* argv[] = {args};
-  err = cudaLaunchKernel(kernel, dim3(grid), dim3(NTHREADS), argv, smem,
-                         stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -438,10 +282,12 @@ int sanerf_final_level(const float* rays_o, const float* rays_d,
 
 // Weights are bf16 [out, in] padded: w0 [H, KIN], w1 [H, H], w2 [16, H]
 // (row 0 the density head); KIN = 3 + 6*deg rounded up to 16.
+// weights: [N, T] raw weights (K1) or null (K5).
 int sanerf_prop_level_sample(const float* rays_o, const float* rays_d,
                              const float* real_bins, const float* s_bins,
                              const float* u, const void* w0, const void* w1,
-                             const void* w2, float* out, int n_rays, int T,
+                             const void* w2, float* out, float* weights,
+                             int n_rays, int T,
                              int Q, int freq_degree, int hidden, int kin,
                              float grid_bound, int opaque_last,
                              float density_bias, void* stream) {
@@ -449,7 +295,7 @@ int sanerf_prop_level_sample(const float* rays_o, const float* rays_d,
   p.rays_o = rays_o; p.rays_d = rays_d; p.bins = real_bins;
   p.s_bins = s_bins; p.u = u;
   p.w0 = (const bf16*)w0; p.w1 = (const bf16*)w1; p.w2 = (const bf16*)w2;
-  p.out = out;
+  p.out = out; p.weights = weights;
   p.n_rays = n_rays; p.T = T; p.Q = Q; p.deg = freq_degree;
   p.hidden = hidden; p.kin = kin;
   p.rays_per_cta = T >= P ? 1 : P / T;

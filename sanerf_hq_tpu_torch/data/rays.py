@@ -3,6 +3,8 @@ dirs = ((x-cx)/fx, -(y-cy)/fy, -1) left unnormalised so composited depth
 is z-distance; rays_d = dirs @ R^T, rays_o = the pose translation."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -38,3 +40,13 @@ def full_frame_rays(pose, intrinsics, H: int, W: int):
                             indexing="ij")
     return rays_from_pixels(pose, intrinsics, xx.reshape(-1) + 0.5,
                             yy.reshape(-1) + 0.5)
+
+
+def sample_random_pixels(H: int, W: int, n: int, device,
+                         generator: Optional[torch.Generator] = None):
+    """n uniform pixel indices (duplicates allowed, like torch.randint) and
+    their pixel-centre coordinates.  Returns (inds [n] int64, x [n], y [n])."""
+    inds = torch.randint(0, H * W, (n,), generator=generator, device=device)
+    x = (inds % W).float() + 0.5
+    y = torch.div(inds, W, rounding_mode="floor").float() + 0.5
+    return inds, x, y

@@ -4,8 +4,10 @@ features (stage 1 only).
 Deferred colour: per-sample features are composited, then the small view
 MLP runs per ray.  Proposal densities come from small freq-encoded MLPs.
 The renderer drives the level kernels through `fused_prop_next_bins` (K5)
-and `fused_final_render` (K3); `density` / `forward_color` are the
-composable route.
+and `fused_final_render` (K3) for inference, and through
+`fused_prop_weights_train_sample` (K1, backward K2) and
+`fused_final_render_train` (K3, backward K4) for training; `density` /
+`forward_color` are the composable route.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.fused_mlp import _reference_forward, _reference_forward_with_extra
-from ..ops.render_level import (cp_features, fused_final_level,
-                                fused_prop_level_sample)
+from ..ops.render_level import (cp_features, final_level_train,
+                                fused_final_level, fused_prop_level_sample,
+                                prop_level_train_sample)
 from ..ops.sh import sh_encode
 from ..ops.trunc_exp import safe_trunc_exp
 from .mlp import MLP, uniform_fan_in_
@@ -144,19 +147,44 @@ class MLPField(nn.Module):
             self.prop_freq_degree, self.grid_bound, opaque_last=opaque_last,
             density_bias=self.density_bias)
 
+    def _final_args(self, rays_d):
+        d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        return sh_encode(d, SH_DEGREE), self.trunk.weights
+
     def fused_final_render(self, rays_o, rays_d, real_bins,
                            opaque_last: bool = True):
         """Final level in one kernel.  Returns (f_image [N, 31], depth [N],
         weights_sum [N])."""
-        d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-        sh = sh_encode(d, SH_DEGREE)
+        sh, ws = self._final_args(rays_d)
         f_image, depth, wsum, _ = fused_final_level(
-            rays_o, rays_d, real_bins, sh, self.trunk.weights,
-            self.freq_degree, skip_layer=self.num_layers // 2,
-            grid_bound=self.grid_bound, opaque_last=opaque_last,
-            density_bias=self.density_bias, cps=self.cp_basis,
-            cp_res=self.cp_res)
+            rays_o, rays_d, real_bins, sh, ws, self.freq_degree,
+            skip_layer=self.num_layers // 2, grid_bound=self.grid_bound,
+            opaque_last=opaque_last, density_bias=self.density_bias,
+            cps=self.cp_basis, cp_res=self.cp_res)
         return f_image, depth, wsum
+
+    def fused_prop_weights_train_sample(self, rays_o, rays_d, real_bins,
+                                        s_bins, u, proposal: int,
+                                        opaque_last: bool = True):
+        """Training twin of fused_prop_next_bins: (weights [N, T] for the
+        interlevel loss, next s-space edges [N, Q], non-differentiable);
+        grads reach the proposal weights through K2."""
+        mlp = self.prop_mlp_0 if proposal == 0 else self.prop_mlp_1
+        return prop_level_train_sample(
+            rays_o, rays_d, real_bins, s_bins, u, mlp.weights,
+            self.prop_freq_degree, self.grid_bound, opaque_last=opaque_last,
+            density_bias=self.density_bias)
+
+    def fused_final_render_train(self, rays_o, rays_d, real_bins,
+                                 opaque_last: bool = True):
+        """Differentiable final level (K3, backward K4).  Returns
+        (f_image [N, 31], depth [N], weights_sum [N], weights [N, T])."""
+        sh, ws = self._final_args(rays_d)
+        return final_level_train(
+            rays_o, rays_d, real_bins, sh, ws, self.freq_degree,
+            skip_layer=self.num_layers // 2, grid_bound=self.grid_bound,
+            opaque_last=opaque_last, density_bias=self.density_bias,
+            cps=self.cp_basis, cp_res=self.cp_res)
 
 
 def make_field(field_type: str = "hashgrid", device=None, seed: int = 0,

@@ -2,4 +2,4 @@ from .trunc_exp import trunc_exp, safe_trunc_exp
 from .sh import sh_encode
 from .contraction import contract
 from .ray import near_far_from_aabb, spacing_fn, spacing_fn_inv, sample_pdf
-from .composite import compute_weights
+from .composite import compute_weights, distort_loss, proposal_loss

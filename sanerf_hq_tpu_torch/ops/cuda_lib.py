@@ -2,11 +2,11 @@
 load them with ctypes.
 
 Each `csrc/<name>.cu` becomes `build/lib<name>_<hash>.so` at the repository
-root (the hash covers the source and the flags, so an edit rebuilds).  The
-sources have a plain C interface and include no PyTorch header, so a build
-takes seconds.  Nothing is built when a module is imported: the first
-launch builds, and `build_all()` builds every source at once, one nvcc
-process each.
+root (the hash covers the source, the shared `csrc/*.cuh` headers and the
+flags, so an edit rebuilds).  The sources have a plain C interface and
+include no PyTorch header, so a build takes seconds.  Nothing is built when
+a module is imported: the first launch builds, and `build_all()` builds
+every source at once, one nvcc process each.
 """
 from __future__ import annotations
 
@@ -41,6 +41,8 @@ def sources() -> List[str]:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 

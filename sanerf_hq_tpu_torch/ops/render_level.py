@@ -1,18 +1,27 @@
-"""Render-level kernels: the proposal level with inverse-CDF resampling (K5)
-and the final level with CP line features (K3), each a hand-written CUDA
-kernel (`csrc/render_level.cu`) with a plain PyTorch twin beside it.
+"""Render-level kernels, each a hand-written CUDA kernel with a plain
+PyTorch twin beside its wrapper:
+  K5 `fused_prop_level_sample`: proposal level + inverse-CDF resampling
+     (inference); K1 `fused_prop_level_sample_train`: the same kernel that
+     also writes the raw weights (csrc/render_level.cu);
+  K3 `fused_final_level`: final level with CP line features, the inference
+     and the training forward (csrc/render_level.cu);
+  K2 `fused_prop_level_bwd`, K4 `fused_final_level_bwd`: their weight grads
+     (csrc/render_level_bwd.cu).
+The training entry points are the autograd Functions `prop_level_train_sample`
+(forward K1, backward K2) and `final_level_train` (forward K3, backward K4);
+gradients flow only to the MLP weights and CP bases.
 
-The wrappers keep the JAX names (`fused_prop_level_sample`,
-`fused_final_level`).  A CPU tensor goes to the plain twin, and only a CPU
-tensor; a CUDA tensor launches the kernel or raises.  Each wrapper counts
-its kernel launches in its `launches` attribute.
+The wrappers keep the JAX names.  A CPU tensor goes to the plain twin, and
+only a CPU tensor; a CUDA tensor launches the kernel or raises.  Each
+wrapper counts its kernel launches in its `launches` attribute.
 
 Weights are in the port's [out, in] layout.  The twins repeat the kernels'
 arithmetic: bf16 operands emulated as `x.to(torch.bfloat16).float()`, fp32
-sums, the sequential transmittance product, and the resampling lookup
-against the unnormalised running sum.  On the card they need
-`torch.backends.cuda.matmul.allow_tf32 = False` (PyTorch's default) to stay
-fp32.
+sums, the sequential transmittance product, the resampling lookup against
+the unnormalised running sum, and in the backward the closed-form
+compositing backward with the reference's rounding points.  On the card
+they need `torch.backends.cuda.matmul.allow_tf32 = False` (PyTorch's
+default) to stay fp32.
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ import torch
 
 from . import cuda_lib
 from .contraction import contract
-from .fused_mlp import _reference_forward, _reference_forward_with_extra
+from .fused_mlp import bf16_round, trunk_input, trunk_with_inputs
 
 GEO = 15  # geometry features the final level composites
 SH_DIM = 16
@@ -49,40 +58,57 @@ def _segment_trans(delta, sigma, s, opaque_last):
     return torch.exp(-delta[:, s] * sigma[:, s])
 
 
-def cp_features(xn, cps, cp_res: int):
-    """Linear-interp CP line features, product over axes: xn [..., 3] in
-    [-1, 1], cps three [cp_res, rank] bases -> [..., rank].  A two-tap
-    gather; `f` reaches 1 at the top edge."""
+def _cp_lines(xn, cps, cp_res: int):
+    """Linear-interp taps and line factors of the three CP axes: (lines
+    [..., rank] x3, lower rows i0 [..., 3], upper weights f [..., 3]); `f`
+    reaches 1 at the top edge."""
     p = ((xn + 1.0) * 0.5).clamp(0.0, 1.0) * (cp_res - 1)
     i0 = torch.floor(p).clamp(0.0, cp_res - 2.0)
     f = p - i0
     i0 = i0.long()
-    g = None
-    for a in range(3):
-        fa = f[..., a, None]
-        la = cps[a][i0[..., a]] * (1.0 - fa) + cps[a][i0[..., a] + 1] * fa
-        g = la if g is None else g * la
-    return g
+    lines = [cps[a][i0[..., a]] * (1.0 - f[..., a, None])
+             + cps[a][i0[..., a] + 1] * f[..., a, None] for a in range(3)]
+    return lines, i0, f
+
+
+def cp_features(xn, cps, cp_res: int):
+    """CP line features, product over axes: xn [..., 3] in [-1, 1], cps
+    three [cp_res, rank] bases -> [..., rank].  A two-tap gather."""
+    lines, _, _ = _cp_lines(xn, cps, cp_res)
+    return lines[0] * lines[1] * lines[2]
+
+
+def _trunk_input(xn, freq_degree: int, cps=(), cp_res: int = 0):
+    """bf16-valued layer-0 input [freq(xn) | CP features] and the CP line
+    factors and taps (None without CP)."""
+    if not cps:
+        return trunk_input(xn, freq_degree), None
+    lines, i0, f = _cp_lines(xn, cps, cp_res)
+    extra = lines[0] * lines[1] * lines[2]
+    return trunk_input(xn, freq_degree, extra), (lines, i0, f)
 
 
 # ---------------------------------------------------------------------------
-# K5: proposal level + inverse-CDF resampling (inference)
+# K5 and K1: proposal level + inverse-CDF resampling (K1 adds the weights)
 # ---------------------------------------------------------------------------
 
-def prop_level_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
-                          ws: Sequence, freq_degree: int, grid_bound: float,
-                          opaque_last: bool = True, density_bias: float = 0.0):
-    """Plain twin of K5.  Returns the next level's s-space edges [N, Q]."""
+def prop_level_train_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
+                                ws: Sequence, freq_degree: int,
+                                grid_bound: float, opaque_last: bool = True,
+                                density_bias: float = 0.0):
+    """Plain twin of K1.  Returns (raw weights [N, T] without the 0.01
+    floor, next s-space edges [N, Q])."""
     T = real_bins.shape[1] - 1
     _, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
-    raw = _reference_forward(xn, ws, freq_degree, -1)[..., 0]
+    raw = trunk_with_inputs(_trunk_input(xn, freq_degree)[0], ws, -1)[0][..., 0]
     sigma = _density(raw, density_bias)
     trans = torch.ones_like(sigma[:, 0])
     total = torch.zeros_like(trans)
-    w = []
+    w_raw, w = [], []
     for s in range(T):
         e = _segment_trans(delta, sigma, s, opaque_last)
-        w.append((1.0 - e) * trans + 0.01)
+        w_raw.append((1.0 - e) * trans)
+        w.append(w_raw[-1] + 0.01)
         total = total + w[-1]
         trans = trans * e
     c = [torch.zeros_like(total)]
@@ -103,7 +129,16 @@ def prop_level_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
     denom = c_g1 - c_g0
     t = torch.where(denom > 0,
                     (ut - c_g0) / torch.where(denom > 0, denom, 1.0), 0.0)
-    return s_g0 + t.clamp(0.0, 1.0) * (s_g1 - s_g0)
+    return torch.stack(w_raw, dim=1), s_g0 + t.clamp(0.0, 1.0) * (s_g1 - s_g0)
+
+
+def prop_level_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
+                          ws: Sequence, freq_degree: int, grid_bound: float,
+                          opaque_last: bool = True, density_bias: float = 0.0):
+    """Plain twin of K5.  Returns the next level's s-space edges [N, Q]."""
+    return prop_level_train_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
+                                       ws, freq_degree, grid_bound,
+                                       opaque_last, density_bias)[1]
 
 
 def _round16(n: int) -> int:
@@ -139,13 +174,71 @@ def _stream(device):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _prop_lib():
-    lib = cuda_lib.load("render_level")
-    fn = lib.sanerf_prop_level_sample
+def _fn(source: str, name: str, n_ptr: int, n_int: int):
+    """The C launch function `name` of csrc/<source>.cu with its argtypes:
+    n_ptr pointers, n_int ints, then grid_bound, opaque_last, density_bias
+    and the stream."""
+    lib = cuda_lib.load(source)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 9 + [_I] * 6 + [_F, _I, _F, _P]
+        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_F, _I, _F, _P]
         fn.restype = _I
     return lib, fn
+
+
+def _max_ctas(device) -> int:
+    """CTAs of the backward kernels: one per SM, each with its own dW slab."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _device(x):
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device
+
+
+def _prop_weights(ws, freq_degree: int, dev, what: str):
+    """Checks and bf16-pads the proposal weights as K1, K2 and K5 take
+    them: w0 [H, KIN], w1 [H, H], w2 [16, H]."""
+    if len(ws) != 3:
+        raise ValueError(f"the {what} kernel takes a 3-layer proposal MLP")
+    H, nf = ws[0].shape[0], 3 + 6 * freq_degree
+    if H % 16 or H > 256:
+        raise ValueError(f"unsupported {what} shape: hidden {H}")
+    for name, x, shape in (("ws[0]", ws[0], (H, nf)), ("ws[1]", ws[1], (H, H)),
+                           ("ws[2]", ws[2], (1, H))):
+        _check(name, x, shape, dev)
+    kin = _round16(nf)
+    return (_bf16_padded(ws[0], H, kin), ws[1].to(torch.bfloat16).contiguous(),
+            _bf16_padded(ws[2], 16, H)), H, kin
+
+
+def _launch_prop_sample(rays_o, rays_d, real_bins, s_bins, u, ws,
+                        freq_degree, grid_bound, opaque_last, density_bias,
+                        weights_out: bool, what: str):
+    """K5 (weights_out False) or K1 on CUDA tensors: (weights or None,
+    next s-edges)."""
+    dev = _device(rays_o)
+    N, T, Q = rays_o.shape[0], real_bins.shape[1] - 1, u.shape[1]
+    if T < 1 or Q < 1:
+        raise ValueError(f"unsupported {what} shape: T {T}, Q {Q}")
+    for name, x, shape in (("rays_o", rays_o, (N, 3)),
+                           ("rays_d", rays_d, (N, 3)),
+                           ("real_bins", real_bins, (N, T + 1)),
+                           ("s_bins", s_bins, (N, T + 1)), ("u", u, (N, Q))):
+        _check(name, x, shape, dev)
+    (w0, w1, w2), H, kin = _prop_weights(ws, freq_degree, dev, what)
+    out = torch.empty((N, Q), dtype=torch.float32, device=dev)
+    weights = (torch.empty((N, T), dtype=torch.float32, device=dev)
+               if weights_out else None)
+    lib, fn = _fn("render_level", "sanerf_prop_level_sample", 10, 6)
+    rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(s_bins),
+            _ptr(u), _ptr(w0), _ptr(w1), _ptr(w2), _ptr(out),
+            ctypes.c_void_p(0) if weights is None else _ptr(weights), N, T,
+            Q, freq_degree, H, kin, grid_bound, int(opaque_last),
+            density_bias, _stream(dev))
+    cuda_lib.check(lib, rc, what)
+    return weights, out
 
 
 def fused_prop_level_sample(rays_o, rays_d, real_bins, s_bins, u,
@@ -163,38 +256,37 @@ def fused_prop_level_sample(rays_o, rays_d, real_bins, s_bins, u,
         return prop_level_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
                                      ws, freq_degree, grid_bound,
                                      opaque_last, density_bias)
-    dev = rays_o.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    N, T, Q = rays_o.shape[0], real_bins.shape[1] - 1, u.shape[1]
-    if len(ws) != 3:
-        raise ValueError("the K5 kernel takes a 3-layer proposal MLP")
-    H, nf = ws[0].shape[0], 3 + 6 * freq_degree
-    if H % 16 or H > 256 or T < 1 or Q < 1:
-        raise ValueError(f"unsupported K5 shape: hidden {H}, T {T}, Q {Q}")
-    for name, x, shape in (("rays_o", rays_o, (N, 3)),
-                           ("rays_d", rays_d, (N, 3)),
-                           ("real_bins", real_bins, (N, T + 1)),
-                           ("s_bins", s_bins, (N, T + 1)), ("u", u, (N, Q)),
-                           ("ws[0]", ws[0], (H, nf)), ("ws[1]", ws[1], (H, H)),
-                           ("ws[2]", ws[2], (1, H))):
-        _check(name, x, shape, dev)
-    kin = _round16(nf)
-    w0 = _bf16_padded(ws[0], H, kin)
-    w1 = ws[1].to(torch.bfloat16).contiguous()
-    w2 = _bf16_padded(ws[2], 16, H)
-    out = torch.empty((N, Q), dtype=torch.float32, device=dev)
-    lib, fn = _prop_lib()
-    rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(s_bins),
-            _ptr(u), _ptr(w0), _ptr(w1), _ptr(w2), _ptr(out), N, T, Q,
-            freq_degree, H, kin, grid_bound, int(opaque_last), density_bias,
-            _stream(dev))
-    cuda_lib.check(lib, rc, "fused_prop_level_sample")
+    _, out = _launch_prop_sample(rays_o, rays_d, real_bins, s_bins, u, ws,
+                                 freq_degree, grid_bound, opaque_last,
+                                 density_bias, False,
+                                 "fused_prop_level_sample")
     fused_prop_level_sample.launches += 1
     return out
 
 
 fused_prop_level_sample.launches = 0
+
+
+def fused_prop_level_sample_train(rays_o, rays_d, real_bins, s_bins, u,
+                                  ws: Sequence, freq_degree: int,
+                                  grid_bound: float, opaque_last: bool = True,
+                                  density_bias: float = 0.0):
+    """K1: K5 that also writes the raw per-sample weights (no 0.01 floor)
+    for the interlevel loss.  Returns (weights [N, T], next s-edges
+    [N, Q])."""
+    if rays_o.device.type == "cpu":
+        return prop_level_train_sample_ref(rays_o, rays_d, real_bins, s_bins,
+                                           u, ws, freq_degree, grid_bound,
+                                           opaque_last, density_bias)
+    out = _launch_prop_sample(rays_o, rays_d, real_bins, s_bins, u, ws,
+                              freq_degree, grid_bound, opaque_last,
+                              density_bias, True,
+                              "fused_prop_level_sample_train")
+    fused_prop_level_sample_train.launches += 1
+    return out
+
+
+fused_prop_level_sample_train.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -209,12 +301,8 @@ def final_level_ref(rays_o, rays_d, real_bins, sh, ws: Sequence,
     weights_sum [N], weights [N, T])."""
     T = real_bins.shape[1] - 1
     t, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
-    if cps:
-        extra = cp_features(xn, cps, cp_res)
-        h = _reference_forward_with_extra(xn, extra, ws, freq_degree,
-                                          skip_layer)
-    else:
-        h = _reference_forward(xn, ws, freq_degree, skip_layer)
+    h_in, _ = _trunk_input(xn, freq_degree, cps, cp_res)
+    h, _ = trunk_with_inputs(h_in, ws, skip_layer)
     sigma = _density(h[..., 0], density_bias)
     trans = torch.ones_like(sigma[:, 0])
     f_feat = torch.zeros_like(h[:, 0, 1:])
@@ -233,13 +321,28 @@ def final_level_ref(rays_o, rays_d, real_bins, sh, ws: Sequence,
     return f_image, depth, wsum, torch.stack(weights, dim=1)
 
 
-def _final_lib():
-    lib = cuda_lib.load("render_level")
-    fn = lib.sanerf_final_level
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 15 + [_I] * 7 + [_F, _I, _F, _P]
-        fn.restype = _I
-    return lib, fn
+def _final_weights(ws, cps, cp_res, freq_degree, skip_layer, dev, what):
+    """Checks and bf16-pads the trunk as K3 and K4 take it: w0 [H, KIN],
+    w1 [H, H], w2 [H, H+KIN] (columns [act | h_in]), w3 [16, H]."""
+    rank = cps[0].shape[1] if cps else 0
+    if len(ws) != 4 or skip_layer != 2:
+        raise ValueError(f"the {what} kernel takes a 4-layer trunk with its "
+                         "skip at layer 2")
+    H, nin = ws[0].shape[0], 3 + 6 * freq_degree + rank
+    kin = _round16(nin)
+    if H % 16 or H > 256 or kin > 128 or (cps and cp_res < 2):
+        raise ValueError(f"unsupported {what} shape: hidden {H}, input {nin}, "
+                         f"cp_res {cp_res}")
+    checks = [("ws[0]", ws[0], (H, nin)), ("ws[1]", ws[1], (H, H)),
+              ("ws[2]", ws[2], (H, H + nin)), ("ws[3]", ws[3], (1 + GEO, H))]
+    checks += [(f"cps[{a}]", c, (cp_res, rank)) for a, c in enumerate(cps)]
+    for name, x, shape in checks:
+        _check(name, x, shape, dev)
+    padded = (_bf16_padded(ws[0], H, kin),
+              ws[1].to(torch.bfloat16).contiguous(),
+              _bf16_padded(ws[2], H, H + kin),
+              ws[3].to(torch.bfloat16).contiguous())
+    return padded, H, nin, kin, rank
 
 
 def fused_final_level(rays_o, rays_d, real_bins, sh, ws: Sequence,
@@ -257,38 +360,24 @@ def fused_final_level(rays_o, rays_d, real_bins, sh, ws: Sequence,
         return final_level_ref(rays_o, rays_d, real_bins, sh, ws,
                                freq_degree, skip_layer, grid_bound,
                                opaque_last, density_bias, cps, cp_res)
-    dev = rays_o.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    dev = _device(rays_o)
     N, T = rays_o.shape[0], real_bins.shape[1] - 1
-    rank = cps[0].shape[1] if cps else 0
-    if len(ws) != 4 or skip_layer != 2:
-        raise ValueError("the K3 kernel takes a 4-layer trunk with its skip "
-                         "at layer 2")
-    H, nin = ws[0].shape[0], 3 + 6 * freq_degree + rank
-    kin = _round16(nin)
-    if H % 16 or H > 256 or kin > 128 or T < 1 or (cps and cp_res < 2):
-        raise ValueError(f"unsupported K3 shape: hidden {H}, input {nin}, "
-                         f"T {T}, cp_res {cp_res}")
-    checks = [("rays_o", rays_o, (N, 3)), ("rays_d", rays_d, (N, 3)),
-              ("real_bins", real_bins, (N, T + 1)),
-              ("sh", sh, (N, SH_DIM)), ("ws[0]", ws[0], (H, nin)),
-              ("ws[1]", ws[1], (H, H)), ("ws[2]", ws[2], (H, H + nin)),
-              ("ws[3]", ws[3], (1 + GEO, H))]
-    checks += [(f"cps[{a}]", c, (cp_res, rank)) for a, c in enumerate(cps)]
-    for name, x, shape in checks:
+    (w0, w1, w2, w3), H, nin, kin, rank = _final_weights(
+        ws, cps, cp_res, freq_degree, skip_layer, dev, "K3")
+    if T < 1:
+        raise ValueError(f"unsupported K3 shape: T {T}")
+    for name, x, shape in (("rays_o", rays_o, (N, 3)),
+                           ("rays_d", rays_d, (N, 3)),
+                           ("real_bins", real_bins, (N, T + 1)),
+                           ("sh", sh, (N, SH_DIM))):
         _check(name, x, shape, dev)
-    w0 = _bf16_padded(ws[0], H, kin)
-    w1 = ws[1].to(torch.bfloat16).contiguous()
-    w2 = _bf16_padded(ws[2], H, H + kin)
-    w3 = ws[3].to(torch.bfloat16).contiguous()
     f_image = torch.empty((N, GEO + SH_DIM), dtype=torch.float32, device=dev)
     depth = torch.empty((N,), dtype=torch.float32, device=dev)
     wsum = torch.empty((N,), dtype=torch.float32, device=dev)
     weights = torch.empty((N, T), dtype=torch.float32, device=dev)
     null = ctypes.c_void_p(0)
     cp_ptrs = [_ptr(c) for c in cps] if cps else [null] * 3
-    lib, fn = _final_lib()
+    lib, fn = _fn("render_level", "sanerf_final_level", 15, 7)
     rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(sh), _ptr(w0),
             _ptr(w1), _ptr(w2), _ptr(w3), *cp_ptrs, _ptr(f_image),
             _ptr(depth), _ptr(wsum), _ptr(weights), N, T, freq_degree, rank,
@@ -300,3 +389,277 @@ def fused_final_level(rays_o, rays_d, real_bins, sh, ws: Sequence,
 
 
 fused_final_level.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4: the weight grads of the proposal and the final level
+# ---------------------------------------------------------------------------
+
+def _compositing_bwd(raw, delta, G, opaque_last: bool, db: float):
+    """Closed-form compositing backward (render_level_pallas.py:29):
+    dL/d(ds_s) = G_s T_{s+1} - sum_{j>s} G_j w_j.  raw, delta, G [N, T]
+    (G = dL/dw).  Returns (density grad [N, T], weights [N, T]): zero
+    outside (-30, 15) and at the opaque last sample."""
+    T = raw.shape[1]
+    sigma = _density(raw, db)
+    trans = torch.ones_like(raw[:, 0])
+    w, Tn = [], []
+    for s in range(T):
+        e = _segment_trans(delta, sigma, s, opaque_last)
+        w.append((1.0 - e) * trans)
+        trans = trans * e
+        Tn.append(trans)
+    S = torch.zeros_like(trans)
+    d_raw = [None] * T
+    for s in range(T - 1, -1, -1):
+        d_ds = G[:, s] * Tn[s] - S
+        S = S + G[:, s] * w[s]
+        x = raw[:, s] + db
+        if opaque_last and s == T - 1:
+            d_raw[s] = torch.zeros_like(x)
+        else:
+            d_raw[s] = torch.where((x > -30.0) & (x < 15.0),
+                                   d_ds * delta[:, s] * sigma[:, s], 0.0)
+    return torch.stack(d_raw, dim=1), torch.stack(w, dim=1)
+
+
+def _trunk_bwd(dh, ws, inputs, skip_layer: int, extra_rows: int):
+    """Trunk backward with the kernels' rounding points: dh [M, out] fp32
+    grad of the last layer's output, inputs the layers' inputs [M, in].
+    Returns (dW list [out, in], grad of the trailing extra_rows input
+    columns [M, extra_rows] through layer 0 and the skip re-entry, or
+    None)."""
+    d = bf16_round(dh)
+    dws = [None] * len(ws)
+    d_extra = None
+    n_in0 = inputs[0].shape[1]
+    for l in range(len(ws) - 1, -1, -1):
+        dws[l] = d.t() @ inputs[l]
+        if l == 0:
+            if extra_rows:
+                de = d @ bf16_round(ws[0])[:, -extra_rows:]
+                d_extra = de if d_extra is None else d_extra + de
+            break
+        da = d @ bf16_round(ws[l])
+        act = inputs[l]
+        if l == skip_layer:
+            rows = act.shape[1] - n_in0
+            if extra_rows:
+                de = da[:, rows + n_in0 - extra_rows:]
+                d_extra = de if d_extra is None else d_extra + de
+            da, act = da[:, :rows], act[:, :rows]
+        d = bf16_round(torch.where(act > 0, da, 0.0))
+    return dws, d_extra
+
+
+def prop_level_bwd_ref(rays_o, rays_d, real_bins, ws: Sequence, g_w,
+                       freq_degree: int, grid_bound: float,
+                       opaque_last: bool = True, density_bias: float = 0.0):
+    """Plain twin of K2: the proposal weights' grads [out, in] from
+    g_w = dL/dweights [N, T]."""
+    _, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
+    h, inputs = trunk_with_inputs(_trunk_input(xn, freq_degree)[0], ws, -1)
+    d_raw, _ = _compositing_bwd(h[..., 0], delta, g_w, opaque_last,
+                                density_bias)
+    flat = [x.reshape(-1, x.shape[-1]) for x in inputs]
+    return _trunk_bwd(d_raw.reshape(-1, 1), ws, flat, -1, 0)[0]
+
+
+def fused_prop_level_bwd(rays_o, rays_d, real_bins, ws: Sequence, g_w,
+                         freq_degree: int, grid_bound: float,
+                         opaque_last: bool = True, density_bias: float = 0.0):
+    """K2: the proposal weights' grads [out, in] (a list of 3) from
+    g_w = dL/dweights [N, T] of K1's weights."""
+    if rays_o.device.type == "cpu":
+        return prop_level_bwd_ref(rays_o, rays_d, real_bins, ws, g_w,
+                                  freq_degree, grid_bound, opaque_last,
+                                  density_bias)
+    dev = _device(rays_o)
+    N, T = rays_o.shape[0], real_bins.shape[1] - 1
+    (w0, w1, w2), H, kin = _prop_weights(ws, freq_degree, dev, "K2")
+    nf = 3 + 6 * freq_degree
+    if N == 0 or T < 1:
+        raise ValueError(f"unsupported K2 shape: N {N}, T {T}")
+    for name, x, shape in (("rays_o", rays_o, (N, 3)),
+                           ("rays_d", rays_d, (N, 3)),
+                           ("real_bins", real_bins, (N, T + 1)),
+                           ("g_w", g_w, (N, T))):
+        _check(name, x, shape, dev)
+    sizes = (H * kin, H * H, 16 * H)
+    ctas = _max_ctas(dev)
+    part = torch.empty((ctas, sum(sizes)), dtype=torch.float32, device=dev)
+    out = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    lib, fn = _fn("render_level_bwd", "sanerf_prop_level_bwd", 9, 6)
+    rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(w0), _ptr(w1),
+            _ptr(w2), _ptr(g_w), _ptr(part), _ptr(out), ctas, N, T,
+            freq_degree, H, kin, grid_bound, int(opaque_last), density_bias,
+            _stream(dev))
+    cuda_lib.check(lib, rc, "fused_prop_level_bwd")
+    fused_prop_level_bwd.launches += 1
+    d0, d1, d2 = out.split(sizes)
+    return [d0.view(H, kin)[:, :nf].contiguous(), d1.view(H, H),
+            d2.view(16, H)[:1].contiguous()]
+
+
+fused_prop_level_bwd.launches = 0
+
+
+def final_level_bwd_ref(rays_o, rays_d, real_bins, sh, ws: Sequence, g_f,
+                        g_depth, g_wsum, g_w, freq_degree: int,
+                        skip_layer: int, grid_bound: float,
+                        opaque_last: bool = True, density_bias: float = 0.0,
+                        cps: Sequence = (), cp_res: int = 0):
+    """Plain twin of K4: (trunk grads [out, in], CP basis grads
+    [cp_res, rank]) from the grads of K3's four outputs."""
+    t, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
+    h_in, cp = _trunk_input(xn, freq_degree, cps, cp_res)
+    h, inputs = trunk_with_inputs(h_in, ws, skip_layer)
+    g_sh = (g_f[:, GEO:] * sh).sum(dim=-1)
+    dot = (g_f[:, None, :GEO] * h[..., 1:]).sum(dim=-1)
+    G = (dot + g_sh[:, None] + g_depth[:, None] * t + g_wsum[:, None]) + g_w
+    d_raw, w = _compositing_bwd(h[..., 0], delta, G, opaque_last,
+                                density_bias)
+    dh = torch.cat([d_raw[..., None], w[..., None] * g_f[:, None, :GEO]], -1)
+    rank = cps[0].shape[1] if cps else 0
+    flat = [x.reshape(-1, x.shape[-1]) for x in inputs]
+    dws, d_extra = _trunk_bwd(dh.reshape(-1, dh.shape[-1]), ws, flat,
+                              skip_layer, rank)
+    if not cps:
+        return dws, []
+    lines, i0, f = cp
+    lines = [x.reshape(-1, rank) for x in lines]
+    i0, f = i0.reshape(-1, 3), f.reshape(-1, 3)
+    d_lines = [d_extra * lines[1] * lines[2], d_extra * lines[0] * lines[2],
+               d_extra * lines[0] * lines[1]]
+    dcps = []
+    for a in range(3):
+        g = torch.zeros_like(cps[a])
+        g.index_add_(0, i0[:, a], d_lines[a] * (1.0 - f[:, a, None]))
+        g.index_add_(0, i0[:, a] + 1, d_lines[a] * f[:, a, None])
+        dcps.append(g)
+    return dws, dcps
+
+
+def fused_final_level_bwd(rays_o, rays_d, real_bins, sh, ws: Sequence, g_f,
+                          g_depth, g_wsum, g_w, freq_degree: int,
+                          skip_layer: int, grid_bound: float,
+                          opaque_last: bool = True, density_bias: float = 0.0,
+                          cps: Sequence = (), cp_res: int = 0):
+    """K4: (trunk grads [out, in] (4), CP basis grads [cp_res, rank] (3 or
+    none)) from g_f [N, 31], g_depth, g_wsum [N] and g_w [N, T], the grads
+    of K3's outputs."""
+    if rays_o.device.type == "cpu":
+        return final_level_bwd_ref(rays_o, rays_d, real_bins, sh, ws, g_f,
+                                   g_depth, g_wsum, g_w, freq_degree,
+                                   skip_layer, grid_bound, opaque_last,
+                                   density_bias, cps, cp_res)
+    dev = _device(rays_o)
+    N, T = rays_o.shape[0], real_bins.shape[1] - 1
+    (w0, w1, w2, w3), H, nin, kin, rank = _final_weights(
+        ws, cps, cp_res, freq_degree, skip_layer, dev, "K4")
+    if N == 0 or T < 1:
+        raise ValueError(f"unsupported K4 shape: N {N}, T {T}")
+    for name, x, shape in (("rays_o", rays_o, (N, 3)),
+                           ("rays_d", rays_d, (N, 3)),
+                           ("real_bins", real_bins, (N, T + 1)),
+                           ("sh", sh, (N, SH_DIM)),
+                           ("g_f", g_f, (N, GEO + SH_DIM)),
+                           ("g_depth", g_depth, (N,)),
+                           ("g_wsum", g_wsum, (N,)), ("g_w", g_w, (N, T))):
+        _check(name, x, shape, dev)
+    sizes = (H * kin, H * H, H * (H + kin), 16 * H)
+    ctas = _max_ctas(dev)
+    part = torch.empty((ctas, sum(sizes)), dtype=torch.float32, device=dev)
+    out = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    dcps = [torch.zeros_like(c) for c in cps]
+    null = ctypes.c_void_p(0)
+    cp_ptrs = [_ptr(c) for c in cps] if cps else [null] * 3
+    dcp_ptrs = [_ptr(c) for c in dcps] if cps else [null] * 3
+    lib, fn = _fn("render_level_bwd", "sanerf_final_level_bwd", 20, 8)
+    rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(sh), _ptr(w0),
+            _ptr(w1), _ptr(w2), _ptr(w3), *cp_ptrs, _ptr(g_f), _ptr(g_depth),
+            _ptr(g_wsum), _ptr(g_w), _ptr(part), _ptr(out), *dcp_ptrs, ctas,
+            N, T, freq_degree, rank, cp_res, H, kin, grid_bound,
+            int(opaque_last), density_bias, _stream(dev))
+    cuda_lib.check(lib, rc, "fused_final_level_bwd")
+    fused_final_level_bwd.launches += 1
+    d0, d1, d2, d3 = out.split(sizes)
+    return [d0.view(H, kin)[:, :nin].contiguous(), d1.view(H, H),
+            d2.view(H, H + kin)[:, :H + nin].contiguous(),
+            d3.view(16, H)], dcps
+
+
+fused_final_level_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training entry points: autograd Functions over the level kernels
+# ---------------------------------------------------------------------------
+
+class _PropLevelTrainSample(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rays_o, rays_d, real_bins, s_bins, u, static, *ws):
+        weights, nxt = fused_prop_level_sample_train(
+            rays_o, rays_d, real_bins, s_bins, u, ws, *static)
+        ctx.save_for_backward(rays_o, rays_d, real_bins, *ws)
+        ctx.static = static
+        ctx.mark_non_differentiable(nxt)
+        return weights, nxt
+
+    @staticmethod
+    def backward(ctx, g_w, _):
+        rays_o, rays_d, real_bins, *ws = ctx.saved_tensors
+        dws = fused_prop_level_bwd(rays_o, rays_d, real_bins, ws,
+                                   g_w.contiguous(), *ctx.static)
+        return (None,) * 6 + tuple(dws)
+
+
+def prop_level_train_sample(rays_o, rays_d, real_bins, s_bins, u,
+                            ws: Sequence, freq_degree: int,
+                            grid_bound: float, opaque_last: bool = True,
+                            density_bias: float = 0.0):
+    """Differentiable proposal level with in-kernel resampling: forward K1,
+    backward K2.  Returns (weights [N, T], next s-edges [N, Q]); grads flow
+    to ws through the weights only (the bins are non-differentiable, as the
+    reference detaches sample_pdf), never to rays, bins or u."""
+    return _PropLevelTrainSample.apply(
+        rays_o, rays_d, real_bins, s_bins, u,
+        (freq_degree, grid_bound, opaque_last, density_bias), *ws)
+
+
+class _FinalLevelTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rays_o, rays_d, real_bins, sh, static, n_ws, *params):
+        ws, cps = params[:n_ws], params[n_ws:]
+        freq_degree, skip_layer, grid_bound, opaque_last, db, cp_res = static
+        out = fused_final_level(rays_o, rays_d, real_bins, sh, ws,
+                                freq_degree, skip_layer, grid_bound,
+                                opaque_last, db, cps, cp_res)
+        ctx.save_for_backward(rays_o, rays_d, real_bins, sh, *params)
+        ctx.static, ctx.n_ws = static, n_ws
+        return out
+
+    @staticmethod
+    def backward(ctx, g_f, g_depth, g_wsum, g_w):
+        rays_o, rays_d, real_bins, sh, *params = ctx.saved_tensors
+        ws, cps = params[:ctx.n_ws], params[ctx.n_ws:]
+        freq_degree, skip_layer, grid_bound, opaque_last, db, cp_res = \
+            ctx.static
+        dws, dcps = fused_final_level_bwd(
+            rays_o, rays_d, real_bins, sh, ws, g_f.contiguous(),
+            g_depth.contiguous(), g_wsum.contiguous(), g_w.contiguous(),
+            freq_degree, skip_layer, grid_bound, opaque_last, db, cps, cp_res)
+        return (None,) * 6 + tuple(dws) + tuple(dcps)
+
+
+def final_level_train(rays_o, rays_d, real_bins, sh, ws: Sequence,
+                      freq_degree: int, skip_layer: int, grid_bound: float,
+                      opaque_last: bool = True, density_bias: float = 0.0,
+                      cps: Sequence = (), cp_res: int = 0):
+    """Differentiable final level: forward K3, backward K4.  Returns
+    (f_image [N, 31], depth [N], weights_sum [N], weights [N, T]); grads
+    flow only to ws and cps."""
+    return _FinalLevelTrain.apply(
+        rays_o, rays_d, real_bins, sh,
+        (freq_degree, skip_layer, grid_bound, opaque_last, density_bias,
+         cp_res), len(ws), *ws, *cps)

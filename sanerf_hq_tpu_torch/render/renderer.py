@@ -1,14 +1,18 @@
-"""Proposal-network volume renderer, inference.
+"""Proposal-network volume renderer, inference and training.
 
 Fixed per-ray sample counts (default 128, 64, 32).  Two routes:
   - the level-kernel route: both proposal levels through K5 (proposal MLP,
     compositing and inverse-CDF resampling in one kernel) and the final
     level through K3 (trunk with CP features and compositing in one
-    kernel);
+    kernel).  Training runs K1 (K5 that also returns the weights) and K3
+    as autograd Functions whose backward passes are K2 and K4;
   - the composable route: per-sample densities and colours from the
-    field's plain methods, `compute_weights`, `sample_pdf`.  It is the
-    oracle for the kernels and the route of fields without level kernels.
-Training (losses, gradient gating) is not ported yet.
+    field's plain methods, `compute_weights`, `sample_pdf`, and autograd
+    through them.  It is the oracle for the kernels and the route of
+    fields without level kernels.
+`update_proposal` is a Python bool: when False the proposal weights are
+detached and the proposal loss is 0 (the reference's cadence, step <= 3000
+or step % 5 == 0, picks it per step).
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.composite import compute_weights
+from ..ops.composite import compute_weights, distort_loss, proposal_loss
 from ..ops.contraction import contract
 from ..ops.ray import (near_far_from_aabb, sample_pdf, spacing_fn,
                        spacing_fn_inv, stratified_queries)
@@ -32,6 +36,7 @@ class RenderSettings:
     bound: float = 128.0  # world-space aabb half-edge
     perturb: bool = False
     training: bool = False
+    compute_losses: bool = False  # proposal + distortion losses
     max_ray_batch: int = 16384
     # False forces the composable route (the oracle the kernels are held to)
     level_kernels: bool = True
@@ -39,15 +44,19 @@ class RenderSettings:
 
 def render_rays(field, rays_o, rays_d, settings: RenderSettings,
                 generator: Optional[torch.Generator] = None, bg_color=1.0,
-                cam_near_far=None, aabb=None):
+                cam_near_far=None, aabb=None, update_proposal: bool = True):
     """Render a batch of rays.  rays_o, rays_d: [N, 3] float32 (rays_d
     unnormalised, so depth is z-distance).  `generator` jitters the samples
     when settings.perturb.  Returns {'image' [N, 3], 'depth' [N],
-    'weights_sum' [N]}."""
-    if settings.training:
-        raise NotImplementedError("the training render is not ported yet")
+    'weights_sum' [N]}; training adds 'weights' [N, T] (final level) and
+    'num_points', and with compute_losses 'proposal_loss' and
+    'distort_loss'."""
+    if not isinstance(update_proposal, bool):
+        raise TypeError("update_proposal must be a Python bool (the JAX "
+                        "renderer's traced form is not ported)")
     N, dev = rays_o.shape[0], rays_o.device
     n_levels = len(settings.num_steps)
+    training = settings.training
     gen = generator if settings.perturb else None
     if aabb is None:
         b = settings.bound
@@ -60,10 +69,14 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
         fars = torch.minimum(fars, cam_near_far[:, 1:2])
     s_nears, s_fars = spacing_fn(nears), spacing_fn(fars)
 
+    def gate(x):  # proposal grads flow only on update_proposal steps
+        return x if update_proposal else x.detach()
+
     opaque = settings.background == "last_sample"
     kernels = settings.level_kernels and getattr(
         field, "supports_fused_final", False)
     bins = weights = rays_t = colors = fused_out = folded = None
+    all_bins, all_weights = [], []
     for level, T in enumerate(settings.num_steps):
         if level == 0:
             bins = torch.linspace(0.0, 1.0, T + 1, device=dev).expand(N, T + 1)
@@ -74,21 +87,34 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
         elif folded is not None:
             bins, folded = folded, None
         else:
-            bins = sample_pdf(bins, weights, T + 1, generator=gen)
+            bins = sample_pdf(bins, weights.detach(), T + 1, generator=gen)
 
         real_bins = spacing_fn_inv(s_nears * (1.0 - bins) + s_fars * bins)
         if kernels and level == n_levels - 1:
-            fused_out = field.fused_final_render(rays_o, rays_d, real_bins,
-                                                 opaque_last=opaque)
+            if training:
+                *fused_out, weights = field.fused_final_render_train(
+                    rays_o, rays_d, real_bins, opaque_last=opaque)
+                all_bins.append(bins)
+                all_weights.append(weights)
+            else:
+                fused_out = field.fused_final_render(
+                    rays_o, rays_d, real_bins, opaque_last=opaque)
             break
         if kernels:
             # next level's s-space edges straight from the proposal kernel;
-            # the per-sample weights never reach device memory
+            # in inference the per-sample weights never reach device memory
             u = stratified_queries(N, settings.num_steps[level + 1] + 1, dev,
                                    gen).contiguous()
-            folded = field.fused_prop_next_bins(rays_o, rays_d, real_bins,
-                                                bins, u, proposal=level,
-                                                opaque_last=opaque)
+            if training:
+                weights, folded = field.fused_prop_weights_train_sample(
+                    rays_o, rays_d, real_bins, bins, u, proposal=level,
+                    opaque_last=opaque)
+                all_bins.append(bins)
+                all_weights.append(gate(weights))
+            else:
+                folded = field.fused_prop_next_bins(
+                    rays_o, rays_d, real_bins, bins, u, proposal=level,
+                    opaque_last=opaque)
             continue
 
         rays_t = (real_bins[..., 1:] + real_bins[..., :-1]) / 2.0  # [N, T]
@@ -96,13 +122,16 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
         if settings.use_contract:
             xyzs = contract(xyzs)
         if level != n_levels - 1:
-            sigmas = field.density(xyzs, proposal=level)
+            sigmas = gate(field.density(xyzs, proposal=level))
         else:
             dirs = rays_d[:, None, :].expand(xyzs.shape)
             dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
             sigmas, _, colors, _ = field.forward_color(xyzs, dirs)
         deltas = real_bins[..., 1:] - real_bins[..., :-1]
         weights, _ = compute_weights(deltas, sigmas, opaque_last=opaque)
+        if training:
+            all_bins.append(bins)
+            all_weights.append(weights)
 
     if fused_out is not None:
         f_image, depth, weights_sum = fused_out
@@ -111,8 +140,18 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
         depth = (weights * rays_t).sum(dim=-1)
         f_image = (weights[..., None] * colors).sum(dim=-2)  # [N, 31]
     image = torch.sigmoid(field.apply_view_mlp(f_image))
+    results = {}
+    if training:
+        results["num_points"] = N * settings.num_steps[-1]
+        results["weights"] = weights
+        if settings.compute_losses:
+            results["proposal_loss"] = (
+                proposal_loss(all_bins, all_weights) if update_proposal
+                else torch.zeros((), device=dev))
+            results["distort_loss"] = distort_loss(bins, weights)
     image = image + (1.0 - weights_sum)[..., None] * bg_color
-    return {"weights_sum": weights_sum, "depth": depth, "image": image}
+    results.update(weights_sum=weights_sum, depth=depth, image=image)
+    return results
 
 
 def render_staged(field, rays_o, rays_d, settings: RenderSettings,

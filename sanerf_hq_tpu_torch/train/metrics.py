@@ -1,13 +1,44 @@
-"""Metric meters with the reference's clear/update/measure/report protocol
-(PSNR only in this slice)."""
+"""Metric meters with the reference's clear/update/measure/report protocol:
+PSNR, SSIM (11x11 gaussian window, sigma 1.5, k1 0.01, k2 0.03, data range
+1, valid convolution, as torchmetrics' default) and MSE.  LPIPS needs
+pretrained weights the repository does not carry and is not ported."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def psnr(pred, gt, data_range: float = 1.0):
     mse = torch.mean((torch.as_tensor(pred) - torch.as_tensor(gt)) ** 2)
     return -10.0 * torch.log10(torch.clamp(mse / data_range ** 2, min=1e-12))
+
+
+def _gaussian_window(size: int = 11, sigma: float = 1.5):
+    x = torch.arange(size, dtype=torch.float32) - (size - 1) / 2.0
+    g = torch.exp(-(x ** 2) / (2 * sigma ** 2))
+    g = g / g.sum()
+    return torch.outer(g, g)
+
+
+def ssim(pred, gt, data_range: float = 1.0, k1: float = 0.01,
+         k2: float = 0.03):
+    """pred, gt [H, W, C] in [0, data_range]: mean SSIM (fp32 depthwise
+    convolutions; on the card they need cuDNN's TF32 off)."""
+    pred = torch.as_tensor(pred, dtype=torch.float32)
+    gt = torch.as_tensor(gt, dtype=torch.float32, device=pred.device)
+    win = _gaussian_window().to(pred.device)[None, None]  # [1, 1, 11, 11]
+    c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
+
+    def filt(img):  # [H, W, C] -> [C, H', W']
+        return F.conv2d(img.permute(2, 0, 1)[:, None], win)[:, 0]
+
+    mu_p, mu_g = filt(pred), filt(gt)
+    var_p = filt(pred * pred) - mu_p ** 2
+    var_g = filt(gt * gt) - mu_g ** 2
+    cov = filt(pred * gt) - mu_p * mu_g
+    s = ((2 * mu_p * mu_g + c1) * (2 * cov + c2)) / (
+        (mu_p ** 2 + mu_g ** 2 + c1) * (var_p + var_g + c2))
+    return s.mean()
 
 
 class Meter:
@@ -36,4 +67,26 @@ class PSNRMeter(Meter):
 
     def update(self, preds, truths):
         self.V += float(psnr(preds, truths))
+        self.N += 1
+
+
+class SSIMMeter(Meter):
+    name = "SSIM"
+
+    def update(self, preds, truths):
+        p, t = torch.as_tensor(preds), torch.as_tensor(truths)
+        if p.dim() == 3:
+            p, t = p[None], t[None]
+        for i in range(p.shape[0]):
+            self.V += float(ssim(p[i], t[i]))
+            self.N += 1
+
+
+class MSEMeter(Meter):
+    name = "MSE"
+    higher_better = False
+
+    def update(self, preds, truths):
+        d = torch.as_tensor(preds) - torch.as_tensor(truths)
+        self.V += float(torch.mean(d ** 2))
         self.N += 1

@@ -1,8 +1,16 @@
-"""Host-side loop for inference: full-frame render, evaluation and test
-artifacts.  Training, checkpoints and multi-GPU come with later slices."""
+"""Host-side loop of stage 1: training epochs, checkpoints and resume,
+full-frame render, evaluation and test artifacts.  The eval renders use the
+EMA weights, as the JAX trainer does.
+
+Epoch math as the reference's: steps_per_epoch = number of training views,
+max_epoch = ceil(iters / steps_per_epoch), eval and save intervals from
+eval_cnt and save_cnt; the EMA is updated on the last step of each epoch.
+Multi-GPU comes with a later slice.
+"""
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -12,8 +20,11 @@ from ..config import Config
 from ..data.png import write_png
 from ..data.provider import Scene
 from ..data.rays import full_frame_rays
+from ..data.sampler import sample_rgb_batch
+from .checkpoints import CheckpointManager
 from .metrics import PSNRMeter
-from .steps import make_eval_render
+from .state import TrainState, mlp_field_lr_scales
+from .steps import make_eval_render, make_rgb_train_step
 
 
 class Logger:
@@ -31,22 +42,108 @@ class Logger:
 
 
 class Trainer:
-    def __init__(self, name: str, cfg: Config, model, workspace: str):
+    def __init__(self, name: str, cfg: Config, model, workspace: str,
+                 resume: bool = True):
+        """resume: start from the workspace's newest checkpoint if there is
+        one; else from the model's weights as given."""
         self.name = name
         self.cfg = cfg
         self.model = model
         self.workspace = workspace
         self.device = next(model.parameters()).device
         self.log = Logger(workspace, name)
-        self.eval_render = make_eval_render(model, cfg)
+        self.ckpt = CheckpointManager(workspace, max_keep=2)
+        self.state = TrainState(model, cfg.lr, cfg.iters,
+                                lr_scales=mlp_field_lr_scales(model))
+        restored = self.ckpt.restore(self.device) if resume else None
+        self.resumed = restored is not None
+        if self.resumed:
+            self.state.load_state_dict(restored)
+            self.log(f"[INFO] resumed at step {self.state.step}")
+        self.train_step = make_rgb_train_step(model, cfg)
+        self.eval_render = make_eval_render(self.state.ema_model, cfg)
         self._eval_render_perturb = None
+        self.best_metric = -np.inf
+        self.stats = {"loss": []}
+
+    def _to_device(self, x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    # -- stage 1 -----------------------------------------------------------
+    def train(self, scene: Scene, val_scene: Optional[Scene] = None,
+              max_epoch: Optional[int] = None):
+        cfg = self.cfg
+        if cfg.adaptive_num_rays:
+            # the reference rescales num_rays each step so that num_rays *
+            # num_steps[-1] == num_points; with fixed per-level sample
+            # counts that recursion sits at its fixed point after one step
+            target = max(1, cfg.num_points // cfg.num_steps[-1])
+            if target != cfg.num_rays:
+                self.log(f"[INFO] adaptive_num_rays: {cfg.num_rays} -> "
+                         f"{target} (num_points {cfg.num_points} / "
+                         f"final-level samples {cfg.num_steps[-1]})")
+                cfg = self.cfg = cfg.replace(num_rays=target)
+        images = self._to_device(scene.images)
+        poses = self._to_device(scene.poses)
+        intr = self._to_device(scene.intrinsics)
+        cnf = (self._to_device(scene.cam_near_far)
+               if cfg.enable_cam_near_far and scene.cam_near_far is not None
+               else None)
+        steps_per_epoch = scene.poses.shape[0]
+        if max_epoch is None:
+            max_epoch = int(np.ceil(cfg.iters / steps_per_epoch))
+        eval_interval = max(1, max_epoch // max(1, cfg.eval_cnt))
+        save_interval = max(1, max_epoch // max(1, cfg.save_cnt))
+        self.log(f"[INFO] max_epoch {max_epoch}, eval every {eval_interval}, "
+                 f"save every {save_interval}")
+        # batches and jitter from one generator on the device, seeded from
+        # the config and the step resumed at
+        gen = torch.Generator(self.device)
+        gen.manual_seed(cfg.seed * 1000003 + self.state.step)
+
+        t_start = time.time()
+        step0 = self.state.step
+        metrics = None
+        for epoch in range(1, max_epoch + 1):
+            k = min(steps_per_epoch, cfg.iters - self.state.step)
+            if k <= 0:
+                break
+            for _ in range(k):
+                batch = sample_rgb_batch(
+                    gen, images, poses, intr, cfg.num_rays,
+                    random_image_batch=cfg.random_image_batch,
+                    cam_near_far=cnf)
+                metrics = self.train_step(self.state, batch, gen)
+            self.state.update_ema()
+            step = self.state.step
+            loss = float(metrics["loss"])
+            self.stats["loss"].append(loss)
+            self.log(f"[epoch {epoch}/{max_epoch}] step {step} "
+                     f"loss={loss:.5f} train_psnr={float(metrics['psnr']):.2f} "
+                     f"lr={self.state.lr(step):.5f}")
+            if epoch % save_interval == 0 or epoch == max_epoch:
+                self.ckpt.save(step, self.state.state_dict())
+            if val_scene is not None and (epoch % eval_interval == 0
+                                          or epoch == max_epoch):
+                score = self.evaluate(val_scene)
+                if score > self.best_metric:
+                    self.best_metric = score
+                    self.ckpt.save(step, self.state.state_dict(), best=True)
+            if step >= cfg.iters:
+                break
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.time() - t_start
+        n = self.state.step - step0
+        self.log(f"[INFO] training took {dt / 60:.2f} min "
+                 f"({n / max(dt, 1e-9):.1f} steps/s)")
 
     def render_view(self, pose, intrinsics, H, W, cam_near_far=None,
                     bg_color=1.0, aabb=None, generator=None):
-        """Full-frame render.  `aabb` overrides the inference bounding box;
-        `generator` jitters sampling (a perturbed render is built on first
-        use).  Returns numpy arrays {'image' [H*W, 3], 'depth' [H*W],
-        'weights_sum' [H*W]}."""
+        """Full-frame render with the EMA weights.  `aabb` overrides the
+        inference bounding box; `generator` jitters sampling (a perturbed
+        render is built on first use).  Returns numpy arrays
+        {'image' [H*W, 3], 'depth' [H*W], 'weights_sum' [H*W]}."""
         dev = self.device
         ro, rd = full_frame_rays(
             torch.as_tensor(np.asarray(pose, np.float32), device=dev),
@@ -60,7 +157,7 @@ class Trainer:
         if generator is not None:
             if self._eval_render_perturb is None:
                 self._eval_render_perturb = make_eval_render(
-                    self.model, self.cfg, perturb=True)
+                    self.state.ema_model, self.cfg, perturb=True)
             render = self._eval_render_perturb
         out = render(ro, rd, bg_color=bg_color, cam_near_far=cnf,
                      aabb=None if aabb is None else torch.as_tensor(

@@ -101,10 +101,43 @@ def test_trainer_evaluate_and_perturbed_render(scene, tmp_path, capsys):
 
 
 def test_cli_only_test_mode_is_ported(scene, tmp_path):
-    argv = _argv(scene, str(tmp_path), "--device", "cpu")
+    """Stage 1 is ported in both modes (the next test trains and resumes);
+    the flags of stages 2 and 3 are not, and the CLI refuses them."""
+    for flag in ("--with_sam", "--with_mask", "--decode"):
+        with pytest.raises(SystemExit):
+            cli.main(_argv(scene, str(tmp_path), "--device", "cpu", flag))
+    assert not os.path.exists(os.path.join(tmp_path, "results"))
+
+
+def test_cli_train_then_test_resumes(scene, tmp_path, capsys):
+    """Without --test the CLI trains, checkpoints and evaluates PSNR and
+    SSIM into validation/; a later --test resumes the checkpoint and
+    renders the EMA weights."""
+    ws = str(tmp_path / "ws")
+    argv = _argv(scene, ws, "--device", "cpu", "--num_points", "1024",
+                 "--iters", "20", "--eval_cnt", "1", "--save_cnt", "1")
     argv.remove("--test")
-    with pytest.raises(SystemExit):
-        cli.main(argv)
+    trainer = cli.main(argv)
+    out = capsys.readouterr().out
+    assert trainer.state.step == 20 and trainer.cfg.num_rays == 128
+    assert "[epoch 2/2] step 20" in out and "steps/s)" in out
+    assert "[EVAL] SSIM" in out
+    assert sorted(os.listdir(os.path.join(ws, "checkpoints"))) == [
+        "best.pt", "step_00000020.pt"]
+    assert os.path.exists(os.path.join(ws, "validation", "v16_rgb.png"))
+
+    tested = cli.main(_argv(scene, ws, "--device", "cpu"))
+    assert "[INFO] resumed at step 20" in capsys.readouterr().out
+    from sanerf_hq_tpu_torch.data.provider import load_scene
+    s = load_scene(scene, "llff")
+    got = tested.render_view(s.poses[0], s.intrinsics[0], HW, HW)
+    want = trainer.render_view(s.poses[0], s.intrinsics[0], HW, HW)
+    np.testing.assert_array_equal(got["image"], want["image"])
+    ema = dict(trainer.state.ema_model.named_parameters())
+    for name, p in tested.state.ema_model.named_parameters():
+        assert torch.equal(p, ema[name]), name
+    assert any(not torch.equal(p, ema[name])
+               for name, p in trainer.model.named_parameters())
 
 
 def test_entry_points_need_a_device_or_cpu(scene, tmp_path, monkeypatch):

@@ -1,12 +1,14 @@
-"""CUDA kernels K5 and K3 against their plain twins on the card, at shapes
-the flagship smoke (chip_smoke.py) does not reach: ragged ray counts,
-sample counts that do not divide the 128-point pass or span several passes,
-other widths, no CP features; plus the wrappers' input checks.
+"""CUDA kernels K5, K3, K1, K2 and K4 against their plain twins on the
+card, at shapes the flagship smoke (chip_smoke.py) does not reach: ragged
+ray counts, sample counts that do not divide a pass or span several passes,
+other widths, no CP features; plus the wrappers' input checks and the
+backward kernels' run-to-run determinism.
 
 Needs a CUDA device (the kernels have no CPU mode); skips without one.  On
 the card, where JAX (which tests/conftest.py imports) is not installed:
 `python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py`.
-Tolerances as chip_smoke.py: 1e-3 abs on K5's s-bins, rel-max 2e-2 on K3.
+Tolerances as chip_smoke.py: 1e-3 abs on the s-bins of K5 and K1, rel-max
+2e-2 on K3's outputs, K1's weights and the weight and CP grads of K2 and K4.
 """
 import pytest
 import torch
@@ -103,3 +105,112 @@ def test_wrappers_check_inputs_and_count_launches(dev):
     with pytest.raises(ValueError, match="is on cpu"):
         rl.fused_prop_level_sample(ro, rd, real, s.cpu(), u, ws, 6, 2.0)
     assert rl.fused_prop_level_sample.launches == before + 1
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+
+
+@pytest.mark.parametrize("N,T,Q,hidden", [
+    (1000, 48, 33, 64),   # T does not divide the pass
+    (333, 200, 17, 64),   # one ray over two passes
+    (5, 8, 9, 32),        # fewer rays than a CTA holds
+    (4099, 128, 65, 64),  # flagship shape, ragged last CTA
+    (300, 32, 17, 256),
+])
+def test_prop_train_kernels_match_twins(dev, N, T, Q, hidden):
+    """K1 (weights + bins; the bins are K5's bit for bit) and K2."""
+    ro, rd, real, s = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(5)
+    ws = [_w(dev, g, hidden, 39), _w(dev, g, hidden, hidden),
+          _w(dev, g, 1, hidden)]
+    u = stratified_queries(N, Q, dev, torch.Generator(dev).manual_seed(2))
+    u = u.contiguous()
+    args = (ro, rd, real, s, u, ws, 6, 2.0, True, -0.5)
+    w, nb = rl.fused_prop_level_sample_train(*args)
+    w_ref, nb_ref = rl.prop_level_train_sample_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(w).all() and torch.isfinite(nb).all()
+    assert _rel(w, w_ref) < 2e-2
+    assert (nb - nb_ref).abs().max().item() <= 1e-3
+    assert torch.equal(nb, rl.fused_prop_level_sample(*args))
+
+    g_w = torch.randn(N, T, generator=g).to(dev)
+    bargs = (ro, rd, real, ws, g_w, 6, 2.0, True, -0.5)
+    got = rl.fused_prop_level_bwd(*bargs)
+    again = rl.fused_prop_level_bwd(*bargs)
+    want = rl.prop_level_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    for i, (a, b, c) in enumerate(zip(got, want, again)):
+        assert a.shape == b.shape, i
+        assert torch.isfinite(a).all(), i
+        assert _rel(a, b) < 2e-2, (i, _rel(a, b))
+        assert torch.equal(a, c), i  # fixed-order reduction
+
+
+@pytest.mark.parametrize("N,T,hidden,rank", [
+    (1000, 24, 64, 0),     # no CP features, T does not divide the pass
+    (333, 160, 256, 64),   # one ray over three passes, flagship widths
+    (777, 32, 128, 16),
+    (2049, 32, 256, 64),   # flagship shape, ragged last group
+])
+def test_final_bwd_kernel_matches_twin(dev, N, T, hidden, rank):
+    ro, rd, real, _ = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(6)
+    nin = 63 + rank
+    ws = [_w(dev, g, hidden, nin), _w(dev, g, hidden, hidden),
+          _w(dev, g, hidden, hidden + nin), _w(dev, g, 16, hidden)]
+    cps = [(torch.randn(64, rank, generator=g) * 0.3).to(dev)
+           for _ in range(3)] if rank else []
+    sh = torch.randn(N, 16, generator=g).to(dev)
+    cots = [torch.randn(*shape, generator=g).to(dev)
+            for shape in [(N, 31), (N,), (N,), (N, T)]]
+    args = (ro, rd, real, sh, ws, *cots, 10, 2, 2.0, True, -0.5, cps, 64)
+    dws, dcps = rl.fused_final_level_bwd(*args)
+    dws2, dcps2 = rl.fused_final_level_bwd(*args)
+    want_w, want_c = rl.final_level_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert len(dcps) == len(cps)
+    for i, (a, b, c) in enumerate(zip(dws, want_w, dws2)):
+        assert a.shape == b.shape, i
+        assert torch.isfinite(a).all(), i
+        assert _rel(a, b) < 2e-2, (i, _rel(a, b))
+        assert torch.equal(a, c), i  # fixed-order reduction
+    for a, (x, y, z) in enumerate(zip(dcps, want_c, dcps2)):
+        assert torch.isfinite(x).all(), a
+        assert _rel(x, y) < 2e-2, ("dcp", a, _rel(x, y))
+        assert _rel(z, x) < 1e-4, ("dcp atomics", a)
+
+
+def test_training_functions_launch_their_kernels(dev):
+    """One forward and backward of each autograd Function launches K1 and
+    K2, and K3 and K4, once each."""
+    N, T, Q = 256, 32, 17
+    ro, rd, real, s = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(7)
+    pws = [_w(dev, g, 64, 39).requires_grad_(), _w(dev, g, 64, 64)
+           .requires_grad_(), _w(dev, g, 1, 64).requires_grad_()]
+    u = stratified_queries(N, Q, dev).contiguous()
+    counts = [f.launches for f in (rl.fused_prop_level_sample_train,
+                                   rl.fused_prop_level_bwd,
+                                   rl.fused_final_level,
+                                   rl.fused_final_level_bwd)]
+    w, _ = rl.prop_level_train_sample(ro, rd, real, s, u, pws, 6, 2.0)
+    w.square().sum().backward()
+    tws = [_w(dev, g, 64, 67), _w(dev, g, 64, 64), _w(dev, g, 64, 131),
+           _w(dev, g, 16, 64)]
+    tws = [x.requires_grad_() for x in tws]
+    cps = [(torch.randn(16, 4, generator=g) * 0.3).to(dev).requires_grad_()
+           for _ in range(3)]
+    sh = torch.randn(N, 16, generator=g).to(dev)
+    out = rl.final_level_train(ro, rd, real, sh, tws, 10, 2, 2.0, cps=cps,
+                               cp_res=16)
+    sum(o.square().sum() for o in out).backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in (rl.fused_prop_level_sample_train,
+                                 rl.fused_prop_level_bwd,
+                                 rl.fused_final_level,
+                                 rl.fused_final_level_bwd)] == [
+        c + 1 for c in counts]
+    for p in pws + tws + cps:
+        assert p.grad is not None and torch.isfinite(p.grad).all()

@@ -126,7 +126,18 @@ def test_perturbed_render_is_seeded(setup):
 
 
 def test_training_render_not_ported(setup):
+    """The training render is ported (tests/test_torch_train.py holds it to
+    JAX): it returns the final weights, the point count and both losses,
+    and the proposal loss is 0 without the proposal update.  The JAX
+    renderer's traced update_proposal is what is not ported: it raises."""
     _, _, tm, ro, rd = setup
-    with pytest.raises(NotImplementedError):
-        tr.render_rays(tm, torch.from_numpy(ro), torch.from_numpy(rd),
-                       tr.RenderSettings(**STEPS, training=True))
+    o, d = torch.from_numpy(ro), torch.from_numpy(rd)
+    s = tr.RenderSettings(**STEPS, training=True, compute_losses=True)
+    out = tr.render_rays(tm, o, d, s)
+    assert out["weights"].shape == (N, STEPS["num_steps"][-1])
+    assert out["num_points"] == N * STEPS["num_steps"][-1]
+    assert out["proposal_loss"].item() > 0 and out["distort_loss"].item() > 0
+    off = tr.render_rays(tm, o, d, s, update_proposal=False)
+    assert off["proposal_loss"].item() == 0.0
+    with pytest.raises(TypeError, match="Python bool"):
+        tr.render_rays(tm, o, d, s, update_proposal=torch.tensor(True))
