@@ -12,7 +12,9 @@ last line:
      - inference, one 16384-ray chunk: K5 (proposal level + resampling) at
        (T, Q) = (128, 65) and (64, 33), max abs error <= 1e-3 on the next
        s-bins; K3 (final level, CP-64) rel-max < 2e-2 on f_image, depth,
-       weights_sum and weights;
+       weights_sum and weights; K6 (K3 with the per-sample trunk features)
+       rel-max < 2e-2 on those four and geo, the four bitwise equal to
+       K3's; K5 and K6 also timed at a 6256-ray stage-3 batch;
      - training, one 8192-ray batch with random cotangents: K1 at both
        proposal levels (bins max abs <= 1e-3 and equal to K5's, weights
        rel-max < 2e-2), K2 at T = 128 and 64 and K4 at T = 32 (rel-max
@@ -36,9 +38,24 @@ last line:
      on, so K4's weights grad carries gradient), the level-kernel route's
      grads against the composable route's (autograd through the plain
      field), per-leaf rel-L2 <= 5%;
-  7. one JSON line with every kernel's numbers, the device line again, and
+  7. stage 3: analytic sphere masks in the decode output format, then the
+     CLI with --with_mask --init_ckpt <phase-5 workspace> and the flags of
+     scripts/train_obj_nerf.sh (6000 rays and four 8x8 patches a step, 200
+     steps, the ray-pair loss from step 150, the error map at 128), counts
+     set to 0 just before and read just after: K5 twice and K6 once a step,
+     a chunk and an error-map view, K1-K4 never; the backbone bitwise equal
+     to the init checkpoint, the error map rebuilt at step 150, the CE at
+     the first and last step, [EVAL] MeanIoU; then the step rate (host
+     clock around synchronised steps) and its breakdown (CUDA events: the
+     sampler, K5, K6, the mask branch forward and backward, the losses),
+     the CP feature lookup as a one-hot matmul and as a gather, the frozen
+     route against the composable route on one batch (CE within 2e-2,
+     logits within 3e-2, trainable grads rel-max < 6e-2), and a
+     --test --with_mask resuming the field;
+  8. one JSON line with every kernel's numbers, the device line again, and
      the last line {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import os
 import shutil
@@ -53,8 +70,11 @@ from sanerf_hq_tpu_torch import cli
 from sanerf_hq_tpu_torch.data.png import read_png
 from sanerf_hq_tpu_torch.data.provider import load_scene, split_indices
 from sanerf_hq_tpu_torch.data.rays import full_frame_rays
-from sanerf_hq_tpu_torch.data.sampler import sample_rgb_batch
-from sanerf_hq_tpu_torch.data.synthetic import look_at_pose, write_llff_scene
+from sanerf_hq_tpu_torch.data.sampler import (fixed_fovy_intrinsics,
+                                              sample_mask_batch,
+                                              sample_rgb_batch)
+from sanerf_hq_tpu_torch.data.synthetic import (look_at_pose, write_llff_scene,
+                                                write_sphere_masks)
 from sanerf_hq_tpu_torch.models import make_field
 from sanerf_hq_tpu_torch.ops import cuda_lib
 from sanerf_hq_tpu_torch.ops import render_level as rl
@@ -62,7 +82,9 @@ from sanerf_hq_tpu_torch.ops.ray import (near_far_from_aabb, spacing_fn,
                                          spacing_fn_inv, stratified_queries)
 from sanerf_hq_tpu_torch.ops.sh import sh_encode
 from sanerf_hq_tpu_torch.render.renderer import RenderSettings, render_rays
-from sanerf_hq_tpu_torch.train.steps import make_rgb_train_step
+from sanerf_hq_tpu_torch.train.checkpoints import CheckpointManager
+from sanerf_hq_tpu_torch.train.steps import (make_mask_train_step,
+                                             make_rgb_train_step, mask_losses)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "sanerf_hq_tpu_torch/csrc/render_level.cu"
@@ -74,7 +96,10 @@ CHUNK = 16384  # rays in one render chunk (max_ray_batch)
 BATCH = 8192  # rays of a training step: num_points 2**18 / 32 samples
 VIEW = 512  # main-path views are VIEW x VIEW
 TRAIN_STEPS = 20
+MASK_BATCH = 6000 + 4 * 8 * 8  # stage-3 rays a step: global + patches
+MASK_STEPS = 200
 COUNTERS = {"K5": rl.fused_prop_level_sample, "K3": rl.fused_final_level,
+            "K6": rl.fused_final_level_frozen,
             "K1": rl.fused_prop_level_sample_train,
             "K2": rl.fused_prop_level_bwd, "K4": rl.fused_final_level_bwd}
 
@@ -183,8 +208,13 @@ def check_kernels(field):
         print(f"[kernel] K5 fused_prop_level_sample T={T} Q={Q}: max abs err "
               f"{err:.3e} (<= 1e-3), {ms:.4f} ms, plain twin {plain:.4f} ms, "
               f"bound {bms:.4f} ms ({by})", flush=True)
+        small = [x[:MASK_BATCH] for x in call[:5]]
+        ms_b = cuda_ms(lambda: rl.fused_prop_level_sample(*small, ws, **args))
+        print(f"[kernel] K5 T={T} Q={Q} at the {MASK_BATCH}-ray stage-3 "
+              f"batch: {ms_b:.4f} ms", flush=True)
         k5["per_shape"][f"T{T}_Q{Q}"] = {"ms": ms, "plain_ms": plain,
-                                        "bound_ms": bms, "max_abs_err": err}
+                                        "bound_ms": bms, "max_abs_err": err,
+                                        f"ms_{MASK_BATCH}_rays": ms_b}
         k5["ms"] += ms
         k5["plain_ms"] += plain
         k5["bound_ms"] += bms
@@ -227,7 +257,55 @@ def check_kernels(field):
     results["K3"] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
                      "bound_by": by, "max_abs_err": abs_err,
                      "rel_max_err": rel}
+    results["K6"] = check_frozen_kernel(field, call, args3, got)
     return results
+
+
+def check_frozen_kernel(field, call, args3, k3_out):
+    """K6 on the K3 chunk: against its twin, against K3 bit for bit, and
+    timed at the chunk and at the stage-3 batch."""
+    got = rl.fused_final_level_frozen(*call, **args3, need_geo=True)
+    want = rl.final_level_frozen_ref(*call, **args3, need_geo=True)
+    torch.cuda.synchronize()
+    rels = {}
+    for name, a, b_ in zip(("f_image", "depth", "weights_sum", "weights",
+                            "geo"), got, want):
+        assert torch.isfinite(a).all(), f"K6 {name} not finite"
+        rels[name] = rel_max(a, b_)
+        assert rels[name] < 2e-2, f"K6 {name} rel-max error {rels[name]}"
+    for name, a, b_ in zip(("f_image", "depth", "weights_sum", "weights"),
+                           got, k3_out):
+        assert torch.equal(a, b_), f"K6 {name} differs from K3's"
+    abs_err = max((a - b_).abs().max().item() for a, b_ in zip(got, want))
+    ws, cps = call[4], args3["cps"]
+    ms = cuda_ms(lambda: rl.fused_final_level_frozen(*call, **args3,
+                                                     need_geo=True))
+    plain = cuda_ms(lambda: rl.final_level_frozen_ref(*call, **args3,
+                                                      need_geo=True))
+    N, T = call[0].shape[0], call[2].shape[1] - 1
+
+    def bound_at(n, outs):
+        return bound(nbytes(*(x[:n] for x in call[:4]), *ws, *cps, *outs),
+                     2 * n * T * mlp_macs(ws),
+                     2 * n * T * 3 * field.freq_degree)
+
+    bms, by = bound_at(N, got)
+    small = [x[:MASK_BATCH] for x in call[:4]]
+    got_b = rl.fused_final_level_frozen(*small, ws, **args3, need_geo=True)
+    ms_b = cuda_ms(lambda: rl.fused_final_level_frozen(*small, ws, **args3,
+                                                       need_geo=True))
+    bms_b, by_b = bound_at(MASK_BATCH, got_b)
+    print("[kernel] K6 fused_final_level_frozen need_geo: rel-max err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + " (< 2e-2); f_image, depth, weights_sum, weights bitwise equal "
+          f"to K3's; {ms:.4f} ms at {N} rays (K3 above), plain twin "
+          f"{plain:.4f} ms, bound {bms:.4f} ms ({by}); {ms_b:.4f} ms at "
+          f"{MASK_BATCH} rays, bound {bms_b:.4f} ms ({by_b})", flush=True)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": abs_err, "rel_max_err": max(rels.values()),
+            "equal_to_K3": True,
+            "per_shape": {f"N{MASK_BATCH}": {"ms": ms_b, "bound_ms": bms_b,
+                                             "bound_by": by_b}}}
 
 
 def check_train_kernels(field):
@@ -542,6 +620,311 @@ def grad_parity(trainer, scene):
     return per_leaf
 
 
+def gather_mask_features(model, x):
+    """The mask field's CP lookup as a two-tap gather (the form of the
+    trunk's CP features), timed against the port's one-hot matmul form;
+    the port does not call it."""
+    g = rl.cp_features(x / model.grid_bound,
+                       [model.cp_m_x, model.cp_m_y, model.cp_m_z],
+                       model.feat_res)
+    return g @ model.cp_m_proj
+
+
+def capture_render(model, settings, batch):
+    """One frozen-route render of a batch with the arguments and outputs of
+    the field's K5, K6 and mask-feature calls recorded."""
+    calls = {}
+    names = ("fused_prop_next_bins", "fused_final_render_frozen",
+             "mask_features")
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            calls.setdefault(name, []).append((a, k, out))
+            return out
+        return wrapped
+
+    for name in names:
+        setattr(model, name, spy(name, getattr(model, name)))
+    try:
+        out = render_rays(model, batch["rays_o"], batch["rays_d"], settings)
+    finally:
+        for name in names:
+            delattr(model, name)
+    return out, calls
+
+
+def profile_steps(step, n=5):
+    """Device time of n steps by kernel from one torch.profiler trace
+    (CUPTI) that records the device's activity alone, so that the host
+    pays little for it: the level kernels, matrix products, everything
+    else, and the device's idle share of the trace's own span (first
+    device activity to the last; idle is the span less the union of the
+    activities).  A trace of the host too is taken only if the device-only
+    one holds no device events.  Returns ms a step by group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    for acts in ([ProfilerActivity.CUDA],
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+        print("[profile] the device-only trace holds no device events; "
+              "tracing the host too", flush=True)
+    assert events, "the profiler recorded no device activity"
+    groups = {"K5": 0.0, "K6": 0.0, "matrix products": 0.0, "other": 0.0}
+    by_name = {}
+    for e in events:  # the device's own events: kernels, copies, memsets
+        ms = e.time_range.elapsed_us() / 1e3 / n
+        name = e.name.lower()
+        g = ("K5" if "prop_level_sample_kernel" in name else
+             "K6" if "final_level_kernel" in name else
+             "matrix products" if "gemm" in name or "cutlass" in name
+             else "other")
+        groups[g] += ms
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    union, (lo, hi) = 0.0, spans[0]
+    for s, t in spans[1:]:
+        if s > hi:
+            union, lo, hi = union + hi - lo, s, t
+        else:
+            hi = max(hi, t)
+    union += hi - lo
+    span = (max(t for _, t in spans) - spans[0][0]) / 1e3 / n
+    busy = union / 1e3 / n
+    groups["device busy"] = busy
+    groups["device idle"] = span - busy
+    groups["span"] = span
+    groups["idle share"] = (span - busy) / span
+    groups["wall"] = wall
+    print(f"[profile] {n} steps, one trace of {len(acts)} activity kind(s), "
+          "ms a step: " + ", ".join(f"{k} {v:.4f}" for k, v in groups.items())
+          + " (idle share of the trace's device span; wall is the host "
+          "clock with the profiler on)", flush=True)
+    print("[profile] top kernels, ms a step: " + "; ".join(
+        f"{name} {ms:.4f}" for name, ms in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:10]), flush=True)
+    return groups
+
+
+def stage3_path(work, init_ws):
+    """Phase 7: the stage-3 CLI run over the phase-5 field, its step rate
+    and breakdown, the route check, and a --test --with_mask resume."""
+    scene = os.path.join(work, "scene")
+    masks_dir = os.path.join(work, "masks")
+    ws_dir = os.path.join(work, "obj_ws")
+    n_views = 17
+    write_sphere_masks(masks_dir, n_views=n_views, H=VIEW, W=VIEW)
+    init = torch.load(CheckpointManager(init_ws).latest_path(),
+                      map_location="cpu", weights_only=True)["model"]
+    # scripts/train_obj_nerf.sh, on the synthetic llff scene (its default
+    # held-out views instead of a test-view list)
+    argv = [scene, "--field_type", "mlp", "--data_type", "llff",
+            "--workspace", ws_dir, "--seed", "0", "--init_ckpt", init_ws,
+            "--with_mask", "--mask_root", masks_dir, "--num_rays", "6000",
+            "--iters", str(MASK_STEPS), "--ray_pair_rgb_loss_weight", "1",
+            "--ray_pair_rgb_threshold", "0.1", "--ray_pair_rgb_iter", "150",
+            "--ray_pair_rgb_num_sample", "8", "--local_sample_patch_size",
+            "8", "--num_local_sample", "4", "--mixed_sampling",
+            "--random_image_batch", "--error_map"]
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    cfg, model = trainer.cfg, trainer.model
+    n_train = n_views - 2
+    n_rays = (cfg.num_rays
+              + cfg.num_local_sample * cfg.local_sample_patch_size ** 2)
+    rebuilds = [s_ for s_ in range(1, MASK_STEPS + 1)
+                if s_ % cfg.ray_pair_rgb_iter == 0]
+    val_chunks = 2 * -(-VIEW * VIEW // cfg.max_ray_batch)
+    em_chunks = len(rebuilds) * n_train * -(-cfg.error_map_size ** 2
+                                             // cfg.max_ray_batch)
+    print(f"[stage3] CLI: {trainer.state.step} steps of {n_rays} rays, "
+          f"error-map rebuilds at steps {rebuilds} ({n_train} views of "
+          f"{cfg.error_map_size}^2), mIoU eval ({val_chunks} chunks) in "
+          f"{dt:.2f} s; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    assert rebuilds and trainer.state.step == MASK_STEPS
+    assert trainer.backbone_frozen
+    per_pass = MASK_STEPS + em_chunks + val_chunks
+    assert launches["K6"] == per_pass, (launches, per_pass)
+    assert launches["K5"] == 2 * per_pass, (launches, per_pass)
+    for k in ("K1", "K2", "K3", "K4"):
+        assert launches[k] == 0, launches
+    state = model.state_dict()
+    for name, p in init.items():
+        assert torch.equal(state[name].cpu(), p), f"backbone {name} moved"
+    print(f"[stage3] backbone: all {len(init)} tensors bitwise equal to the "
+          "init checkpoint", flush=True)
+    with open(os.path.join(ws_dir, "log_ngp.txt")) as f:
+        log = f.read()
+    for s_ in rebuilds:
+        assert f"[INFO] error map rebuilt at step {s_}\n" in log, log[-2000:]
+    miou = float(log.split("[EVAL] MeanIoU = ")[-1].split()[0])
+    hist = trainer.stats["mask"]
+    assert all(np.isfinite(v["loss"]) for _, v in hist), hist
+    (s_first, m_first), (s_last, m_last) = hist[0], hist[-1]
+    print(f"[stage3] CE step {s_first} {m_first['ce']:.5f}, step {s_last} "
+          f"{m_last['ce']:.5f} (loss {m_last['loss']:.5f}, ray_pair "
+          f"{m_last['ray_pair']:.5f}, acc {m_last['acc']:.4f}); error map "
+          f"rebuilt at steps {rebuilds}; [EVAL] MeanIoU {miou:.6f}",
+          flush=True)
+
+    # a batch as train_mask draws it, at the fovy-60 online camera
+    dev = trainer.device
+    res = cfg.online_resolution
+    s_full = load_scene(scene, "llff")
+    idx = split_indices(n_views, "train")
+    masks_t = torch.as_tensor(
+        np.stack([np.load(os.path.join(masks_dir, f"v{i:02d}_obj_mask.npy"))[0]
+                  for i in idx]), dtype=torch.long, device=dev)
+    poses_t = torch.as_tensor(s_full.poses[idx], device=dev)
+    intr_t = torch.as_tensor(fixed_fovy_intrinsics(res, 60.0), device=dev)
+    S = cfg.error_map_size
+    error_map = torch.rand((len(idx), S * S), device=dev) + 0.05
+    gen = torch.Generator(dev).manual_seed(3)
+
+    def draw():
+        return sample_mask_batch(gen, masks_t, poses_t, intr_t, error_map,
+                                 cfg.num_rays, cfg.num_local_sample,
+                                 cfg.local_sample_patch_size, res, res, S)
+
+    # step rate: host clock around synchronised steps (past iters they only
+    # see a lower lr)
+    mask_step = make_mask_train_step(model, cfg, frozen_backbone=True)
+    em = error_map
+    for _ in range(3):
+        _, em = mask_step(trainer.state, draw(), gen, em)
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        m, em = mask_step(trainer.state, draw(), gen, em)
+    torch.cuda.synchronize()
+    sps = reps / (time.perf_counter() - t0)
+    assert np.isfinite(float(m["loss"]))
+    print(f"[stage3] {sps:.3f} steps/s at {n_rays} rays a step "
+          f"({1e3 / sps:.2f} ms a step, mean of {reps} after 3 warm-up)",
+          flush=True)
+
+    # breakdown of one step's parts, each alone (CUDA events)
+    batch = draw()
+    settings = RenderSettings(
+        num_steps=tuple(cfg.num_steps), use_contract=cfg.contract,
+        min_near=cfg.min_near, background=cfg.background, bound=cfg.bound,
+        training=True, return_mask=True, frozen_backbone=True)
+    out, calls = capture_render(model, settings, batch)
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    parts = {"sampler": cuda_ms(draw)}
+    with torch.no_grad():
+        for i, (a, k, _) in enumerate(calls["fused_prop_next_bins"]):
+            parts[f"K5 level {i}"] = cuda_ms(
+                lambda: model.fused_prop_next_bins(*a, **k))
+        a, k, k6_out = calls["fused_final_render_frozen"][0]
+        parts["K6"] = cuda_ms(lambda: model.fused_final_render_frozen(*a,
+                                                                      **k))
+    xyz = calls["mask_features"][0][0][0]
+    w, geo = k6_out[3], k6_out[4]
+
+    def branch(features):
+        m_in = torch.cat([features(model, xyz), geo], dim=-1)
+        logits = (w[..., None] * model.apply_mask_mlp(m_in)).sum(dim=-2)
+        torch.autograd.grad(logits.square().sum(), trainable)
+
+    parts["mask branch fwd+bwd"] = cuda_ms(
+        lambda: branch(lambda mdl, x: mdl.mask_features(x)))
+    logits = out["instance_mask_logits"].detach().requires_grad_()
+    loss_in = dict(out, instance_mask_logits=logits)
+
+    def losses():
+        loss, _, _ = mask_losses(loss_in, batch, MASK_STEPS, em, cfg, gen)
+        torch.autograd.grad(loss, logits)
+
+    parts["losses fwd+bwd"] = cuda_ms(losses)
+    step_ms = 1e3 / sps
+    print("[stage3] parts of a step, each timed alone (ms; alone each also "
+          "waits on its own launches, so they sum past the step): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+          + f"; whole step {step_ms:.4f}", flush=True)
+    profile = profile_steps(lambda: mask_step(trainer.state, draw(), gen,
+                                              em))
+
+    # the CP lookup as a one-hot matmul (the port) and as a gather
+    with torch.no_grad():
+        a_ = model.mask_features(xyz)
+        b_ = gather_mask_features(model, xyz)
+    lookup_err = rel_max(a_, b_)
+    assert lookup_err < 1e-4, lookup_err
+    lookup = {}
+    for name, fn in (("onehot_matmul", lambda mdl, x: mdl.mask_features(x)),
+                     ("gather", gather_mask_features)):
+        def run(fn=fn):
+            f = fn(model, xyz)
+            torch.autograd.grad(f.square().sum(), [
+                model.cp_m_x, model.cp_m_y, model.cp_m_z, model.cp_m_proj])
+        lookup[name] = cuda_ms(run)
+    print(f"[stage3] CP mask lookup fwd+bwd at {xyz.shape[0]}x{xyz.shape[1]} "
+          f"points: one-hot matmul (the port) {lookup['onehot_matmul']:.4f} "
+          f"ms, gather {lookup['gather']:.4f} ms (outputs rel-max "
+          f"{lookup_err:.2e})", flush=True)
+
+    # frozen route against the composable route on this batch
+    gt = batch["gt_masks"][:cfg.num_rays]
+    res_r = {}
+    for route in (True, False):
+        o = render_rays(model, batch["rays_o"], batch["rays_d"],
+                        dataclasses.replace(settings, level_kernels=route))
+        ce = torch.nn.functional.cross_entropy(
+            o["instance_mask_logits"][:cfg.num_rays], gt)
+        res_r[route] = (ce.item(), o["instance_mask_logits"].detach(),
+                        torch.autograd.grad(ce, trainable))
+    d_loss = abs(res_r[True][0] - res_r[False][0])
+    d_logit = (res_r[True][1] - res_r[False][1]).abs().max().item()
+    g_rel = max(rel_max(a, b_) for a, b_ in zip(res_r[True][2],
+                                                res_r[False][2]))
+    print(f"[stage3] frozen vs composable route, one batch: CE "
+          f"{res_r[True][0]:.6f} vs {res_r[False][0]:.6f} (diff {d_loss:.2e}"
+          f" < 2e-2), logits max abs {d_logit:.2e} (< 3e-2), trainable "
+          f"grads worst rel-max {g_rel:.2e} (< 6e-2)", flush=True)
+    assert d_loss < 2e-2 and d_logit < 3e-2 and g_rel < 6e-2
+
+    reset_counts()
+    tested = cli.main([scene, "--test", "--with_mask", "--mask_root",
+                       masks_dir, "--field_type", "mlp", "--data_type",
+                       "llff", "--workspace", ws_dir])
+    test_launches = read_counts()
+    assert tested.resumed and tested.state.step == MASK_STEPS
+    assert test_launches["K6"] == val_chunks, test_launches
+    for stem in ("v00", "v16"):
+        probs = np.load(os.path.join(ws_dir, "results", f"{stem}_mask.npy"))
+        assert probs.shape == (VIEW, VIEW, 2) and np.isfinite(probs).all()
+        vis = read_png(os.path.join(ws_dir, "results", f"{stem}_mask_vis.png"))
+        assert vis.shape == (VIEW, VIEW, 3)
+    print(f"[stage3] --test --with_mask resumed at step {tested.state.step}; "
+          "results/v00_mask.npy, v16_mask_vis.png written", flush=True)
+    return launches, {"steps_per_s": sps, "rays_per_step": n_rays,
+                      "miou": miou,
+                      "ce_first": m_first["ce"], "ce_last": m_last["ce"],
+                      "parts_alone_ms": parts, "profile": profile,
+                      "cp_lookup_ms": lookup,
+                      "route_loss_diff": d_loss,
+                      "route_logit_max_abs": d_logit,
+                      "route_grad_rel_max": g_rel}
+
+
 def main():
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
@@ -573,12 +956,15 @@ def main():
     launches, mrays = main_path(work)
     trainer, train_launches, sps = train_path(work)
     parity = grad_parity(trainer, os.path.join(work, "scene"))
+    s3_launches, s3 = stage3_path(work, os.path.join(work, "train_ws"))
 
     # K5, K1 and K2 numbers are the sums over both proposal levels
     # (per_shape has each); K5 and K3 launches are the inference path's,
-    # K1, K2 and K4 the training path's (K3 also ran there once a step)
+    # K1, K2 and K4 the training path's (K3 also ran there once a step),
+    # K6 the stage-3 path's
     rows = (("K5", "fused_prop_level_sample", SOURCE, 258, launches),
             ("K3", "fused_final_level", SOURCE, 695, launches),
+            ("K6", "fused_final_level_frozen", SOURCE, 143, s3_launches),
             ("K1", "fused_prop_level_sample_train", SOURCE, 415,
              train_launches),
             ("K2", "fused_prop_level_bwd", SOURCE_BWD, 861, train_launches),
@@ -590,7 +976,8 @@ def main():
     print(json.dumps({"kernels": report, "render_mrays_per_s": mrays,
                       "train_steps_per_s": sps,
                       "train_launches": train_launches,
-                      "grad_parity_worst_rel_l2": max(parity.values())}))
+                      "grad_parity_worst_rel_l2": max(parity.values()),
+                      "stage3_launches": s3_launches, "stage3": s3}))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Static configuration: the `Config` fields the stage-1 path reads.
+"""Static configuration: the `Config` fields the stage-1 and stage-3 paths
+read.
 
 A copy of the matching fields of the JAX package's `Config` (defaults
 unchanged, including the post-parse hard overrides bound=128,
@@ -19,6 +20,12 @@ class Config:
     # "latest": resume <workspace>/checkpoints; a .npz of JAX parameters
     # (models/convert.py); else a seeded init
     ckpt: str = "latest"
+    # stage hand-off: a port workspace (its newest checkpoint) or an .npz of
+    # JAX parameters; the parameters it holds are loaded and frozen
+    init_ckpt: str = ""
+    # stage-3 camera: fovy 60 at this square resolution, unless
+    # use_default_intrinsics
+    online_resolution: int = 512
 
     # testing
     save_cnt: int = 20
@@ -29,7 +36,8 @@ class Config:
     train_split: str = "train"
     test_split: str = "val"
     random_image_batch: bool = False
-    val_type: str = "default"
+    val_type: str = "default"  # default | val_all | val_split
+    test_view_path: Optional[str] = None
     downscale: int = 1
     bound: float = 128.0
     scale: float = -1.0
@@ -62,6 +70,34 @@ class Config:
     cp_rank: int = 64
     cp_res: int = 256
     density_bias: float = 0.0
+    # mask-field feature volume (CP; the hash-grid form is not ported)
+    feat_rep: str = "cp"
+    feat_rank: int = 128
+    feat_res: int = 256
+
+    # stage 3: object field
+    with_mask: bool = False
+    mask_mlp_type: str = "default"  # default | lightweight_mask
+    mask_root: Optional[str] = None
+    n_inst: int = 2
+    label_regularization_weight: float = 0.0
+    ray_pair_rgb_loss_weight: float = 0.0
+    ray_pair_rgb_threshold: float = 0.3
+    epsilon: float = 1e-6
+    ray_pair_rgb_exp_weight: float = 10.0
+    ray_pair_rgb_num_sample: int = 1
+    ray_pair_rgb_iter: int = -1
+    ray_pair_rgb_use_pred_logistics: bool = False
+    # parsed only: the sampler always draws the local patches, as the JAX
+    # package's does
+    mixed_sampling: bool = False
+    local_sample_patch_size: int = 16
+    num_local_sample: int = 2
+    error_map: bool = False
+    error_map_size: int = 128
+    use_default_intrinsics: bool = False
+    render_mask_type: str = "heatmap"  # mask | composition | heatmap
+    render_mask_instance_id: int = 0
 
     # port: where tensors live ("cuda" unless the caller asks for "cpu")
     device: Optional[str] = None

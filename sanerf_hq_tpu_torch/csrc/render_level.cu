@@ -1,6 +1,7 @@
 // Render-level kernels for NVIDIA Hopper (sm_90a): the proposal level with
 // in-kernel inverse-CDF resampling (K5, and K1 with its weights output) and
-// the final level with in-kernel CP line features (K3).  Bound to Python
+// the final level with in-kernel CP line features (K3, and K6 with its
+// per-sample trunk features output).  Bound to Python
 // through ctypes (sanerf_hq_tpu_torch/ops/render_level.py); plain C
 // interface, no PyTorch headers.  Shared device code:
 // render_level_common.cuh.
@@ -13,6 +14,9 @@
 //       (:391); the same kernel as K5 with the raw weights stored
 //   K3  _make_final_train_kernel                     (:695), reached through
 //       fused_final_level (:64) -> _final_train_fwd_impl (:968)
+//   K6  _make_final_train_kernel(geo_out=True)       (:695), reached through
+//       fused_final_level_frozen (:85, pallas_call :143); the same kernel as
+//       K3 with each sample's 15 trunk features stored (geo [N, T, 15])
 //
 // Design.  One CTA of 8 warps owns a tile of whole rays and walks their
 // (ray, sample) points in passes of P = 128 points:
@@ -49,11 +53,12 @@ struct FinalParams {
   const bf16 *w0, *w1, *w2, *w3;
   const float* cp[3];
   float *f_image, *depth, *wsum, *weights;
+  float* geo;  // [N, T, 15] per-sample trunk features (K6) or null (K3)
   int n_rays, T, deg, rank, res, hidden, kin, rays_per_cta, opaque_last;
   float grid_bound, db;
 };
 
-// K3.  Shared memory: X [P, H+KIN+8] holds [act | h_in] so the skip layer
+// K3 and K6.  Shared memory: X [P, H+KIN+8] holds [act | h_in] so the skip layer
 // reads one contiguous [act(H) | h_in(KIN)] row; Y [P, H+8]; F [P, 16] fp32
 // raw outputs; per-warp 16x16 fp32 scratch; per-point geometry.
 __global__ void __launch_bounds__(NTHREADS)
@@ -93,6 +98,18 @@ final_level_kernel(FinalParams p) {
     __syncthreads();
     dense<P>(Y, ldY, H, p.w3, OUT, nullptr, 0, F, OUT, ws);
     __syncthreads();
+    if (p.geo) {
+      // K6: a pass holds consecutive points of whole rays, so its points'
+      // features are one contiguous run of geo; every thread stores, and
+      // neighbouring threads write neighbouring addresses
+      const int npts = min(P, total_pts - p0);
+      const int valid = min(npts, (p.n_rays - ray0) * T - p0);
+      float* g = p.geo + ((size_t)ray0 * T + p0) * GEO;
+      for (int item = tid; item < valid * GEO; item += NTHREADS) {
+        const int q = item / GEO;
+        g[item] = F[q * OUT + 1 + (item - q * GEO)];
+      }
+    }
     if (tid < R && ray0 + tid < p.n_rays) {
       const int ray = ray0 + tid;
       const int lo = max(p0, tid * T), hi = min(p0 + P, (tid + 1) * T);
@@ -254,12 +271,14 @@ extern "C" {
 // Returns 0 or a cudaError_t code.  Weights are bf16 [out, in] padded:
 // w0 [H, KIN], w1 [H, H], w2 [H, H+KIN] (columns [act | h_in]), w3 [16, H];
 // KIN = 3 + 6*deg + rank rounded up to 16, H a multiple of 16.
+// geo: [N, T, 15] per-sample trunk features (K6) or null (K3).
 int sanerf_final_level(const float* rays_o, const float* rays_d,
                        const float* real_bins, const float* sh,
                        const void* w0, const void* w1, const void* w2,
                        const void* w3, const float* cp_x, const float* cp_y,
                        const float* cp_z, float* f_image, float* depth,
-                       float* wsum, float* weights, int n_rays, int T,
+                       float* wsum, float* weights, float* geo, int n_rays,
+                       int T,
                        int freq_degree, int cp_rank, int cp_res, int hidden,
                        int kin, float grid_bound, int opaque_last,
                        float density_bias, void* stream) {
@@ -269,6 +288,7 @@ int sanerf_final_level(const float* rays_o, const float* rays_d,
   p.w2 = (const bf16*)w2; p.w3 = (const bf16*)w3;
   p.cp[0] = cp_x; p.cp[1] = cp_y; p.cp[2] = cp_z;
   p.f_image = f_image; p.depth = depth; p.wsum = wsum; p.weights = weights;
+  p.geo = geo;
   p.n_rays = n_rays; p.T = T; p.deg = freq_degree; p.rank = cp_rank;
   p.res = cp_res; p.hidden = hidden; p.kin = kin;
   p.rays_per_cta = T >= P ? 1 : P / T;

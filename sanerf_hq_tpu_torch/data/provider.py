@@ -1,5 +1,8 @@
 """Scene loading, host-side (numpy): the `transforms.json` families
-('llff', '3dfront') and the reference split logic.
+('llff', '3dfront'), the reference split logic, and the stage-3 object
+masks (`load_object_masks`) with the two resizes the stage needs
+(`resize_nearest`, `resize_linear`: OpenCV's INTER_NEAREST and, on float
+images, INTER_LINEAR, in numpy).
 
 'llff' / '3dfront': transforms.json with fl_x/fl_y/cx/cy + frames; ngp axis
 permutation then y/z column flips; 3dfront recentres (center_poses) and
@@ -215,3 +218,85 @@ def split_indices(n_views: int, split: str, val_type: str = "default",
     if split in ("val", "test"):
         return all_idx[all_idx % 16 == 0]
     return all_idx  # 'all' / 'trainval'
+
+
+def resize_nearest(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """Nearest resize of [h, w, ...] to [H, W, ...] as OpenCV's
+    INTER_NEAREST picks: source index floor(i * src / dst)."""
+    h, w = img.shape[:2]
+    rows = np.minimum(np.floor(np.arange(H) * (1.0 / (H / h))).astype(
+        np.int64), h - 1)
+    cols = np.minimum(np.floor(np.arange(W) * (1.0 / (W / w))).astype(
+        np.int64), w - 1)
+    return img[rows][:, cols]
+
+
+def _linear_taps(dst: int, src: int):
+    """OpenCV's INTER_LINEAR taps along one axis: half-pixel centres,
+    clamped at both edges.  Returns (lower index, upper weight)."""
+    f = ((np.arange(dst) + 0.5) * (src / dst) - 0.5).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    f = f - i0
+    f[i0 < 0] = 0.0
+    i0[i0 < 0] = 0
+    top = i0 >= src - 1
+    f[top] = 0.0
+    i0[top] = src - 1
+    return i0, f.astype(np.float32)
+
+
+def resize_linear(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """Bilinear resize of a float32 [h, w] image to [H, W] as OpenCV's
+    INTER_LINEAR computes it: a horizontal pass, then a vertical one."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape
+    c0, fc = _linear_taps(W, w)
+    r0, fr = _linear_taps(H, h)
+    c1, r1 = np.minimum(c0 + 1, w - 1), np.minimum(r0 + 1, h - 1)
+    rows = img[:, c0] * (1.0 - fc) + img[:, c1] * fc  # [h, W]
+    return (rows[r0] * (1.0 - fr)[:, None]
+            + rows[r1] * fr[:, None]).astype(np.float32)
+
+
+def load_object_masks(mask_root: str, img_names, H: int, W: int,
+                      seed: int = 0):
+    """Load {stem}_obj_mask.npy files (the decode output: [1, H, W] uint8
+    labels) with validity gating: a view is valid when its
+    valid_dict.json score is > 0.5 and its mask has >= 10 foreground
+    pixels; more than 25 valid views are subsampled ::3, topped up to 25
+    with views drawn (with replacement) from a numpy Generator seeded with
+    `seed`.
+
+    Returns (masks [V, H, W] int32 labels, valid indices [K] int64)."""
+    valid_path = os.path.join(mask_root, "valid_dict.json")
+    valid = {}
+    if os.path.exists(valid_path):
+        with open(valid_path) as f:
+            valid = json.load(f)
+    masks = np.zeros((len(img_names), H, W), dtype=np.int32)
+    valid_idx = []
+    for i, name in enumerate(img_names):
+        stem = os.path.splitext(str(name))[0]
+        p = os.path.join(mask_root, f"{stem}_obj_mask.npy")
+        if not os.path.exists(p):
+            continue
+        m = np.load(p)
+        if m.ndim == 3:
+            # [1, H, W]; per-class probability maps are argmaxed
+            m = m[0] if m.shape[0] == 1 else (
+                m.argmax(0) if m.shape[0] < m.shape[-1] else m.argmax(-1))
+        if m.shape != (H, W):
+            m = resize_nearest(m.astype(np.uint8), H, W)
+        masks[i] = m.astype(np.int32)
+        score = float(valid.get(stem, 1))
+        if (m > 0).sum() >= 10 and score > 0.5:
+            valid_idx.append(i)
+    valid_idx = np.asarray(valid_idx, np.int64)
+    if valid_idx.shape[0] > 25:
+        sub = valid_idx[::3]
+        if sub.shape[0] < 25:
+            extra = np.random.default_rng(seed).choice(valid_idx,
+                                                       25 - sub.shape[0])
+            sub = np.concatenate([sub, extra])
+        valid_idx = sub
+    return masks, valid_idx

@@ -50,3 +50,13 @@ def sample_random_pixels(H: int, W: int, n: int, device,
     x = (inds % W).float() + 0.5
     y = torch.div(inds, W, rounding_mode="floor").float() + 0.5
     return inds, x, y
+
+
+def coarse_inds_from_fine(inds, H: int, W: int, map_size: int = 128):
+    """Fine pixel indices -> their cells of a map_size x map_size error
+    map."""
+    rows = torch.div(inds, W, rounding_mode="floor")
+    cols = inds % W
+    cr = (rows * (map_size / H)).long()
+    cc = (cols * (map_size / W)).long()
+    return cr * map_size + cc

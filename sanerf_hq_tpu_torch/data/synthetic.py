@@ -1,5 +1,6 @@
 """Tiny analytic synthetic scene: a matte colour-by-normal sphere at the
-origin rendered by exact ray-sphere intersection (numpy, no data needed)."""
+origin rendered by exact ray-sphere intersection (numpy, no data needed),
+and its object masks in the decode output format."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,8 +24,9 @@ def look_at_pose(eye, center=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0)):
     return pose
 
 
-def render_gt_sphere(pose, intrinsics, H, W, radius=0.5):
-    """Ground-truth image of a matte colour-by-normal sphere; white bg."""
+def _sphere_hits(pose, intrinsics, H, W, radius):
+    """Per-pixel ray-sphere intersection: (hit [H, W] bool, first hit
+    point [H, W, 3])."""
     fx, fy, cx, cy = intrinsics
     yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     xs = (xx + 0.5 - cx) / fx
@@ -41,7 +43,12 @@ def render_gt_sphere(pose, intrinsics, H, W, radius=0.5):
     hit = disc > 0
     t = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0))) / 2, 0.0)
     hit = hit & (t > 0)
-    p = o + dn * t[..., None]
+    return hit, o + dn * t[..., None]
+
+
+def render_gt_sphere(pose, intrinsics, H, W, radius=0.5):
+    """Ground-truth image of a matte colour-by-normal sphere; white bg."""
+    hit, p = _sphere_hits(pose, intrinsics, H, W, radius)
     normal = p / radius
     color = 0.5 * normal + 0.5
     return np.where(hit[..., None], color, 1.0).astype(np.float32)
@@ -94,3 +101,24 @@ def write_llff_scene(root: str, n_views: int = 8, H: int = 64, W: int = 64):
         json.dump({"w": W, "h": H, "fl_x": float(fx), "fl_y": float(fy),
                    "cx": float(cx), "cy": float(cy), "frames": frames}, f)
     return s
+
+
+def write_sphere_masks(root: str, n_views: int = 8, H: int = 64,
+                       W: int = 64, radius: float = 0.5):
+    """Object masks of the scene write_llff_scene writes with the same
+    n_views, H and W, in the decode output format: {stem}_obj_mask.npy
+    ([1, H, W] uint8, 1 on the sphere, 0 elsewhere) and valid_dict.json
+    (every view valid, score 1)."""
+    import json
+    import os
+
+    os.makedirs(root, exist_ok=True)
+    s = make_synthetic_dataset(n_views=n_views, H=H, W=W)
+    valid = {}
+    for i in range(n_views):
+        hit, _ = _sphere_hits(s["poses"][i], s["intrinsics"], H, W, radius)
+        np.save(os.path.join(root, f"v{i:02d}_obj_mask.npy"),
+                hit[None].astype(np.uint8))
+        valid[f"v{i:02d}"] = 1.0
+    with open(os.path.join(root, "valid_dict.json"), "w") as f:
+        json.dump(valid, f)

@@ -18,8 +18,11 @@ _RULES = (
     # (flax path, port key template, transpose)
     (re.compile(r"(trunk|prop_mlp_[01])/(w\d+)"), r"\1.\2", True),
     (re.compile(r"(cp_[xyz])"), r"\1", False),
-    (re.compile(r"view_mlp/Dense_(\d+)/kernel"), r"view_mlp.layers.\1.weight",
-     True),
+    (re.compile(r"(view_mlp|mask_mlp)/Dense_(\d+)/kernel"),
+     r"\1.layers.\2.weight", True),
+    (re.compile(r"mask_mlp/Dense_(\d+)/bias"), r"mask_mlp.layers.\1.bias",
+     False),
+    (re.compile(r"(cp_m_[xyz]|cp_m_proj)"), r"\1", False),
 )
 
 
@@ -44,9 +47,11 @@ def params_from_jax(tree: Mapping) -> dict:
     """Flax MLPField parameters -> the port's state_dict (CPU float32).
 
     Keys: params/trunk/w0..w3, params/cp_x|cp_y|cp_z,
-    params/prop_mlp_{0,1}/w0..w2, params/view_mlp/Dense_{0,1,2}/kernel.
-    Leaves outside the stage-1 field (stage-2/3 heads) are not carried; a
-    strict `load_state_dict` reports anything the field still lacks."""
+    params/prop_mlp_{0,1}/w0..w2, params/view_mlp/Dense_{0,1,2}/kernel,
+    and the stage-3 mask branch: params/cp_m_x|cp_m_y|cp_m_z|cp_m_proj,
+    params/mask_mlp/Dense_i/kernel (and bias where it exists).  Leaves of
+    the stage-2 heads (cp_s_*, samvit_*) are not carried; a strict
+    `load_state_dict` reports anything the field still lacks."""
     flat = flatten(tree) if any(isinstance(v, Mapping) for v in tree.values()) \
         else dict(tree)
     state = {}

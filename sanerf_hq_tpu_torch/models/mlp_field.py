@@ -1,13 +1,22 @@
 """Flagship field: frequency-encoded MLP radiance field with CP line
-features (stage 1 only).
+features, and the stage-3 object field (mask branch) on top of it.
 
 Deferred colour: per-sample features are composited, then the small view
 MLP runs per ray.  Proposal densities come from small freq-encoded MLPs.
 The renderer drives the level kernels through `fused_prop_next_bins` (K5)
-and `fused_final_render` (K3) for inference, and through
+and `fused_final_render` (K3) for inference, through
 `fused_prop_weights_train_sample` (K1, backward K2) and
-`fused_final_render_train` (K3, backward K4) for training; `density` /
+`fused_final_render_train` (K3, backward K4) for training, and through
+`fused_prop_next_bins(frozen=True)` (K5) and `fused_final_render_frozen`
+(K6) for the mask branch over a frozen backbone; `density` /
 `forward_color` are the composable route.
+
+The mask branch (`with_mask`): a rank-`feat_rank` CP feature volume
+`cp_m_{x,y,z}` [feat_res, feat_rank] with a projection `cp_m_proj`
+[feat_rank, C] (C 128 for the default mask MLP, 32 for the lightweight
+one), read by `mask_features`, and the mask MLP on [features | trunk
+features] (default, a bias-free SkipConnMLP 256 x 3) or [features |
+colour] (lightweight, a bias-free MLP 64 x 3) giving n_inst logits.
 """
 from __future__ import annotations
 
@@ -19,11 +28,12 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.fused_mlp import _reference_forward, _reference_forward_with_extra
 from ..ops.render_level import (cp_features, final_level_train,
-                                fused_final_level, fused_prop_level_sample,
+                                fused_final_level, fused_final_level_frozen,
+                                fused_prop_level_sample,
                                 prop_level_train_sample)
 from ..ops.sh import sh_encode
 from ..ops.trunc_exp import safe_trunc_exp
-from .mlp import MLP, uniform_fan_in_
+from .mlp import MLP, SkipConnMLP, uniform_fan_in_
 
 GEOM_FEAT_DIM = 15
 SH_DEGREE = 4
@@ -71,9 +81,20 @@ class MLPField(nn.Module):
                  num_layers: int = 4, freq_degree: int = 10,
                  prop_hidden: int = 64, prop_layers: int = 3,
                  prop_freq_degree: int = 6, density_bias: float = 0.0,
-                 cp_rank: int = 0, cp_res: int = 256, device=None,
+                 cp_rank: int = 0, cp_res: int = 256, with_mask: bool = False,
+                 n_inst: int = 2, mask_mlp_type: str = "default",
+                 feat_rep: str = "cp", feat_rank: int = 128,
+                 feat_res: int = 256, with_sam: bool = False, device=None,
                  seed: int = 0):
         super().__init__()
+        if with_sam:
+            raise NotImplementedError(
+                "with_sam (stage 2) is not ported yet (ROADMAP.md, queue 1, "
+                "M8)")
+        if with_mask and feat_rep != "cp":
+            raise NotImplementedError(
+                f"feat_rep '{feat_rep}' is not ported yet (ROADMAP.md, queue "
+                "1, M12); use feat_rep 'cp'")
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.grid_bound = grid_bound
@@ -97,6 +118,27 @@ class MLPField(nn.Module):
                                   prop_freq_degree, device=device, generator=g)
         self.prop_mlp_1 = FreqMLP(1, prop_hidden, prop_layers,
                                   prop_freq_degree, device=device, generator=g)
+        self.with_mask = with_mask
+        self.mask_mlp_type = mask_mlp_type
+        self.n_inst = n_inst
+        self.feat_res = feat_res
+        if with_mask:  # drawn last: the backbone's init does not depend on it
+            # the widths of the reference's m_grid hash encodings (16
+            # levels x 8, lightweight 16 x 2), which the projection gives
+            channels = 128 if mask_mlp_type == "default" else 32
+            for a in "xyz":
+                basis = torch.randn((feat_res, feat_rank), generator=g) * 0.3
+                self.register_parameter(
+                    f"cp_m_{a}", nn.Parameter(basis.to(device)))
+            proj = torch.randn((feat_rank, channels), generator=g) * 0.1
+            self.cp_m_proj = nn.Parameter(proj.to(device))
+            if mask_mlp_type == "default":
+                self.mask_mlp = SkipConnMLP(channels + GEOM_FEAT_DIM, n_inst,
+                                            256, 3, use_bias=False,
+                                            device=device, generator=g)
+            else:
+                self.mask_mlp = MLP(channels + GEOM_FEAT_DIM + SH_DIM, n_inst,
+                                    64, 3, device=device, generator=g)
 
     @property
     def cp_basis(self):
@@ -134,16 +176,45 @@ class MLPField(nn.Module):
     def apply_view_mlp(self, f_image):
         return self.view_mlp(f_image)
 
+    def mask_features(self, x):
+        """Contracted world coords [..., 3] -> [..., C] CP mask features:
+        per axis a two-hot linear-interpolation row over feat_res times the
+        basis, the product over axes, then the projection.  Written as the
+        JAX field writes it (mlp_field.py:194-213), one-hot matmuls: on the
+        H100 their backward beats a gather's, whose index_put adds every
+        point's grads into the same 3 x feat_res rows (chip_smoke.py times
+        both)."""
+        S = self.feat_res
+        p = ((self._norm(x) + 1.0) * 0.5).clamp(0.0, 1.0) * (S - 1)
+        i0 = torch.floor(p).clamp(0.0, S - 2.0)
+        f = p - i0
+        i0 = i0.long()
+        iota = torch.arange(S, device=x.device)
+        g = None
+        for a, basis in enumerate((self.cp_m_x, self.cp_m_y, self.cp_m_z)):
+            ia, fa = i0[..., a, None], f[..., a, None]
+            w = (torch.where(iota == ia, 1.0 - fa, 0.0)
+                 + torch.where(iota == ia + 1, fa, 0.0))
+            la = w @ basis
+            g = la if g is None else g * la
+        return g @ self.cp_m_proj
+
+    def apply_mask_mlp(self, m):
+        return self.mask_mlp(m)
+
     # level kernels (ops/render_level.py)
     supports_fused_final = True
 
     def fused_prop_next_bins(self, rays_o, rays_d, real_bins, s_bins, u,
-                             proposal: int, opaque_last: bool = True):
+                             proposal: int, opaque_last: bool = True,
+                             frozen: bool = False):
         """Proposal level + inverse-CDF resampling in one kernel: the NEXT
-        level's s-space bin edges [N, Q]."""
+        level's s-space bin edges [N, Q].  frozen detaches the weights (the
+        frozen-backbone route, where no gradient may reach them)."""
         mlp = self.prop_mlp_0 if proposal == 0 else self.prop_mlp_1
+        ws = [w.detach() for w in mlp.weights] if frozen else mlp.weights
         return fused_prop_level_sample(
-            rays_o, rays_d, real_bins, s_bins, u, mlp.weights,
+            rays_o, rays_d, real_bins, s_bins, u, ws,
             self.prop_freq_degree, self.grid_bound, opaque_last=opaque_last,
             density_bias=self.density_bias)
 
@@ -162,6 +233,21 @@ class MLPField(nn.Module):
             opaque_last=opaque_last, density_bias=self.density_bias,
             cps=self.cp_basis, cp_res=self.cp_res)
         return f_image, depth, wsum
+
+    def fused_final_render_frozen(self, rays_o, rays_d, real_bins,
+                                  opaque_last: bool = True,
+                                  need_geo: bool = False):
+        """Final level over a frozen backbone in one kernel (K6), the
+        weights detached.  Returns (f_image [N, 31], depth [N], weights_sum
+        [N], weights [N, T], geo [N, T, 15] or None)."""
+        sh, ws = self._final_args(rays_d)
+        return fused_final_level_frozen(
+            rays_o, rays_d, real_bins, sh, [w.detach() for w in ws],
+            self.freq_degree, skip_layer=self.num_layers // 2,
+            grid_bound=self.grid_bound, opaque_last=opaque_last,
+            density_bias=self.density_bias,
+            cps=[c.detach() for c in self.cp_basis], cp_res=self.cp_res,
+            need_geo=need_geo)
 
     def fused_prop_weights_train_sample(self, rays_o, rays_d, real_bins,
                                         s_bins, u, proposal: int,
@@ -197,7 +283,9 @@ def make_field(field_type: str = "hashgrid", device=None, seed: int = 0,
     if field_type == "mlp":
         allowed = {"grid_bound", "hidden", "num_layers", "freq_degree",
                    "prop_hidden", "prop_layers", "prop_freq_degree",
-                   "density_bias", "cp_rank", "cp_res"}
+                   "density_bias", "cp_rank", "cp_res", "with_mask",
+                   "n_inst", "mask_mlp_type", "feat_rep", "feat_rank",
+                   "feat_res", "with_sam"}
         return MLPField(**{k: v for k, v in kw.items() if k in allowed},
                         device=device, seed=seed)
     raise ValueError(f"unknown field_type {field_type}")

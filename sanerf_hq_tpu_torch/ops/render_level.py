@@ -5,6 +5,9 @@ PyTorch twin beside its wrapper:
      also writes the raw weights (csrc/render_level.cu);
   K3 `fused_final_level`: final level with CP line features, the inference
      and the training forward (csrc/render_level.cu);
+  K6 `fused_final_level_frozen`: K3 with no gradient that can also write
+     each sample's trunk features, for a frozen backbone (the same kernel
+     with a geo pointer);
   K2 `fused_prop_level_bwd`, K4 `fused_final_level_bwd`: their weight grads
      (csrc/render_level_bwd.cu).
 The training entry points are the autograd Functions `prop_level_train_sample`
@@ -290,15 +293,16 @@ fused_prop_level_sample_train.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3: final level with CP line features
+# K3 and K6: final level with CP line features (K6 adds the trunk features)
 # ---------------------------------------------------------------------------
 
-def final_level_ref(rays_o, rays_d, real_bins, sh, ws: Sequence,
-                    freq_degree: int, skip_layer: int, grid_bound: float,
-                    opaque_last: bool = True, density_bias: float = 0.0,
-                    cps: Sequence = (), cp_res: int = 0):
-    """Plain twin of K3.  Returns (f_image [N, 15+16], depth [N],
-    weights_sum [N], weights [N, T])."""
+def final_level_frozen_ref(rays_o, rays_d, real_bins, sh, ws: Sequence,
+                           freq_degree: int, skip_layer: int,
+                           grid_bound: float, opaque_last: bool = True,
+                           density_bias: float = 0.0, cps: Sequence = (),
+                           cp_res: int = 0, need_geo: bool = False):
+    """Plain twin of K6: final_level_ref, plus the trunk's per-sample
+    features h[..., 1:] [N, T, 15] when need_geo (else None)."""
     T = real_bins.shape[1] - 1
     t, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
     h_in, _ = _trunk_input(xn, freq_degree, cps, cp_res)
@@ -318,11 +322,23 @@ def final_level_ref(rays_o, rays_d, real_bins, sh, ws: Sequence,
         wsum = wsum + w
         weights.append(w)
     f_image = torch.cat([f_feat, wsum[:, None] * sh], dim=-1)
-    return f_image, depth, wsum, torch.stack(weights, dim=1)
+    geo = h[..., 1:] if need_geo else None
+    return f_image, depth, wsum, torch.stack(weights, dim=1), geo
+
+
+def final_level_ref(rays_o, rays_d, real_bins, sh, ws: Sequence,
+                    freq_degree: int, skip_layer: int, grid_bound: float,
+                    opaque_last: bool = True, density_bias: float = 0.0,
+                    cps: Sequence = (), cp_res: int = 0):
+    """Plain twin of K3.  Returns (f_image [N, 15+16], depth [N],
+    weights_sum [N], weights [N, T])."""
+    return final_level_frozen_ref(rays_o, rays_d, real_bins, sh, ws,
+                                  freq_degree, skip_layer, grid_bound,
+                                  opaque_last, density_bias, cps, cp_res)[:4]
 
 
 def _final_weights(ws, cps, cp_res, freq_degree, skip_layer, dev, what):
-    """Checks and bf16-pads the trunk as K3 and K4 take it: w0 [H, KIN],
+    """Checks and bf16-pads the trunk as K3, K6 and K4 take it: w0 [H, KIN],
     w1 [H, H], w2 [H, H+KIN] (columns [act | h_in]), w3 [16, H]."""
     rank = cps[0].shape[1] if cps else 0
     if len(ws) != 4 or skip_layer != 2:
@@ -345,6 +361,41 @@ def _final_weights(ws, cps, cp_res, freq_degree, skip_layer, dev, what):
     return padded, H, nin, kin, rank
 
 
+def _launch_final(rays_o, rays_d, real_bins, sh, ws, freq_degree,
+                  skip_layer, grid_bound, opaque_last, density_bias, cps,
+                  cp_res, need_geo: bool, what: str):
+    """K3 (need_geo False) or K6 on CUDA tensors: (f_image, depth,
+    weights_sum, weights, geo or None)."""
+    dev = _device(rays_o)
+    N, T = rays_o.shape[0], real_bins.shape[1] - 1
+    (w0, w1, w2, w3), H, nin, kin, rank = _final_weights(
+        ws, cps, cp_res, freq_degree, skip_layer, dev, what)
+    if T < 1:
+        raise ValueError(f"unsupported {what} shape: T {T}")
+    for name, x, shape in (("rays_o", rays_o, (N, 3)),
+                           ("rays_d", rays_d, (N, 3)),
+                           ("real_bins", real_bins, (N, T + 1)),
+                           ("sh", sh, (N, SH_DIM))):
+        _check(name, x, shape, dev)
+    f_image = torch.empty((N, GEO + SH_DIM), dtype=torch.float32, device=dev)
+    depth = torch.empty((N,), dtype=torch.float32, device=dev)
+    wsum = torch.empty((N,), dtype=torch.float32, device=dev)
+    weights = torch.empty((N, T), dtype=torch.float32, device=dev)
+    geo = (torch.empty((N, T, GEO), dtype=torch.float32, device=dev)
+           if need_geo else None)
+    null = ctypes.c_void_p(0)
+    cp_ptrs = [_ptr(c) for c in cps] if cps else [null] * 3
+    lib, fn = _fn("render_level", "sanerf_final_level", 16, 7)
+    rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(sh), _ptr(w0),
+            _ptr(w1), _ptr(w2), _ptr(w3), *cp_ptrs, _ptr(f_image),
+            _ptr(depth), _ptr(wsum), _ptr(weights),
+            null if geo is None else _ptr(geo), N, T, freq_degree, rank,
+            cp_res, H, kin, grid_bound, int(opaque_last), density_bias,
+            _stream(dev))
+    cuda_lib.check(lib, rc, what)
+    return f_image, depth, wsum, weights, geo
+
+
 def fused_final_level(rays_o, rays_d, real_bins, sh, ws: Sequence,
                       freq_degree: int, skip_layer: int, grid_bound: float,
                       opaque_last: bool = True, density_bias: float = 0.0,
@@ -360,35 +411,50 @@ def fused_final_level(rays_o, rays_d, real_bins, sh, ws: Sequence,
         return final_level_ref(rays_o, rays_d, real_bins, sh, ws,
                                freq_degree, skip_layer, grid_bound,
                                opaque_last, density_bias, cps, cp_res)
-    dev = _device(rays_o)
-    N, T = rays_o.shape[0], real_bins.shape[1] - 1
-    (w0, w1, w2, w3), H, nin, kin, rank = _final_weights(
-        ws, cps, cp_res, freq_degree, skip_layer, dev, "K3")
-    if T < 1:
-        raise ValueError(f"unsupported K3 shape: T {T}")
-    for name, x, shape in (("rays_o", rays_o, (N, 3)),
-                           ("rays_d", rays_d, (N, 3)),
-                           ("real_bins", real_bins, (N, T + 1)),
-                           ("sh", sh, (N, SH_DIM))):
-        _check(name, x, shape, dev)
-    f_image = torch.empty((N, GEO + SH_DIM), dtype=torch.float32, device=dev)
-    depth = torch.empty((N,), dtype=torch.float32, device=dev)
-    wsum = torch.empty((N,), dtype=torch.float32, device=dev)
-    weights = torch.empty((N, T), dtype=torch.float32, device=dev)
-    null = ctypes.c_void_p(0)
-    cp_ptrs = [_ptr(c) for c in cps] if cps else [null] * 3
-    lib, fn = _fn("render_level", "sanerf_final_level", 15, 7)
-    rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(sh), _ptr(w0),
-            _ptr(w1), _ptr(w2), _ptr(w3), *cp_ptrs, _ptr(f_image),
-            _ptr(depth), _ptr(wsum), _ptr(weights), N, T, freq_degree, rank,
-            cp_res, H, kin, grid_bound, int(opaque_last), density_bias,
-            _stream(dev))
-    cuda_lib.check(lib, rc, "fused_final_level")
+    out = _launch_final(rays_o, rays_d, real_bins, sh, ws, freq_degree,
+                        skip_layer, grid_bound, opaque_last, density_bias,
+                        cps, cp_res, False, "fused_final_level")
     fused_final_level.launches += 1
-    return f_image, depth, wsum, weights
+    return out[:4]
 
 
 fused_final_level.launches = 0
+
+
+def fused_final_level_frozen(rays_o, rays_d, real_bins, sh, ws: Sequence,
+                             freq_degree: int, skip_layer: int,
+                             grid_bound: float, opaque_last: bool = True,
+                             density_bias: float = 0.0, cps: Sequence = (),
+                             cp_res: int = 0, need_geo: bool = False):
+    """Frozen-backbone final level (K6), for the stage-2/3 side outputs:
+    K3's fusion with no gradient.  Returns (f_image [N, 31], depth [N],
+    weights_sum [N], weights [N, T], geo [N, T, 15] or None), geo being
+    the per-sample trunk features the mask MLP reads (need_geo).
+
+    The JAX function stop-gradients every input; here the caller detaches
+    them (MLPField.fused_final_render_frozen does), and a weight that
+    still requires grad while grad mode is on raises instead of silently
+    losing its gradient."""
+    if torch.is_grad_enabled():
+        for name, x in [(f"ws[{i}]", w) for i, w in enumerate(ws)] + [
+                (f"cps[{a}]", c) for a, c in enumerate(cps)]:
+            if x.requires_grad:
+                raise ValueError(
+                    f"fused_final_level_frozen has no gradient: {name} "
+                    "requires grad (detach it or use torch.no_grad)")
+    if rays_o.device.type == "cpu":
+        return final_level_frozen_ref(rays_o, rays_d, real_bins, sh, ws,
+                                      freq_degree, skip_layer, grid_bound,
+                                      opaque_last, density_bias, cps, cp_res,
+                                      need_geo)
+    out = _launch_final(rays_o, rays_d, real_bins, sh, ws, freq_degree,
+                        skip_layer, grid_bound, opaque_last, density_bias,
+                        cps, cp_res, need_geo, "fused_final_level_frozen")
+    fused_final_level_frozen.launches += 1
+    return out
+
+
+fused_final_level_frozen.launches = 0
 
 
 # ---------------------------------------------------------------------------

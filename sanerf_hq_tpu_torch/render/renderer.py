@@ -5,7 +5,11 @@ Fixed per-ray sample counts (default 128, 64, 32).  Two routes:
     compositing and inverse-CDF resampling in one kernel) and the final
     level through K3 (trunk with CP features and compositing in one
     kernel).  Training runs K1 (K5 that also returns the weights) and K3
-    as autograd Functions whose backward passes are K2 and K4;
+    as autograd Functions whose backward passes are K2 and K4.  With the
+    stage-3 mask output (`return_mask`) the backbone runs through K5 and
+    K6 (K3 that also returns each sample's trunk features) with no
+    gradient: at inference, and in training when `frozen_backbone` says
+    the optimizer freezes it; only the mask branch is differentiable;
   - the composable route: per-sample densities and colours from the
     field's plain methods, `compute_weights`, `sample_pdf`, and autograd
     through them.  It is the oracle for the kernels and the route of
@@ -21,10 +25,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..models.mlp_field import SH_DEGREE
 from ..ops.composite import compute_weights, distort_loss, proposal_loss
 from ..ops.contraction import contract
 from ..ops.ray import (near_far_from_aabb, sample_pdf, spacing_fn,
                        spacing_fn_inv, stratified_queries)
+from ..ops.sh import sh_encode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +46,11 @@ class RenderSettings:
     max_ray_batch: int = 16384
     # False forces the composable route (the oracle the kernels are held to)
     level_kernels: bool = True
+    # stage-3 object-field logits ('instance_mask_logits' [N, n_inst])
+    return_mask: bool = False
+    # the optimizer freezes the backbone (stage 3), so a training render
+    # with return_mask may run it through the gradient-free K5 and K6
+    frozen_backbone: bool = False
 
 
 def render_rays(field, rays_o, rays_d, settings: RenderSettings,
@@ -50,7 +61,7 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
     when settings.perturb.  Returns {'image' [N, 3], 'depth' [N],
     'weights_sum' [N]}; training adds 'weights' [N, T] (final level) and
     'num_points', and with compute_losses 'proposal_loss' and
-    'distort_loss'."""
+    'distort_loss'; return_mask adds 'instance_mask_logits'."""
     if not isinstance(update_proposal, bool):
         raise TypeError("update_proposal must be a Python bool (the JAX "
                         "renderer's traced form is not ported)")
@@ -75,7 +86,14 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
     opaque = settings.background == "last_sample"
     kernels = settings.level_kernels and getattr(
         field, "supports_fused_final", False)
+    # the JAX renderer's routing (renderer.py:130-147): the stage-1 kernels
+    # without side outputs, the frozen-backbone kernels with the mask output
+    fused = kernels and not settings.return_mask
+    frozen = (kernels and settings.return_mask
+              and not settings.compute_losses
+              and (not training or settings.frozen_backbone))
     bins = weights = rays_t = colors = fused_out = folded = None
+    geo_feat = xyzs_final = None
     all_bins, all_weights = [], []
     for level, T in enumerate(settings.num_steps):
         if level == 0:
@@ -90,7 +108,17 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
             bins = sample_pdf(bins, weights.detach(), T + 1, generator=gen)
 
         real_bins = spacing_fn_inv(s_nears * (1.0 - bins) + s_fars * bins)
-        if kernels and level == n_levels - 1:
+        if frozen and level == n_levels - 1:
+            *fused_out, weights, geo_feat = field.fused_final_render_frozen(
+                rays_o, rays_d, real_bins, opaque_last=opaque, need_geo=True)
+            rays_t = (real_bins[..., 1:] + real_bins[..., :-1]) / 2.0
+            xyzs_final = (rays_o[:, None, :]
+                          + rays_d[:, None, :] * rays_t[..., None])
+            if settings.use_contract:
+                xyzs_final = contract(xyzs_final)
+            xyzs_final = xyzs_final.detach()
+            break
+        if fused and level == n_levels - 1:
             if training:
                 *fused_out, weights = field.fused_final_render_train(
                     rays_o, rays_d, real_bins, opaque_last=opaque)
@@ -100,12 +128,12 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
                 fused_out = field.fused_final_render(
                     rays_o, rays_d, real_bins, opaque_last=opaque)
             break
-        if kernels:
+        if fused or frozen:
             # next level's s-space edges straight from the proposal kernel;
             # in inference the per-sample weights never reach device memory
             u = stratified_queries(N, settings.num_steps[level + 1] + 1, dev,
                                    gen).contiguous()
-            if training:
+            if training and not frozen:
                 weights, folded = field.fused_prop_weights_train_sample(
                     rays_o, rays_d, real_bins, bins, u, proposal=level,
                     opaque_last=opaque)
@@ -114,7 +142,7 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
             else:
                 folded = field.fused_prop_next_bins(
                     rays_o, rays_d, real_bins, bins, u, proposal=level,
-                    opaque_last=opaque)
+                    opaque_last=opaque, frozen=frozen)
             continue
 
         rays_t = (real_bins[..., 1:] + real_bins[..., :-1]) / 2.0  # [N, T]
@@ -126,7 +154,8 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
         else:
             dirs = rays_d[:, None, :].expand(xyzs.shape)
             dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
-            sigmas, _, colors, _ = field.forward_color(xyzs, dirs)
+            sigmas, geo_feat, colors, _ = field.forward_color(xyzs, dirs)
+            xyzs_final = xyzs
         deltas = real_bins[..., 1:] - real_bins[..., :-1]
         weights, _ = compute_weights(deltas, sigmas, opaque_last=opaque)
         if training:
@@ -151,6 +180,26 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
             results["distort_loss"] = distort_loss(bins, weights)
     image = image + (1.0 - weights_sum)[..., None] * bg_color
     results.update(weights_sum=weights_sum, depth=depth, image=image)
+
+    if settings.return_mask:
+        # object-field branch: the mask MLP on per-sample features,
+        # composited with detached weights (JAX renderer.py:308-333)
+        masks = field.mask_features(xyzs_final)  # [N, T, C]
+        if field.mask_mlp_type == "default":
+            m = torch.cat([masks, geo_feat.detach()], dim=-1)
+        else:
+            if colors is None:
+                # frozen route: rebuild the per-sample colours [geo | sh]
+                # (sh is per ray)
+                dn = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+                sh = sh_encode(dn, SH_DEGREE)
+                colors = torch.cat(
+                    [geo_feat, sh[:, None, :].expand(*geo_feat.shape[:2], -1)],
+                    dim=-1)
+            m = torch.cat([masks, colors.detach()], dim=-1)
+        point_masks = field.apply_mask_mlp(m)  # [N, T, n_inst]
+        results["instance_mask_logits"] = (
+            weights.detach()[..., None] * point_masks).sum(dim=-2)
     return results
 
 

@@ -1,9 +1,11 @@
 """Metric meters with the reference's clear/update/measure/report protocol:
 PSNR, SSIM (11x11 gaussian window, sigma 1.5, k1 0.01, k2 0.03, data range
-1, valid convolution, as torchmetrics' default) and MSE.  LPIPS needs
-pretrained weights the repository does not carry and is not ported."""
+1, valid convolution, as torchmetrics' default), MSE and the stage-3 mean
+IoU.  LPIPS needs pretrained weights the repository does not carry and is
+not ported."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -90,3 +92,24 @@ class MSEMeter(Meter):
         d = torch.as_tensor(preds) - torch.as_tensor(truths)
         self.V += float(torch.mean(d ** 2))
         self.N += 1
+
+
+class MeanIoUMeter(Meter):
+    """Per-class IoU over the classes present in the truth (label -1 is
+    ignored), averaged over classes, then over views.  preds and truths
+    are integer label maps."""
+    name = "MeanIoU"
+
+    def update(self, preds, truths):
+        p = np.asarray(preds).reshape(-1)
+        t = np.asarray(truths).reshape(-1)
+        valid = t != -1
+        p, t = p[valid], t[valid]
+        ious = []
+        for cls in np.unique(t):
+            union = np.logical_or(p == cls, t == cls).sum()
+            if union > 0:
+                ious.append(np.logical_and(p == cls, t == cls).sum() / union)
+        if ious:
+            self.V += float(np.mean(ious))
+            self.N += 1

@@ -9,12 +9,15 @@
     group per scale;
   - an EMA of the parameters with decay min(0.95, (1 + n) / (10 + n)) at
     its n-th update (1-based), updated once an epoch by the trainer; the
-    eval renders use it.
+    stage-1 eval renders use it;
+  - the stage hand-off: the parameters an init checkpoint holds are frozen
+    by name (`freeze_mask_from_loaded`): requires_grad False and left out
+    of Adam, where the JAX state zeroes their updates.
 """
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional, Set
 
 import torch
 
@@ -34,22 +37,46 @@ def mlp_field_lr_scales(model, mlp_scale: float = 0.05) -> Dict[str, float]:
             for n, _ in model.named_parameters()}
 
 
+def freeze_mask_from_loaded(model, loaded: Dict[str, torch.Tensor]) -> Set[str]:
+    """Names of the model's parameters that `loaded` (an init checkpoint's
+    state_dict) holds: the reference freezes exactly those."""
+    return {n for n, _ in model.named_parameters() if n in loaded}
+
+
+@torch.no_grad()
+def partial_load(model, loaded: Dict[str, torch.Tensor]) -> Set[str]:
+    """Copy the tensors of `loaded` whose name and shape match a parameter
+    of the model (a strict=False load); returns the names copied."""
+    done = set()
+    for name, p in model.named_parameters():
+        v = loaded.get(name)
+        if v is not None and tuple(v.shape) == tuple(p.shape):
+            p.copy_(v)
+            done.add(name)
+    return done
+
+
 class TrainState:
     """The field being trained, its optimizer, the step count and the EMA
-    copy of the field (`ema_model`, which the eval renders use)."""
+    copy of the field (`ema_model`, which the stage-1 eval renders use).
+    `frozen` names parameters that are not trained."""
 
     def __init__(self, model, base_lr: float, total_iters: int,
                  lr_scales: Optional[Dict[str, float]] = None,
-                 ema_decay: float = 0.95):
+                 ema_decay: float = 0.95, frozen: Iterable[str] = ()):
         self.model = model
         self.base_lr = base_lr
         self.total_iters = total_iters
         self.ema_decay = ema_decay
         self.step = 0
         self.ema_updates = 0
+        self.frozen = frozenset(frozen)
         scales = lr_scales or {}
         groups: Dict[float, list] = {}
         for name, p in model.named_parameters():
+            if name in self.frozen:
+                p.requires_grad_(False)
+                continue
             groups.setdefault(scales.get(name, 1.0), []).append(p)
         self.optimizer = torch.optim.Adam(
             [{"params": ps, "scale": sc} for sc, ps in groups.items()],
@@ -83,10 +110,14 @@ class TrainState:
                 "ema": self.ema_model.state_dict(),
                 "ema_updates": self.ema_updates}
 
-    def load_state_dict(self, state: dict):
+    def load_state_dict(self, state: dict, weights_only: bool = False):
+        """weights_only skips Adam's state: a checkpoint written under
+        another freeze set (a stage-3 field resumed for --test without its
+        init checkpoint), whose optimizer load raises ValueError."""
+        if not weights_only:
+            self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
         self.ema_model.load_state_dict(state["ema"])
         self.ema_updates = int(state["ema_updates"])
 

@@ -5,18 +5,27 @@ lambda_distort * distortion loss (ramped in over [w, 2w] steps with
 w = lambda_distort_warmup) + lambda_entropy * binary entropy of
 weights_sum.  The proposal MLPs get grads on the reference's cadence,
 step <= 3000 or step % 5 == 0, step counted before the update.
+
+The stage-3 mask step: cross-entropy of the object-field logits over the
+labelled global rays, + label_regularization_weight * the depth-weighted
+smoothness of the patch logits, + ray_pair_rgb_loss_weight * the ray-pair
+RGB loss on the patches once step > ray_pair_rgb_iter; it also returns
+the error map with the global rays' cells moved to 0.1 old + 0.9 error.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..config import Config
 from ..render.renderer import RenderSettings, render_rays, render_staged
 
 
-def make_eval_render(model, cfg: Config, perturb: bool = False):
+def make_eval_render(model, cfg: Config, perturb: bool = False,
+                     return_mask: bool = False):
     """Staged full-frame render for eval/test (chunked; deterministic unless
-    perturb=True and a generator is passed)."""
+    perturb=True and a generator is passed); return_mask adds the object
+    field's 'instance_mask_logits'."""
     settings = RenderSettings(
         num_steps=tuple(cfg.num_steps),
         use_contract=cfg.contract,
@@ -26,6 +35,7 @@ def make_eval_render(model, cfg: Config, perturb: bool = False):
         perturb=perturb,
         training=False,
         max_ray_batch=cfg.max_ray_batch,
+        return_mask=return_mask,
     )
 
     @torch.inference_mode()
@@ -109,3 +119,156 @@ def make_rgb_train_step(model, cfg: Config, perturb: bool = True,
 
     train_step.loss_fn = loss_fn
     return train_step
+
+
+def _cosine_similarity(a, b, dim: int = -1, eps: float = 1e-8):
+    na = torch.linalg.norm(a, dim=dim)
+    nb = torch.linalg.norm(b, dim=dim)
+    return (a * b).sum(dim=dim) / torch.clamp(na * nb, min=eps)
+
+
+def ray_pair_rgb_loss(generator, rgb, inst_masks, incoherent, cfg: Config,
+                      use_pred_logistics: bool = False):
+    """Ray-pair RGB loss on local patches (JAX steps.py:232-268).
+
+    rgb / inst_masks [P, S, C] per patch; incoherent [P, S] error-map
+    values.  ray_pair_rgb_num_sample anchors a patch are drawn without
+    replacement (Gumbel top-k) among its coherent rays (1 - err > 0.8), or
+    among all rays when none is coherent; every ray whose colour lies
+    within ray_pair_rgb_threshold of an anchor is pushed toward the
+    anchor's argmax one-hot mask (its probabilities with
+    use_pred_logistics) through exp(-w * cos_sim)."""
+    P, S, _ = rgb.shape
+    ns = cfg.ray_pair_rgb_num_sample
+    weights = (1.0 - incoherent > 0.8).float()
+    invalid = weights.sum(dim=-1, keepdim=True) == 0
+    weights = torch.where(invalid, 1.0, weights)
+    # log w + Gumbel noise, the noise as -log of an Exp(1) draw
+    e = torch.empty((P, S), device=rgb.device).exponential_(
+        generator=generator)
+    idx = torch.topk(torch.log(weights.clamp_min(1e-12)) - torch.log(e), ns,
+                     dim=-1).indices  # [P, ns]
+
+    def take(arr):
+        return torch.gather(arr, 1, idx[..., None].expand(-1, -1,
+                                                          arr.shape[-1]))
+
+    rgb_s = take(rgb)[:, :, None, :]  # [P, ns, 1, 3]
+    mask_s = take(inst_masks).detach()[:, :, None, :]
+    if not use_pred_logistics:
+        arg = mask_s.argmax(dim=-1, keepdim=True)
+        mask_s = (torch.arange(mask_s.shape[-1], device=arg.device)
+                  == arg).to(mask_s.dtype)
+    color_dist = torch.linalg.norm(rgb[:, None] - rgb_s, dim=-1)  # [P, ns, S]
+    similar = (color_dist < cfg.ray_pair_rgb_threshold).float()
+    cos = _cosine_similarity(inst_masks[:, None], mask_s)  # [P, ns, S]
+    pred_sim = torch.exp(-cfg.ray_pair_rgb_exp_weight * cos - cfg.epsilon)
+    num = (similar * pred_sim).sum(dim=-1)
+    den = similar.sum(dim=-1).clamp_min(1.0)
+    return (num / den).mean()
+
+
+def label_regularization(depth, pred_masks, patch_size: int, n_inst: int):
+    """Depth-weighted spatial smoothness of the patch logits (JAX
+    steps.py:271-287): depth [P*S], pred_masks [P*S, n_inst]."""
+    pm = pred_masks.reshape(-1, patch_size, patch_size, n_inst)
+    d = depth.reshape(-1, patch_size, patch_size)
+    diff_x = pm[:, :, 1:] - pm[:, :, :-1]
+    diff_y = pm[:, 1:, :] - pm[:, :-1, :]
+    ddx = d[:, :, 1:] - d[:, :, :-1]
+    ddy = d[:, 1:, :] - d[:, :-1, :]
+    wx = torch.exp(-(ddx * ddx))[..., None].expand(diff_x.shape)
+    wy = torch.exp(-(ddy * ddy))[..., None].expand(diff_y.shape)
+    return ((diff_x ** 2 * wx).sum() / wx.sum()
+            + (diff_y ** 2 * wy).sum() / wy.sum())
+
+
+def mask_losses(out, batch, step: int, error_map, cfg: Config,
+                generator=None):
+    """The stage-3 loss of a rendered batch (JAX steps.py:321-382).  out:
+    render_rays' {instance_mask_logits, image, depth} for the batch's
+    Ng = cfg.num_rays global rays, then its local patch rays.  Returns
+    (loss, metrics {ce, [label_reg], [ray_pair], loss, acc}, the error map
+    with the global rays' cells moved to 0.1 old + 0.9 error, a new
+    tensor)."""
+    Ng = cfg.num_rays
+    P, S = cfg.num_local_sample, cfg.local_sample_patch_size ** 2
+    eps = cfg.epsilon
+    probs = torch.softmax(out["instance_mask_logits"], dim=-1).clamp(
+        eps, 1 - eps)
+    gt = batch["gt_masks"][:Ng]
+    labeled = (gt != -1).float()
+    n_labeled = labeled.sum().clamp_min(1.0)
+    safe_gt = gt.clamp_min(0)
+    picked = probs[:Ng].gather(1, safe_gt[:, None])[:, 0]
+    loss = (-torch.log(picked) * labeled).sum() / n_labeled
+
+    onehot = F.one_hot(safe_gt, probs.shape[-1]).float()
+    cos = _cosine_similarity(probs[:Ng].detach(), onehot)
+    err = torch.exp(-cfg.ray_pair_rgb_exp_weight * cos - eps)
+    cell = (batch["img_inds"], batch["inds_coarse"])
+    new_map = error_map.clone()
+    new_map[cell] = 0.1 * error_map[cell] + 0.9 * err
+
+    metrics = {"ce": loss}
+    if cfg.label_regularization_weight > 0:
+        lr_loss = label_regularization(
+            out["depth"][Ng:].detach(), probs[Ng:],
+            cfg.local_sample_patch_size, probs.shape[-1])
+        loss = loss + cfg.label_regularization_weight * lr_loss
+        metrics["label_reg"] = lr_loss
+    if cfg.ray_pair_rgb_loss_weight > 0 and P * S > 0:
+        rp = ray_pair_rgb_loss(
+            generator, out["image"][Ng:].detach().reshape(P, S, -1),
+            probs[Ng:].reshape(P, S, -1), batch["local_error"].reshape(P, S),
+            cfg, use_pred_logistics=cfg.ray_pair_rgb_use_pred_logistics)
+        gate = float(step > cfg.ray_pair_rgb_iter)
+        loss = loss + cfg.ray_pair_rgb_loss_weight * gate * rp
+        metrics["ray_pair"] = rp
+    metrics["loss"] = loss
+    hit = (probs[:Ng].argmax(dim=-1) == gt).float()
+    metrics["acc"] = (hit * labeled).sum() / n_labeled
+    return loss, metrics, new_map
+
+
+def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False):
+    """Stage-3 object-field step (JAX steps.py:290-392).
+
+    `mask_step(state, batch, generator, error_map)` with batch {rays_o,
+    rays_d [Ng+Nl, 3] (global rays, then the local patches' rays),
+    gt_masks [Ng+Nl] (-1 unlabelled), img_inds, inds_coarse [Ng] (view
+    and error-map cell of each global ray), local_error [Nl]} renders the
+    batch, computes `mask_losses` at state.step, backpropagates, applies
+    one Adam update and returns (detached metrics, the updated error map
+    [V, S*S]).  `generator` draws the ray-pair anchors.  frozen_backbone
+    renders the backbone through K5 and K6 (the trainer freezes every
+    backbone parameter).  `mask_step.loss_fn(batch, step, error_map,
+    generator)` returns (loss, metrics, error map)."""
+    settings = RenderSettings(
+        num_steps=tuple(cfg.num_steps),
+        use_contract=cfg.contract,
+        min_near=cfg.min_near,
+        background=cfg.background,
+        bound=cfg.bound,
+        perturb=False,
+        training=True,
+        compute_losses=False,
+        return_mask=True,
+        frozen_backbone=frozen_backbone,
+    )
+
+    def loss_fn(batch, step: int, error_map, generator=None):
+        out = render_rays(model, batch["rays_o"], batch["rays_d"], settings,
+                          cam_near_far=batch.get("cam_near_far"),
+                          update_proposal=False)
+        return mask_losses(out, batch, step, error_map, cfg, generator)
+
+    def mask_step(state, batch, generator, error_map):
+        loss, metrics, new_map = loss_fn(batch, state.step, error_map,
+                                         generator)
+        loss.backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}, new_map
+
+    mask_step.loss_fn = loss_fn
+    return mask_step

@@ -1,6 +1,9 @@
 """Host-side loop of stage 1: training epochs, checkpoints and resume,
 full-frame render, evaluation and test artifacts.  The eval renders use the
-EMA weights, as the JAX trainer does.
+EMA weights, as the JAX trainer does.  The stage-3 loops (stages.py) use
+the same Trainer with an init checkpoint: its parameters are loaded and
+frozen, and `backbone_frozen` tells the mask step it may render the
+backbone through the gradient-free level kernels.
 
 Epoch math as the reference's: steps_per_epoch = number of training views,
 max_epoch = ceil(iters / steps_per_epoch), eval and save intervals from
@@ -23,8 +26,21 @@ from ..data.rays import full_frame_rays
 from ..data.sampler import sample_rgb_batch
 from .checkpoints import CheckpointManager
 from .metrics import PSNRMeter
-from .state import TrainState, mlp_field_lr_scales
+from .state import (TrainState, freeze_mask_from_loaded, mlp_field_lr_scales,
+                    partial_load)
 from .steps import make_eval_render, make_rgb_train_step
+
+# top-level parameter names of the backbone the level kernels read (JAX
+# trainer.py:50-52; the hash-grid names are not ported)
+_BACKBONE_KEYS = ("trunk", "prop_mlp_0", "prop_mlp_1", "view_mlp",
+                  "cp_x", "cp_y", "cp_z")
+
+
+def backbone_all_frozen(model, frozen) -> bool:
+    """True iff every backbone parameter of the model is frozen."""
+    hits = [n in frozen for n, _ in model.named_parameters()
+            if n.split(".")[0] in _BACKBONE_KEYS]
+    return bool(hits) and all(hits)
 
 
 class Logger:
@@ -43,9 +59,11 @@ class Logger:
 
 class Trainer:
     def __init__(self, name: str, cfg: Config, model, workspace: str,
-                 resume: bool = True):
+                 resume: bool = True, init_params: Optional[dict] = None):
         """resume: start from the workspace's newest checkpoint if there is
-        one; else from the model's weights as given."""
+        one; else from the model's weights as given.  init_params: a
+        state_dict handed over from an earlier stage; its tensors are
+        loaded into the model and frozen."""
         self.name = name
         self.cfg = cfg
         self.model = model
@@ -53,13 +71,29 @@ class Trainer:
         self.device = next(model.parameters()).device
         self.log = Logger(workspace, name)
         self.ckpt = CheckpointManager(workspace, max_keep=2)
+        frozen = set()
+        if init_params is not None:
+            loaded = partial_load(model, init_params)
+            frozen = freeze_mask_from_loaded(model, init_params)
+            self.log(f"[INFO] loaded {len(loaded)} param tensors from init "
+                     "checkpoint (frozen)")
+        self.backbone_frozen = backbone_all_frozen(model, frozen)
         self.state = TrainState(model, cfg.lr, cfg.iters,
-                                lr_scales=mlp_field_lr_scales(model))
+                                lr_scales=mlp_field_lr_scales(model),
+                                frozen=frozen)
         restored = self.ckpt.restore(self.device) if resume else None
         self.resumed = restored is not None
         if self.resumed:
-            self.state.load_state_dict(restored)
-            self.log(f"[INFO] resumed at step {self.state.step}")
+            try:
+                self.state.load_state_dict(restored)
+                self.log(f"[INFO] resumed at step {self.state.step}")
+            except ValueError:
+                # the JAX trainer's best-effort optimizer restore
+                # (trainer.py:108-131)
+                self.state.load_state_dict(restored, weights_only=True)
+                self.log("[WARN] checkpoint optimizer state does not match "
+                         "the current optimizer; loaded model weights only "
+                         f"(resumed at step {self.state.step})")
         self.train_step = make_rgb_train_step(model, cfg)
         self.eval_render = make_eval_render(self.state.ema_model, cfg)
         self._eval_render_perturb = None

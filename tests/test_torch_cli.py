@@ -100,13 +100,21 @@ def test_trainer_evaluate_and_perturbed_render(scene, tmp_path, capsys):
     assert not np.array_equal(jittered[0]["depth"], det["depth"])
 
 
-def test_cli_only_test_mode_is_ported(scene, tmp_path):
-    """Stage 1 is ported in both modes (the next test trains and resumes);
-    the flags of stages 2 and 3 are not, and the CLI refuses them."""
-    for flag in ("--with_sam", "--with_mask", "--decode"):
+def test_cli_only_test_mode_is_ported(scene, tmp_path, capsys):
+    """Stages 1 and 3 are ported (the stage-3 test below trains, evaluates
+    and resumes); stage 2 and decode are not, and the CLI refuses their
+    flags.  Stage-3 training without --mask_root fails fast, before any
+    model is built, as the JAX CLI does."""
+    for flag in ("--with_sam", "--decode"):
         with pytest.raises(SystemExit):
             cli.main(_argv(scene, str(tmp_path), "--device", "cpu", flag))
+    argv = _argv(scene, str(tmp_path), "--device", "cpu", "--with_mask")
+    argv.remove("--test")
+    with pytest.raises(SystemExit, match="--with_mask training requires "
+                                         "--mask_root"):
+        cli.main(argv)
     assert not os.path.exists(os.path.join(tmp_path, "results"))
+    assert not os.path.exists(os.path.join(tmp_path, "checkpoints"))
 
 
 def test_cli_train_then_test_resumes(scene, tmp_path, capsys):
@@ -138,6 +146,68 @@ def test_cli_train_then_test_resumes(scene, tmp_path, capsys):
         assert torch.equal(p, ema[name]), name
     assert any(not torch.equal(p, ema[name])
                for name, p in trainer.model.named_parameters())
+
+
+def test_cli_stage3_trains_evaluates_and_resumes(scene, tmp_path, capsys):
+    """Stage 1, then stage 3 over it (--init_ckpt <stage-1 workspace>,
+    sphere masks in the decode format): the backbone stays bit for bit the
+    stage-1 checkpoint's, the error map is rebuilt, mean IoU is printed and
+    a stage-3 checkpoint written; a later --test --with_mask resumes the
+    field (weights only: its optimizer covers every parameter) and writes
+    the mask results."""
+    from sanerf_hq_tpu_torch.data.synthetic import write_sphere_masks
+
+    ws1, ws3 = str(tmp_path / "ws1"), str(tmp_path / "ws3")
+    masks = str(tmp_path / "masks")
+    write_sphere_masks(masks, n_views=17, H=HW, W=HW)
+    argv = _argv(scene, ws1, "--device", "cpu", "--num_points", "1024",
+                 "--iters", "10", "--eval_cnt", "1", "--save_cnt", "1")
+    argv.remove("--test")
+    cli.main(argv)
+    stage1 = torch.load(os.path.join(ws1, "checkpoints", "step_00000010.pt"),
+                        weights_only=True)["model"]
+
+    s3 = ["--with_mask", "--mask_root", masks, "--feat_rank", "8",
+          "--feat_res", "16", "--online_resolution", str(HW),
+          "--error_map_size", "8"]
+    argv = _argv(scene, ws3, "--device", "cpu", "--init_ckpt", ws1,
+                 "--iters", "6", "--num_rays", "64", "--error_map",
+                 "--ray_pair_rgb_loss_weight", "1", "--ray_pair_rgb_iter", "3",
+                 "--ray_pair_rgb_num_sample", "4", "--ray_pair_rgb_threshold",
+                 "0.1", "--local_sample_patch_size", "4", "--num_local_sample",
+                 "2", *s3)
+    argv.remove("--test")
+    trainer = cli.main(argv)
+    out = capsys.readouterr().out
+    assert "[INFO] loaded 16 param tensors from init checkpoint" in out
+    assert trainer.backbone_frozen and trainer.state.step == 6
+    assert "error map rebuilt at step 3" in out
+    assert "error map rebuilt at step 6" in out
+    assert "[mask 6/6] loss=" in out and "[EVAL] MeanIoU = " in out
+    assert np.isfinite([v["loss"] for _, v in trainer.stats["mask"]]).all()
+    state = trainer.model.state_dict()
+    for name, p in stage1.items():
+        assert torch.equal(state[name], p), name
+    # the mask branch trained (the EMA, never updated in stage 3, still
+    # holds its initial weights)
+    assert not torch.equal(state["cp_m_x"], trainer.state.ema_model.cp_m_x)
+    assert os.path.exists(os.path.join(ws3, "checkpoints",
+                                       "step_00000006.pt"))
+
+    tested = cli.main(_argv(scene, ws3, "--device", "cpu", *s3))
+    out = capsys.readouterr().out
+    assert "loaded model weights only (resumed at step 6)" in out
+    assert "[EVAL] MeanIoU = " in out
+    for name, p in tested.model.state_dict().items():
+        assert torch.equal(p, state[name]), name
+    res = os.path.join(ws3, "results")
+    assert sorted(os.listdir(res)) == ["v00_mask.npy", "v00_mask_vis.png",
+                                       "v16_mask.npy", "v16_mask_vis.png"]
+    probs = np.load(os.path.join(res, "v00_mask.npy"))
+    assert probs.shape == (HW, HW, 2)
+    np.testing.assert_allclose(probs.sum(-1), 1.0, atol=1e-5)
+    assert read_png(os.path.join(res, "v16_mask_vis.png")).shape == (HW, HW,
+                                                                     3)
 
 
 def test_entry_points_need_a_device_or_cpu(scene, tmp_path, monkeypatch):
@@ -181,4 +251,4 @@ def test_port_and_chip_smoke_import_no_jax():
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 20  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 34  # every module was imported

@@ -1,8 +1,8 @@
-"""CUDA kernels K5, K3, K1, K2 and K4 against their plain twins on the
+"""CUDA kernels K5, K3, K6, K1, K2 and K4 against their plain twins on the
 card, at shapes the flagship smoke (chip_smoke.py) does not reach: ragged
 ray counts, sample counts that do not divide a pass or span several passes,
-other widths, no CP features; plus the wrappers' input checks and the
-backward kernels' run-to-run determinism.
+other widths, no CP features; plus the wrappers' input checks, the
+backward kernels' run-to-run determinism, and K6's agreement with K3.
 
 Needs a CUDA device (the kernels have no CPU mode); skips without one.  On
 the card, where JAX (which tests/conftest.py imports) is not installed:
@@ -83,6 +83,45 @@ def test_final_kernel_matches_twin(dev, N, T, hidden, rank):
         assert torch.isfinite(a).all(), name
         rel = ((a - b).abs().max() / b.abs().max()).item()
         assert rel < 2e-2, (name, rel)
+
+
+@pytest.mark.parametrize("N,T,hidden,rank,need_geo", [
+    (1000, 24, 64, 0, True),     # 5 rays a CTA, no CP, ragged last CTA
+    (333, 160, 256, 64, True),   # one ray over two passes, flagship widths
+    (777, 48, 128, 16, False),   # T does not divide the pass
+    (5, 8, 32, 4, True),         # fewer rays than a CTA holds
+    (6256, 32, 256, 64, True),   # the stage-3 batch at flagship widths
+])
+def test_frozen_final_kernel_matches_twin_and_k3(dev, N, T, hidden, rank,
+                                                 need_geo):
+    """K6 against its twin (rel-max 2e-2, geo included), and its four K3
+    outputs equal to K3's bit for bit."""
+    ro, rd, real, _ = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(8)
+    nin = 63 + rank
+    ws = [_w(dev, g, hidden, nin), _w(dev, g, hidden, hidden),
+          _w(dev, g, hidden, hidden + nin), _w(dev, g, 16, hidden)]
+    cps = [(torch.randn(64, rank, generator=g) * 0.3).to(dev)
+           for _ in range(3)] if rank else []
+    sh = torch.randn(N, 16, generator=g).to(dev)
+    args = (ro, rd, real, sh, ws, 10, 2, 2.0, True, -0.5, cps, 64)
+    before = rl.fused_final_level_frozen.launches
+    got = rl.fused_final_level_frozen(*args, need_geo=need_geo)
+    want = rl.final_level_frozen_ref(*args, need_geo=need_geo)
+    k3 = rl.fused_final_level(*args)
+    torch.cuda.synchronize()
+    assert rl.fused_final_level_frozen.launches == before + 1
+    for name, a, b, c in zip(("f_image", "depth", "wsum", "weights"), got,
+                             want, k3):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) < 2e-2, (name, _rel(a, b))
+        assert torch.equal(a, c), name
+    if need_geo:
+        assert got[4].shape == (N, T, 15)
+        assert torch.isfinite(got[4]).all()
+        assert _rel(got[4], want[4]) < 2e-2, _rel(got[4], want[4])
+    else:
+        assert got[4] is None
 
 
 def test_wrappers_check_inputs_and_count_launches(dev):
