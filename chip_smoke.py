@@ -52,7 +52,23 @@ last line:
      route against the composable route on one batch (CE within 2e-2,
      logits within 3e-2, trainable grads rel-max < 6e-2), and a
      --test --with_mask resuming the field;
-  8. one JSON line with every kernel's numbers, the device line again, and
+  8. the hash-grid field (the CLI default, at the published widths): K10
+     (inverse-CDF lookup) against its plain version at N = 16384 and 8192
+     with (K, Q) = (129, 65) and (65, 33) on rows with ties, max abs <=
+     1e-6, timed beside a searchsorted composite (this check runs with
+     phase 3); the CLI without --field_type, 20 steps of 8192 rays on the
+     phase-4 scene, counts set to 0 just before and read just after: K10
+     twice a step and twice an eval chunk, K1-K6 never; a finite loss,
+     checkpoints, the step rate with its breakdown (CUDA events: the
+     sampler, the three hash encodes forward and backward, K10, the MLPs,
+     compositing and losses, Adam; one device-only torch.profiler trace);
+     a --test resuming it (K10 twice a chunk) and the render rate; the
+     card against the CPU on one 1024-ray batch with the same weights
+     (the CPU handed the card's resampled bins: image, depth, losses max
+     abs <= 1e-3, table grads rel-max <= 1e-3; on its own bins the output
+     bar, grads printed);
+     then --field_type hashgrid_packed, 5 steps of 8192 rays;
+  9. one JSON line with every kernel's numbers, the device line again, and
      the last line {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -75,11 +91,17 @@ from sanerf_hq_tpu_torch.data.sampler import (fixed_fovy_intrinsics,
                                               sample_rgb_batch)
 from sanerf_hq_tpu_torch.data.synthetic import (look_at_pose, write_llff_scene,
                                                 write_sphere_masks)
-from sanerf_hq_tpu_torch.models import make_field
+from sanerf_hq_tpu_torch.models import SANeRFField, make_field
 from sanerf_hq_tpu_torch.ops import cuda_lib
+from sanerf_hq_tpu_torch.ops import ray as ray_ops
 from sanerf_hq_tpu_torch.ops import render_level as rl
+from sanerf_hq_tpu_torch.ops.composite import (compute_weights, distort_loss,
+                                               proposal_loss)
+from sanerf_hq_tpu_torch.ops.hashgrid import hash_encode
 from sanerf_hq_tpu_torch.ops.ray import (near_far_from_aabb, spacing_fn,
                                          spacing_fn_inv, stratified_queries)
+from sanerf_hq_tpu_torch.ops.sample_pdf import (sample_pdf_lookup,
+                                                sample_pdf_lookup_ref)
 from sanerf_hq_tpu_torch.ops.sh import sh_encode
 from sanerf_hq_tpu_torch.render.renderer import RenderSettings, render_rays
 from sanerf_hq_tpu_torch.train.checkpoints import CheckpointManager
@@ -89,7 +111,9 @@ from sanerf_hq_tpu_torch.train.steps import (make_mask_train_step,
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "sanerf_hq_tpu_torch/csrc/render_level.cu"
 SOURCE_BWD = "sanerf_hq_tpu_torch/csrc/render_level_bwd.cu"
+SOURCE_PDF = "sanerf_hq_tpu_torch/csrc/sample_pdf.cu"
 TPU_FILE = "sanerf_hq_tpu/ops/render_level_pallas.py"
+TPU_FILE_PDF = "sanerf_hq_tpu/ops/sample_pdf_pallas.py"
 # H100 SXM published peaks: bf16 dense tensor cores, fp32 outside them, HBM3
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 CHUNK = 16384  # rays in one render chunk (max_ray_batch)
@@ -98,10 +122,15 @@ VIEW = 512  # main-path views are VIEW x VIEW
 TRAIN_STEPS = 20
 MASK_BATCH = 6000 + 4 * 8 * 8  # stage-3 rays a step: global + patches
 MASK_STEPS = 200
+HG_STEPS = 20  # hash-grid CLI training steps (depth cut from 20000)
+PACKED_STEPS = 5
+CPU_RAYS = 1024  # the card-vs-CPU batch
 COUNTERS = {"K5": rl.fused_prop_level_sample, "K3": rl.fused_final_level,
             "K6": rl.fused_final_level_frozen,
             "K1": rl.fused_prop_level_sample_train,
-            "K2": rl.fused_prop_level_bwd, "K4": rl.fused_final_level_bwd}
+            "K2": rl.fused_prop_level_bwd, "K4": rl.fused_final_level_bwd,
+            "K10": sample_pdf_lookup}
+LEVEL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 
 
 def device_line() -> str:
@@ -125,6 +154,23 @@ def cuda_ms(fn, reps=10, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(fn, reps=20):
+    """Device time of one fn() without the host's launch overhead: reps
+    calls captured into one CUDA graph, replayed between CUDA events
+    (median of 10 replays) and divided by reps.  For kernels that take
+    less time on the card than their wrapper takes on the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay) / reps
 
 
 def bound(n_bytes, bf16_flops, fp32_ops):
@@ -473,6 +519,7 @@ def main_path(work):
     assert launches["K5"] == 2 * chunks, launches
     assert launches["K3"] == chunks, launches
     assert launches["K1"] == launches["K2"] == launches["K4"] == 0, launches
+    assert launches["K10"] == 0, launches  # no composable level
     for stem in ("v00", "v16"):
         img = read_png(os.path.join(ws_dir, "results", f"{stem}_rgb.png"))
         depth = np.load(os.path.join(ws_dir, "results", f"{stem}_depth.npy"))
@@ -540,6 +587,7 @@ def train_path(work):
     assert launches["K4"] == n, launches
     assert launches["K5"] > 0 and launches["K5"] % 2 == 0, launches
     assert launches["K3"] == n + launches["K5"] // 2, launches
+    assert launches["K10"] == 0, launches
     losses = trainer.stats["loss"]
     assert losses and all(np.isfinite(losses)), losses
     ckpts = sorted(os.listdir(os.path.join(ws_dir, "checkpoints")))
@@ -630,12 +678,13 @@ def gather_mask_features(model, x):
     return g @ model.cp_m_proj
 
 
-def capture_render(model, settings, batch):
-    """One frozen-route render of a batch with the arguments and outputs of
-    the field's K5, K6 and mask-feature calls recorded."""
+def capture_render(model, settings, batch, names=(
+        "fused_prop_next_bins", "fused_final_render_frozen", "mask_features"),
+        generator=None):
+    """One render of a batch with the arguments and outputs of the field's
+    methods `names` recorded (by default the frozen route's K5, K6 and
+    mask-feature calls)."""
     calls = {}
-    names = ("fused_prop_next_bins", "fused_final_render_frozen",
-             "mask_features")
 
     def spy(name, fn):
         def wrapped(*a, **k):
@@ -647,17 +696,24 @@ def capture_render(model, settings, batch):
     for name in names:
         setattr(model, name, spy(name, getattr(model, name)))
     try:
-        out = render_rays(model, batch["rays_o"], batch["rays_d"], settings)
+        out = render_rays(model, batch["rays_o"], batch["rays_d"], settings,
+                          generator=generator)
     finally:
         for name in names:
             delattr(model, name)
     return out, calls
 
 
-def profile_steps(step, n=5):
+STAGE3_GROUPS = (("K5", ("prop_level_sample_kernel",)),
+                 ("K6", ("final_level_kernel",)),
+                 ("matrix products", ("gemm", "cutlass")))
+
+
+def profile_steps(step, kinds=STAGE3_GROUPS, n=5):
     """Device time of n steps by kernel from one torch.profiler trace
     (CUPTI) that records the device's activity alone, so that the host
-    pays little for it: the level kernels, matrix products, everything
+    pays little for it: each group of `kinds` (name, substrings of the
+    lower-case kernel names it takes; the first match wins), everything
     else, and the device's idle share of the trace's own span (first
     device activity to the last; idle is the span less the union of the
     activities).  A trace of the host too is taken only if the device-only
@@ -681,15 +737,14 @@ def profile_steps(step, n=5):
         print("[profile] the device-only trace holds no device events; "
               "tracing the host too", flush=True)
     assert events, "the profiler recorded no device activity"
-    groups = {"K5": 0.0, "K6": 0.0, "matrix products": 0.0, "other": 0.0}
+    groups = {g: 0.0 for g, _ in kinds}
+    groups["other"] = 0.0
     by_name = {}
     for e in events:  # the device's own events: kernels, copies, memsets
         ms = e.time_range.elapsed_us() / 1e3 / n
         name = e.name.lower()
-        g = ("K5" if "prop_level_sample_kernel" in name else
-             "K6" if "final_level_kernel" in name else
-             "matrix products" if "gemm" in name or "cutlass" in name
-             else "other")
+        g = next((g for g, subs in kinds if any(x in name for x in subs)),
+                 "other")
         groups[g] += ms
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -762,7 +817,7 @@ def stage3_path(work, init_ws):
     per_pass = MASK_STEPS + em_chunks + val_chunks
     assert launches["K6"] == per_pass, (launches, per_pass)
     assert launches["K5"] == 2 * per_pass, (launches, per_pass)
-    for k in ("K1", "K2", "K3", "K4"):
+    for k in ("K1", "K2", "K3", "K4", "K10"):
         assert launches[k] == 0, launches
     state = model.state_dict()
     for name, p in init.items():
@@ -925,6 +980,421 @@ def stage3_path(work, init_ws):
                       "route_grad_rel_max": g_rel}
 
 
+def pdf_rows(dev, N, K, Q, seed):
+    """K10 inputs: cdf, bins [N, K] non-decreasing with ties (flat cdf runs,
+    half the rows clamped to 1 before their end, zero-width bins) and
+    jittered stratified queries u [N, Q]."""
+    g = torch.Generator(dev).manual_seed(seed)
+    w = torch.rand(N, K - 1, generator=g, device=dev)
+    w[torch.rand(N, K - 1, generator=g, device=dev) < 0.3] = 0.0
+    cdf = torch.cumsum(w, -1)
+    cdf = cdf / cdf[:, -1:].clamp_min(1e-12)
+    cdf[: N // 2] *= 1.05
+    cdf = torch.cat([torch.zeros(N, 1, device=dev), cdf.clamp_max(1.0)], -1)
+    widths = torch.rand(N, K - 1, generator=g, device=dev)
+    widths[torch.rand(N, K - 1, generator=g, device=dev) < 0.2] = 0.0
+    bins = torch.cat([torch.zeros(N, 1, device=dev),
+                      torch.cumsum(widths, -1)], -1)
+    bins = bins / bins[:, -1:]
+    u = stratified_queries(N, Q, dev, g).contiguous()
+    return cdf.contiguous(), bins.contiguous(), u
+
+
+def searchsorted_lookup(cdf, bins, u):
+    """The lookup as torch.searchsorted, gathers and the arithmetic: timed
+    beside K10 for information (no one PyTorch call computes it); the port
+    does not call it."""
+    K = cdf.shape[1]
+    j = torch.searchsorted(cdf, u, right=True) - 1
+    lo, hi = j.clamp_min(0), (j + 1).clamp_max(K - 1)
+    neg = torch.tensor(-1e38, device=cdf.device)
+    c0 = torch.where(j >= 0, cdf.gather(1, lo), neg)
+    b0 = torch.where(j >= 0, bins.gather(1, lo), neg)
+    c1, b1 = cdf.gather(1, hi), bins.gather(1, hi)
+    denom = c1 - c0
+    t = torch.where(denom > 0, (u - c0) / torch.where(denom > 0, denom, 1.0),
+                    0.0).clamp(0.0, 1.0)
+    return b0 + t * (b1 - b0)
+
+
+def check_sample_pdf_kernel(dev):
+    """Phase 3, K10 against its plain version at the render chunk and the
+    training batch, both resampling shapes; the headline numbers are the
+    chunk's, summed over the two shapes."""
+    k10 = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "searchsorted_ms": 0.0, "bitwise_equal": True,
+           "per_shape": {}}
+    for N in (CHUNK, BATCH):
+        for K, Q in ((129, 65), (65, 33)):
+            cdf, bins, u = pdf_rows(dev, N, K, Q, seed=K)
+            got = sample_pdf_lookup(cdf, bins, u)
+            want = sample_pdf_lookup_ref(cdf, bins, u)
+            comp = searchsorted_lookup(cdf, bins, u)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), "K10 output not finite"
+            err = (got - want).abs().max().item()
+            assert err <= 1e-6, f"K10 (N={N}, K={K}) max abs error {err}"
+            equal = torch.equal(got, want)
+            comp_err = (comp - want).abs().max().item()
+            ties = int((cdf[:, 1:] == cdf[:, :-1]).sum().item())
+            # the kernel takes a few us, its wrapper about as long on the
+            # host: the device time from a graph, a call's from events
+            ms = graph_ms(lambda: sample_pdf_lookup(cdf, bins, u))
+            call_ms = cuda_ms(lambda: sample_pdf_lookup(cdf, bins, u))
+            plain = cuda_ms(lambda: sample_pdf_lookup_ref(cdf, bins, u))
+            ss = cuda_ms(lambda: searchsorted_lookup(cdf, bins, u))
+            bms, by = bound(nbytes(cdf, bins, u, got), 0, 0)
+            print(f"[kernel] K10 sample_pdf_lookup N={N} K={K} Q={Q}: max "
+                  f"abs err {err:.3e} (<= 1e-6; bitwise equal {equal}; "
+                  f"{ties} tied cdf steps), {ms:.4f} ms on the device "
+                  f"({call_ms:.4f} ms a call from the host), plain version "
+                  f"{plain:.4f} ms, searchsorted composite {ss:.4f} ms (err "
+                  f"{comp_err:.1e}), bound {bms:.4f} ms ({by})", flush=True)
+            k10["per_shape"][f"N{N}_K{K}_Q{Q}"] = {
+                "ms": ms, "call_ms": call_ms, "plain_ms": plain,
+                "searchsorted_ms": ss,
+                "bound_ms": bms, "max_abs_err": err, "bitwise_equal": equal}
+            k10["max_abs_err"] = max(k10["max_abs_err"], err)
+            k10["bitwise_equal"] &= equal
+            k10["bound_by"] = by
+            if N == CHUNK:
+                for key, v in (("ms", ms), ("call_ms", call_ms),
+                               ("plain_ms", plain), ("bound_ms", bms),
+                               ("searchsorted_ms", ss)):
+                    k10[key] += v
+    return k10
+
+
+HG_GROUPS = (("K10", ("sample_pdf_lookup",)),
+             ("gather and scatter-add (hash encode)", ("index",)),
+             ("matrix products", ("gemm", "cutlass")),
+             ("Adam", ("adam", "multi_tensor")))
+
+
+def hashgrid_train_path(work):
+    """Phase 8: the CLI with its default field at the published widths, 20
+    steps of 8192 rays on the phase-4 scene; then the step rate with its
+    breakdown, and a --test resuming the checkpoint with the render rate."""
+    scene = os.path.join(work, "scene")
+    ws_dir = os.path.join(work, "hg_ws")
+    argv = [scene, "--data_type", "llff", "--workspace", ws_dir, "--seed",
+            "0", "--iters", str(HG_STEPS), "--eval_cnt", "1", "--save_cnt",
+            "1"]  # no --field_type: the default, hashgrid
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    model, cfg, n = trainer.model, trainer.cfg, trainer.state.step
+    assert isinstance(model, SANeRFField) and not model.packed
+    res = [m[0] for m in model.grid_spec.level_meta()]
+    assert (res[0], res[-1], model.grid_spec.total_params) == (16, 4097,
+                                                               6_299_960)
+    assert [s_.total_params for s_ in model.prop_specs] == [383_264, 430_080]
+    assert cfg.num_rays == BATCH and cfg.max_ray_batch == CHUNK
+    assert tuple(cfg.num_steps) == (128, 64, 32) and n == HG_STEPS
+    per_view = -(-VIEW * VIEW // CHUNK)
+    eval_k10 = launches["K10"] - 2 * n
+    views = eval_k10 // (2 * per_view)
+    print(f"[hashgrid] CLI (default --field_type hashgrid, level "
+          f"resolutions {res[0]}..{res[-1]}, {model.grid_spec.total_params} "
+          f"+ {model.prop_specs[0].total_params} + "
+          f"{model.prop_specs[1].total_params} table rows): {n} steps of "
+          f"{cfg.num_rays} rays, {views} eval views, checkpoints in "
+          f"{dt:.2f} s; launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items()), flush=True)
+    assert views > 0 and eval_k10 == 2 * per_view * views, launches
+    for k in LEVEL_KERNELS:
+        assert launches[k] == 0, launches
+    losses = trainer.stats["loss"]
+    assert losses and all(np.isfinite(losses)), losses
+    ckpts = sorted(os.listdir(os.path.join(ws_dir, "checkpoints")))
+    assert f"step_{n:08d}.pt" in ckpts and "best.pt" in ckpts, ckpts
+    print(f"[hashgrid] losses by epoch {losses}; checkpoints {ckpts}",
+          flush=True)
+
+    # step rate: host clock around synchronised steps
+    dev, state = trainer.device, trainer.state
+    scene_t = train_tensors(scene, dev)
+    gen = torch.Generator(dev).manual_seed(1)
+
+    def draw():
+        return sample_rgb_batch(gen, *scene_t, cfg.num_rays,
+                                random_image_batch=cfg.random_image_batch)
+
+    def step():
+        return trainer.train_step(state, draw(), gen)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        m = step()
+    torch.cuda.synchronize()
+    sps = reps / (time.perf_counter() - t0)
+    assert np.isfinite(float(m["loss"]))
+    print(f"[hashgrid] {sps:.3f} steps/s at {cfg.num_rays} rays a step "
+          f"({1e3 / sps:.2f} ms a step, mean of {reps} after 3 warm-up)",
+          flush=True)
+    parts = hashgrid_step_parts(trainer, draw, gen)
+    print("[hashgrid] parts of a step, each timed alone (CUDA events, ms; "
+          "alone each also waits on its own launches): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in parts.items())
+          + f"; whole step {1e3 / sps:.4f}", flush=True)
+    profile = profile_steps(step, HG_GROUPS)
+
+    reset_counts()
+    tested = cli.main([scene, "--test", "--data_type", "llff", "--workspace",
+                       ws_dir])
+    test_launches = read_counts()
+    assert tested.resumed and tested.state.step == n, tested.state.step
+    assert isinstance(tested.model, SANeRFField)
+    assert test_launches["K10"] == 2 * 2 * per_view, test_launches
+    for k in LEVEL_KERNELS:
+        assert test_launches[k] == 0, test_launches
+    for stem in ("v00", "v16"):
+        img = read_png(os.path.join(ws_dir, "results", f"{stem}_rgb.png"))
+        depth = np.load(os.path.join(ws_dir, "results", f"{stem}_depth.npy"))
+        assert img.shape == (VIEW, VIEW, 3), img.shape
+        assert depth.shape == (VIEW, VIEW) and np.isfinite(depth).all()
+    pose = look_at_pose([2.0, 0.4, 0.0])
+    focal = 0.5 * VIEW / np.tan(0.5 * np.deg2rad(50.0))
+    intr = np.array([focal, focal, VIEW / 2, VIEW / 2], np.float32)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tested.render_view(pose, intr, VIEW, VIEW)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    assert np.isfinite(out["image"]).all()
+    mrays = VIEW * VIEW / float(np.median(times)) / 1e6
+    print(f"[hashgrid] --test resumed at step {tested.state.step}, launches "
+          f"K10 {test_launches['K10']} (2 a chunk, {2 * per_view} chunks); "
+          f"render {mrays:.4f} Mrays/s ({VIEW}x{VIEW} view, median of 3, "
+          f"{np.median(times) * 1e3:.2f} ms a view)", flush=True)
+    return trainer, launches, {
+        "steps_per_s": sps, "render_mrays_per_s": mrays,
+        "train_launches": launches, "test_launches": test_launches,
+        "parts_alone_ms": parts, "profile": profile,
+        "loss_first_epoch": losses[0], "loss_last_epoch": losses[-1]}
+
+
+def hashgrid_step_parts(trainer, draw, gen):
+    """CUDA-event times of a hash-grid step's parts, each alone on one
+    batch's own inputs: the sampler, the three hash encodes forward and
+    backward, K10 at both levels, the MLPs forward and backward, the
+    compositing and losses forward and backward at the step's shapes, and
+    Adam over every parameter."""
+    model, cfg = trainer.model, trainer.cfg
+    batch = draw()
+    settings = RenderSettings(
+        num_steps=tuple(cfg.num_steps), use_contract=cfg.contract,
+        min_near=cfg.min_near, background=cfg.background, bound=cfg.bound,
+        perturb=True, training=True, compute_losses=True)
+    lookups = []
+
+    def spy_lookup(*a):
+        lookups.append(a)
+        return sample_pdf_lookup(*a)
+
+    ray_ops.sample_pdf_lookup = spy_lookup
+    try:
+        out, calls = capture_render(model, settings, batch,
+                                    ("density", "forward_color"), gen)
+    finally:
+        ray_ops.sample_pdf_lookup = sample_pdf_lookup
+    assert len(lookups) == 2 and len(calls["density"]) == 2
+    parts = {"sampler": cuda_ms(draw)}
+    bound_ = model.grid_bound
+    xs = [calls["density"][0][0][0].detach(), calls["density"][1][0][0]
+          .detach(), calls["forward_color"][0][0][0].detach()]
+    encodes = ((model.prop_grid_0, model.prop_specs[0], xs[0]),
+               (model.prop_grid_1, model.prop_specs[1], xs[1]),
+               (model.grid, model.grid_spec, xs[2]))
+    feats = []
+    for name, (table, spec, x) in zip(("proposal 0", "proposal 1", "main"),
+                                      encodes):
+        def enc(table=table, spec=spec, x=x):
+            h = hash_encode(table, x, spec, bound=bound_)
+            torch.autograd.grad(h.square().sum(), table)
+        parts[f"hash encode fwd+bwd, {name} grid ({x.shape[0]}x"
+              f"{x.shape[1]} points)"] = cuda_ms(enc)
+        with torch.no_grad():
+            feats.append(hash_encode(table, x, spec, bound=bound_))
+    parts["K10, both levels (device time, CUDA graph)"] = graph_ms(
+        lambda: [sample_pdf_lookup(*a) for a in lookups])
+    mlp_params = [p for n_, p in model.named_parameters() if "mlp" in n_]
+    feats = [f.requires_grad_() for f in feats]
+    f_image = torch.randn(batch["rays_o"].shape[0], 31, device=xs[0].device,
+                          requires_grad=True)
+
+    def mlps():
+        y = (model.prop_mlp_0(feats[0]).sum() + model.prop_mlp_1(feats[1])
+             .sum() + model.grid_mlp(feats[2]).square().sum()
+             + model.apply_view_mlp(f_image).sum())
+        torch.autograd.grad(y, mlp_params + feats + [f_image])
+
+    parts["MLPs fwd+bwd"] = cuda_ms(mlps)
+    g = torch.Generator(xs[0].device).manual_seed(5)
+    N = batch["rays_o"].shape[0]
+    level_bins = [torch.sort(torch.rand(N, T + 1, generator=g,
+                                        device=xs[0].device), -1).values
+                  for T in cfg.num_steps]
+    sigmas = [torch.rand(N, T, generator=g, device=xs[0].device)
+              .requires_grad_() for T in cfg.num_steps]
+    colors = torch.rand(N, cfg.num_steps[-1], 31, generator=g,
+                        device=xs[0].device, requires_grad=True)
+
+    def composite():
+        ws = [compute_weights(b[:, 1:] - b[:, :-1], s_)[0]
+              for b, s_ in zip(level_bins, sigmas)]
+        f = (ws[-1][..., None] * colors).sum(-2)
+        loss = (f.square().mean() + proposal_loss(level_bins, ws)
+                + distort_loss(level_bins[-1], ws[-1]))
+        torch.autograd.grad(loss, sigmas + [colors])
+
+    parts["compositing and losses fwd+bwd"] = cuda_ms(composite)
+    loss = trainer.train_step.loss_fn(batch, trainer.state.step, True,
+                                      gen)[0]
+    loss.backward()
+    # repeated updates move the weights: timing only, after the step rate
+    parts["Adam, every parameter"] = cuda_ms(trainer.state.optimizer.step)
+    trainer.state.optimizer.zero_grad(set_to_none=True)
+    return parts
+
+
+def card_vs_cpu(trainer, scene):
+    """Phase 8: one 1024-ray training batch through the same weights on the
+    card and on the CPU.  The composable route's grads move at a one-ulp
+    change of a cdf (the interlevel loss's band masks and clamps, and the
+    far samples' spacing), and the two devices' cumsums round the cdf
+    differently; so the CPU's render is handed the card's resampled bins
+    (K10's outputs, each also held to the plain lookup on the CPU, bitwise
+    equal expected) and held to image, depth and losses max abs <= 1e-3 and
+    table grads rel-max <= 1e-3.  A second CPU render with its own lookups
+    is held to the output bar and its grads' rel-L2 printed."""
+    model, cfg, dev = trainer.model, trainer.cfg, trainer.device
+    cpu = make_field("hashgrid", device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gen = torch.Generator(dev).manual_seed(4)
+    batch = sample_rgb_batch(gen, *train_tensors(scene, dev), CPU_RAYS,
+                             random_image_batch=True)
+    settings = RenderSettings(
+        num_steps=tuple(cfg.num_steps), use_contract=cfg.contract,
+        min_near=cfg.min_near, background=cfg.background, bound=cfg.bound,
+        training=True, compute_losses=True)
+
+    def run(m, d, lookup):
+        ray_ops.sample_pdf_lookup = lookup
+        try:
+            ro, rd = batch["rays_o"].to(d), batch["rays_d"].to(d)
+            gt = batch["gt_rgb"][..., :3].to(d)
+            out = render_rays(m, ro, rd, settings)
+        finally:
+            ray_ops.sample_pdf_lookup = sample_pdf_lookup
+        losses = {"mse": torch.mean((out["image"] - gt) ** 2),
+                  "proposal": out["proposal_loss"],
+                  "distort": out["distort_loss"]}
+        total = (losses["mse"] + cfg.lambda_proposal * losses["proposal"]
+                 + cfg.lambda_distort * losses["distort"])
+        grads = torch.autograd.grad(total, [m.grid, m.prop_grid_0,
+                                            m.prop_grid_1])
+        return ({k: out[k].detach().cpu() for k in
+                 ("image", "depth", "weights_sum")},
+                {k: v.item() for k, v in losses.items()},
+                [g_.cpu() for g_ in grads])
+
+    recorded = []
+
+    def record(*a):
+        out = sample_pdf_lookup(*a)
+        recorded.append((a, out))
+        return out
+
+    replay_cdf_err = []
+
+    def replay(cdf, bins, u):
+        (c, b_, u_), out = recorded[len(replay_cdf_err)]
+        replay_cdf_err.append((cdf - c.cpu()).abs().max().item())
+        return out.cpu()
+
+    card = run(model, dev, record)
+    lookup_equal = all(torch.equal(sample_pdf_lookup_ref(*(x.cpu() for x in a)),
+                                   out.cpu()) for a, out in recorded)
+    handed = run(cpu, "cpu", replay)
+    own = run(cpu, "cpu", sample_pdf_lookup_ref)
+
+    def diffs(other):
+        (oa, la, ga), (ob, lb, gb) = card, other
+        out_err = {k: (oa[k] - ob[k]).abs().max().item() for k in oa}
+        out_err.update({k: abs(la[k] - lb[k]) for k in la})
+        g_max = {n_: rel_max(a, b_) for n_, a, b_ in
+                 zip(("grid", "prop_grid_0", "prop_grid_1"), ga, gb)}
+        g_l2 = {n_: ((a - b_).norm() / b_.norm().clamp_min(1e-30)).item()
+                for n_, a, b_ in zip(("grid", "prop_grid_0", "prop_grid_1"),
+                                     ga, gb)}
+        return out_err, g_max, g_l2
+
+    (h_out, h_gmax, _), (o_out, o_gmax, o_gl2) = diffs(handed), diffs(own)
+
+    def fmt(d):
+        return ", ".join(f"{k} {v:.2e}" for k, v in d.items())
+
+    print(f"[hashgrid] card vs CPU, one {CPU_RAYS}-ray batch: K10's outputs "
+          f"bitwise equal to the CPU's plain lookup on the same inputs "
+          f"{lookup_equal}; the two cdfs max abs "
+          f"{max(replay_cdf_err):.2e}. CPU handed the card's bins: max abs "
+          f"{fmt(h_out)} (<= 1e-3); table grads rel-max {fmt(h_gmax)} (<= "
+          f"1e-3). CPU on its own bins: max abs {fmt(o_out)} (<= 1e-3); "
+          f"table grads rel-max {fmt(o_gmax)}, rel-L2 {fmt(o_gl2)}",
+          flush=True)
+    assert lookup_equal or all(
+        (sample_pdf_lookup_ref(*(x.cpu() for x in a)) - out.cpu()).abs().max()
+        <= 1e-6 for a, out in recorded)
+    assert max(h_out.values()) <= 1e-3 and max(h_gmax.values()) <= 1e-3
+    assert max(o_out.values()) <= 1e-3
+    return {"lookup_bitwise_equal": lookup_equal,
+            "cdf_max_abs": max(replay_cdf_err),
+            "handed_bins": {"max_abs": h_out, "grad_rel_max": h_gmax},
+            "own_bins": {"max_abs": o_out, "grad_rel_max": o_gmax,
+                         "grad_rel_l2": o_gl2}}
+
+
+def packed_path(work):
+    """Phase 8: --field_type hashgrid_packed through the CLI, 5 steps of
+    8192 rays (its main table is 8x the plain one)."""
+    scene = os.path.join(work, "scene")
+    ws_dir = os.path.join(work, "packed_ws")
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main([scene, "--field_type", "hashgrid_packed",
+                        "--data_type", "llff", "--workspace", ws_dir,
+                        "--seed", "0", "--iters", str(PACKED_STEPS),
+                        "--eval_cnt", "1", "--save_cnt", "1"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    model = trainer.model
+    assert model.packed and model.grid.shape == (6_299_960, 16)
+    assert trainer.state.step == PACKED_STEPS
+    assert trainer.cfg.num_rays == BATCH
+    losses = trainer.stats["loss"]
+    assert losses and all(np.isfinite(losses)), losses
+    assert launches["K10"] > 2 * PACKED_STEPS, launches
+    for k in LEVEL_KERNELS:
+        assert launches[k] == 0, launches
+    mb = model.grid.numel() * 4 / 2 ** 20
+    print(f"[packed] CLI --field_type hashgrid_packed: {PACKED_STEPS} steps "
+          f"of {trainer.cfg.num_rays} rays and its evals in {dt:.2f} s, main "
+          f"table {tuple(model.grid.shape)} ({mb:.1f} MiB); losses {losses}; "
+          f"launches K10 {launches['K10']}", flush=True)
+    return {"seconds": dt, "losses": losses, "launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
@@ -952,16 +1422,20 @@ def main():
     with torch.inference_mode():
         kernels = check_kernels(field)
         kernels.update(check_train_kernels(field))
+        kernels["K10"] = check_sample_pdf_kernel(torch.device("cuda"))
     kernels["K3"]["train_shape_ms"] = kernels.pop("K3_train_ms")
     launches, mrays = main_path(work)
     trainer, train_launches, sps = train_path(work)
     parity = grad_parity(trainer, os.path.join(work, "scene"))
     s3_launches, s3 = stage3_path(work, os.path.join(work, "train_ws"))
+    hg_trainer, hg_launches, hg = hashgrid_train_path(work)
+    hg["card_vs_cpu"] = card_vs_cpu(hg_trainer, os.path.join(work, "scene"))
+    hg["packed"] = packed_path(work)
 
-    # K5, K1 and K2 numbers are the sums over both proposal levels
-    # (per_shape has each); K5 and K3 launches are the inference path's,
-    # K1, K2 and K4 the training path's (K3 also ran there once a step),
-    # K6 the stage-3 path's
+    # K5, K1, K2 and K10 numbers are the sums over both levels (per_shape
+    # has each); K5 and K3 launches are the inference path's, K1, K2 and
+    # K4 the training path's (K3 also ran there once a step), K6 the
+    # stage-3 path's, K10 the hash-grid training path's
     rows = (("K5", "fused_prop_level_sample", SOURCE, 258, launches),
             ("K3", "fused_final_level", SOURCE, 695, launches),
             ("K6", "fused_final_level_frozen", SOURCE, 143, s3_launches),
@@ -973,11 +1447,16 @@ def main():
                "replaces": f"{TPU_FILE}:{line}", "launches": counts[kid],
                "library_ms": None, **kernels[kid]}
               for kid, name, src, line, counts in rows]
+    report.append({"name": "sample_pdf_lookup", "route": "cuda",
+                   "source": SOURCE_PDF, "replaces": f"{TPU_FILE_PDF}:69",
+                   "launches": hg_launches["K10"], "library_ms": None,
+                   **kernels["K10"]})
     print(json.dumps({"kernels": report, "render_mrays_per_s": mrays,
                       "train_steps_per_s": sps,
                       "train_launches": train_launches,
                       "grad_parity_worst_rel_l2": max(parity.values()),
-                      "stage3_launches": s3_launches, "stage3": s3}))
+                      "stage3_launches": s3_launches, "stage3": s3,
+                      "hashgrid": hg}))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

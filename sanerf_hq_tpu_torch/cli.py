@@ -1,10 +1,12 @@
-"""CLI of the port: `python -m sanerf_hq_tpu_torch <scene> --field_type mlp
-[flags]` trains stage 1 (then evaluates PSNR and SSIM into
-`<workspace>/validation/`); with `--test` it renders the held-out views
-into `<workspace>/results/{stem}_rgb.png` and `{stem}_depth.npy`.
+"""CLI of the port: `python -m sanerf_hq_tpu_torch <scene> [flags]` trains
+stage 1 of the hash-grid field (`--field_type hashgrid`, the default, or
+`hashgrid_packed`) or of the flagship MLP field (`--field_type mlp`), then
+evaluates PSNR and SSIM into `<workspace>/validation/`; with `--test` it
+renders the held-out views into `<workspace>/results/{stem}_rgb.png` and
+`{stem}_depth.npy`.
 
-Stage 3: `--with_mask --mask_root <masks> --init_ckpt <stage-1 workspace>`
-trains the object field over the frozen stage-1 backbone, then evaluates
+Stage 3 (MLP field only): `--with_mask --mask_root <masks> --init_ckpt
+<stage-1 workspace>` trains the object field over the frozen stage-1 backbone, then evaluates
 mean IoU on the held-out views; `--test --with_mask` resumes it and writes
 `results/{stem}_mask.npy` and `{stem}_mask_vis.png`.  The mask directory
 holds the decode output: `{stem}_obj_mask.npy` ([1, H, W] uint8 labels)
@@ -37,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ckpt", type=str, default="latest",
                    help="latest (resume the workspace) or an .npz of JAX "
-                        "MLPField parameters")
+                        "field parameters")
     p.add_argument("--init_ckpt", type=str, default="",
                    help="stage hand-off: a port workspace (its newest "
                         "checkpoint) or an .npz of JAX parameters; what it "
@@ -71,6 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lambda_distort_warmup", type=int, default=1000,
                    help="ramp lambda_distort in over [w, 2w] steps; 0 = "
                         "active from step 0")
+    p.add_argument("--lambda_tv", type=float, default=0)
+    p.add_argument("--lambda_wd", type=float, default=0)
     p.add_argument("--data_type", type=str, default="mip",
                    choices=["mip", "lerf", "llff", "3dfront", "ctr", "pano",
                             "others"])

@@ -64,6 +64,9 @@ class Config:
     lambda_distort: float = 0.02
     # ramp lambda_distort in over [w, 2w] steps; 0 = active from step 0
     lambda_distort_warmup: int = 1000
+    # total variation / weight decay of the hash-grid field's main table
+    lambda_tv: float = 0.0
+    lambda_wd: float = 0.0
 
     # field
     field_type: str = "hashgrid"

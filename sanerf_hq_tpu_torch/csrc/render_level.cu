@@ -226,13 +226,7 @@ prop_level_sample_kernel(PropParams p) {
     const float* c = cdf + r * (T + 1);
     const float ut = p.u[(size_t)ray * Q + (item - r * Q)] * tot[r];
     // c is non-decreasing, so {k : c_k <= ut} is a prefix [0, j]
-    int a = 0, b = T + 1;
-    while (a < b) {
-      const int m = (a + b) >> 1;
-      if (c[m] <= ut) a = m + 1;
-      else b = m;
-    }
-    const int j = a - 1;
+    const int j = count_le(c, T + 1, ut) - 1;
     float cg0 = -1e38f, sg0 = -1e38f, cg1, sg1;
     if (j >= 0) {
       cg0 = c[j];

@@ -184,6 +184,18 @@ __device__ void build_cp(const float* const* cp, int rank, int res,
   }
 }
 
+// Number of entries of the non-decreasing c[0, n) that are <= v: the set
+// {k : c_k <= v} is the prefix [0, count).  One binary search.
+__device__ __forceinline__ int count_le(const float* c, int n, float v) {
+  int a = 0, b = n;
+  while (a < b) {
+    const int m = (a + b) >> 1;
+    if (c[m] <= v) a = m + 1;
+    else b = m;
+  }
+  return a;
+}
+
 inline int launch_checked(const void* kernel, int grid, size_t smem,
                           cudaStream_t stream, void* args) {
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;

@@ -1,8 +1,9 @@
 """Carry weights across from the JAX package.
 
-`params_from_jax` takes the flax parameter tree of an `MLPField` as numpy
-arrays, nested (`jax.device_get(params)`) or flattened with `/` keys as in
-an `.npz` written by `save_npz`, and returns the port's `state_dict`.  flax
+`params_from_jax` takes the flax parameter tree of an `MLPField` or a
+`SANeRFField` as numpy arrays, nested (`jax.device_get(params)`) or
+flattened with `/` keys as in an `.npz` written by `save_npz`, and returns
+the port's `state_dict`.  flax
 kernels are [in, out]; they are transposed once here into the port's
 [out, in] layout.
 """
@@ -18,8 +19,10 @@ _RULES = (
     # (flax path, port key template, transpose)
     (re.compile(r"(trunk|prop_mlp_[01])/(w\d+)"), r"\1.\2", True),
     (re.compile(r"(cp_[xyz])"), r"\1", False),
-    (re.compile(r"(view_mlp|mask_mlp)/Dense_(\d+)/kernel"),
-     r"\1.layers.\2.weight", True),
+    # the hash-grid field's tables [rows, row_dim] keep their layout
+    (re.compile(r"(grid|prop_grid_[01])"), r"\1", False),
+    (re.compile(r"(view_mlp|mask_mlp|grid_mlp|prop_mlp_[01])/Dense_(\d+)"
+                r"/kernel"), r"\1.layers.\2.weight", True),
     (re.compile(r"mask_mlp/Dense_(\d+)/bias"), r"mask_mlp.layers.\1.bias",
      False),
     (re.compile(r"(cp_m_[xyz]|cp_m_proj)"), r"\1", False),
@@ -44,10 +47,14 @@ def save_npz(path: str, tree: Mapping):
 
 
 def params_from_jax(tree: Mapping) -> dict:
-    """Flax MLPField parameters -> the port's state_dict (CPU float32).
+    """Flax MLPField or SANeRFField parameters -> the port's state_dict
+    (CPU float32).
 
     Keys: params/trunk/w0..w3, params/cp_x|cp_y|cp_z,
-    params/prop_mlp_{0,1}/w0..w2, params/view_mlp/Dense_{0,1,2}/kernel,
+    params/prop_mlp_{0,1}/w0..w2, params/view_mlp/Dense_{0,1,2}/kernel;
+    the hash-grid field's params/grid|prop_grid_0|prop_grid_1 and
+    params/grid_mlp|prop_mlp_{0,1}/Dense_i/kernel (patterns match whole
+    keys, so the two fields' `prop_mlp_*` forms never meet);
     and the stage-3 mask branch: params/cp_m_x|cp_m_y|cp_m_z|cp_m_proj,
     params/mask_mlp/Dense_i/kernel (and bias where it exists).  Leaves of
     the stage-2 heads (cp_s_*, samvit_*) are not carried; a strict

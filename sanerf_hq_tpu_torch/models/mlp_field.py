@@ -33,6 +33,7 @@ from ..ops.render_level import (cp_features, final_level_train,
                                 prop_level_train_sample)
 from ..ops.sh import sh_encode
 from ..ops.trunc_exp import safe_trunc_exp
+from .fields import SANeRFField
 from .mlp import MLP, SkipConnMLP, uniform_fan_in_
 
 GEOM_FEAT_DIM = 15
@@ -275,11 +276,16 @@ class MLPField(nn.Module):
 
 def make_field(field_type: str = "hashgrid", device=None, seed: int = 0,
                **kw):
-    """Factory: 'mlp' (flagship).  The hash-grid fields are not ported yet."""
+    """Factory: 'hashgrid' (reference parity) | 'hashgrid_packed' (corner-
+    packed tables) | 'mlp' (flagship); keyword arguments the chosen field
+    does not take are dropped, as the JAX factory does."""
     if field_type in ("hashgrid", "hashgrid_packed"):
-        raise NotImplementedError(
-            f"field_type '{field_type}' is not ported yet (ROADMAP.md, "
-            "queue 1, M12); use --field_type mlp")
+        allowed = {"grid_bound", "with_sam", "with_mask", "main_spec",
+                   "prop_spec_0", "prop_spec_1", "packed"}
+        kw = {k: v for k, v in kw.items() if k in allowed}
+        if field_type == "hashgrid_packed":
+            kw["packed"] = True
+        return SANeRFField(**kw, device=device, seed=seed)
     if field_type == "mlp":
         allowed = {"grid_bound", "hidden", "num_layers", "freq_degree",
                    "prop_hidden", "prop_layers", "prop_freq_degree",

@@ -5,6 +5,8 @@ from typing import Optional
 
 import torch
 
+from .sample_pdf import sample_pdf_lookup
+
 
 def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.05):
     """Slab-test ray/AABB intersection.  aabb: [6] = (xmin, ymin, zmin,
@@ -49,29 +51,12 @@ def sample_pdf(bins, weights, T: int,
     bins: [N, T0+1] edges, weights: [N, T0].  Weights get +0.01 flooring;
     the CDF is the cumsum clamped to 1 with a leading zero; queries are the
     midpoints of T uniform strata, jittered when `generator` is given.  The
-    lookup is the masked prefix/suffix reduction of the reference (both cdf
-    and bins are monotone per row):
-      below: max over {k: cdf_k <= u};  above: min over {k: cdf_k > u},
-      an empty suffix giving the last element.
+    lookup is K10 (`ops/sample_pdf.py`) on the card and its plain version
+    on the CPU; the result carries no gradient (the caller detaches it).
     """
-    weights = weights + 0.01
+    weights = weights.detach() + 0.01
     pdf = weights / weights.sum(dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1).clamp_max(1.0)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
     u = stratified_queries(weights.shape[0], T, weights.device, generator)
-
-    le = cdf[:, None, :] <= u[:, :, None]  # [N, T, T0+1]
-    neg = torch.tensor(-1e38, dtype=cdf.dtype, device=cdf.device)
-    pos = torch.tensor(1e38, dtype=cdf.dtype, device=cdf.device)
-    cdf_g0 = torch.where(le, cdf[:, None, :], neg).amax(dim=-1)
-    bins_g0 = torch.where(le, bins[:, None, :], neg).amax(dim=-1)
-    cdf_g1 = torch.minimum(
-        torch.where(le, pos, cdf[:, None, :]).amin(dim=-1), cdf[:, -1:])
-    bins_g1 = torch.minimum(
-        torch.where(le, pos, bins[:, None, :]).amin(dim=-1), bins[:, -1:])
-
-    denom = cdf_g1 - cdf_g0
-    t = torch.where(denom > 0,
-                    (u - cdf_g0) / torch.where(denom > 0, denom, 1.0), 0.0)
-    t = torch.nan_to_num(t).clamp(0.0, 1.0)
-    return bins_g0 + t * (bins_g1 - bins_g0)
+    return sample_pdf_lookup(cdf, bins.detach().contiguous(), u.contiguous())

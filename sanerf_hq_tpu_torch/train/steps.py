@@ -3,8 +3,10 @@
 The stage-1 RGB step: MSE + lambda_proposal * interlevel proposal loss +
 lambda_distort * distortion loss (ramped in over [w, 2w] steps with
 w = lambda_distort_warmup) + lambda_entropy * binary entropy of
-weights_sum.  The proposal MLPs get grads on the reference's cadence,
-step <= 3000 or step % 5 == 0, step counted before the update.
+weights_sum + lambda_tv * total variation + lambda_wd * weight decay of the
+hash-grid field's main table.  The proposal MLPs get grads on the
+reference's cadence, step <= 3000 or step % 5 == 0, step counted before
+the update.
 
 The stage-3 mask step: cross-entropy of the object-field logits over the
 labelled global rays, + label_regularization_weight * the depth-weighted
@@ -18,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
+from ..models.fields import active_reg_grid
+from ..ops.hashgrid import total_variation_loss, weight_decay_loss
 from ..render.renderer import RenderSettings, render_rays, render_staged
 
 
@@ -48,6 +52,31 @@ def make_eval_render(model, cfg: Config, perturb: bool = False,
     return eval_render
 
 
+def _grid_regularizers(model, cfg: Config, stage: str):
+    """The --lambda_tv / --lambda_wd term of a stage's loss on its hash
+    table, a function of a generator (TV draws its points from it); None
+    when both lambdas are 0 or the model has no table for the stage (the
+    MLP field)."""
+    if cfg.lambda_tv <= 0 and cfg.lambda_wd <= 0:
+        return None
+    reg = active_reg_grid(model, stage)
+    if reg is None:
+        return None
+    name, spec = reg
+
+    def reg_loss(generator=None):
+        table = getattr(model, name)
+        loss = 0.0
+        if cfg.lambda_tv > 0:
+            loss = loss + cfg.lambda_tv * total_variation_loss(
+                table, spec, generator)
+        if cfg.lambda_wd > 0:
+            loss = loss + cfg.lambda_wd * weight_decay_loss(table, spec)
+        return loss
+
+    return reg_loss
+
+
 def update_proposal_at(step: int) -> bool:
     return step <= 3000 or step % 5 == 0
 
@@ -73,6 +102,7 @@ def make_rgb_train_step(model, cfg: Config, perturb: bool = True,
         compute_losses=(cfg.lambda_proposal > 0 or cfg.lambda_distort > 0),
         level_kernels=level_kernels,
     )
+    reg_loss = _grid_regularizers(model, cfg, "rgb")
 
     def loss_fn(batch, step: int, update_proposal: bool, generator=None):
         images = batch["gt_rgb"]
@@ -106,6 +136,8 @@ def make_rgb_train_step(model, cfg: Config, perturb: bool = True,
             ws = out["weights_sum"].clamp(1e-5, 1 - 1e-5)
             entropy = -ws * torch.log2(ws) - (1 - ws) * torch.log2(1 - ws)
             loss = loss + cfg.lambda_entropy * entropy.mean()
+        if reg_loss is not None:
+            loss = loss + reg_loss(generator)
         metrics["loss"] = loss
         metrics["psnr"] = -10.0 * torch.log10(metrics["mse"].clamp_min(1e-10))
         return loss, metrics

@@ -24,16 +24,20 @@ from ..data.png import write_png
 from ..data.provider import Scene
 from ..data.rays import full_frame_rays
 from ..data.sampler import sample_rgb_batch
+from ..models.mlp_field import MLPField
 from .checkpoints import CheckpointManager
 from .metrics import PSNRMeter
 from .state import (TrainState, freeze_mask_from_loaded, mlp_field_lr_scales,
                     partial_load)
 from .steps import make_eval_render, make_rgb_train_step
 
-# top-level parameter names of the backbone the level kernels read (JAX
-# trainer.py:50-52; the hash-grid names are not ported)
+# top-level parameter names of the stage-1 backbone (JAX trainer.py:50-52):
+# the MLP field's, then the hash-grid field's.  The JAX list also names
+# `sigma_mlp`, which no field has; the hash-grid field's density MLP is
+# `grid_mlp`.
 _BACKBONE_KEYS = ("trunk", "prop_mlp_0", "prop_mlp_1", "view_mlp",
-                  "cp_x", "cp_y", "cp_z")
+                  "cp_x", "cp_y", "cp_z",
+                  "grid", "prop_grid_0", "prop_grid_1", "grid_mlp")
 
 
 def backbone_all_frozen(model, frozen) -> bool:
@@ -78,8 +82,11 @@ class Trainer:
             self.log(f"[INFO] loaded {len(loaded)} param tensors from init "
                      "checkpoint (frozen)")
         self.backbone_frozen = backbone_all_frozen(model, frozen)
-        self.state = TrainState(model, cfg.lr, cfg.iters,
-                                lr_scales=mlp_field_lr_scales(model),
+        # the lr scales are the MLP field's; any other field trains every
+        # parameter at the base lr, as in JAX
+        scales = (mlp_field_lr_scales(model) if isinstance(model, MLPField)
+                  else None)
+        self.state = TrainState(model, cfg.lr, cfg.iters, lr_scales=scales,
                                 frozen=frozen)
         restored = self.ckpt.restore(self.device) if resume else None
         self.resumed = restored is not None

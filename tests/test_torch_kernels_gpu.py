@@ -1,5 +1,5 @@
-"""CUDA kernels K5, K3, K6, K1, K2 and K4 against their plain twins on the
-card, at shapes the flagship smoke (chip_smoke.py) does not reach: ragged
+"""CUDA kernels K5, K3, K6, K1, K2, K4 and K10 against their plain twins on
+the card, at shapes the flagship smoke (chip_smoke.py) does not reach: ragged
 ray counts, sample counts that do not divide a pass or span several passes,
 other widths, no CP features; plus the wrappers' input checks, the
 backward kernels' run-to-run determinism, and K6's agreement with K3.
@@ -8,7 +8,8 @@ Needs a CUDA device (the kernels have no CPU mode); skips without one.  On
 the card, where JAX (which tests/conftest.py imports) is not installed:
 `python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py`.
 Tolerances as chip_smoke.py: 1e-3 abs on the s-bins of K5 and K1, rel-max
-2e-2 on K3's outputs, K1's weights and the weight and CP grads of K2 and K4.
+2e-2 on K3's outputs, K1's weights and the weight and CP grads of K2 and K4,
+1e-6 abs on K10's resampled edges (rows with ties included).
 """
 import pytest
 import torch
@@ -253,3 +254,54 @@ def test_training_functions_launch_their_kernels(dev):
         c + 1 for c in counts]
     for p in pws + tws + cps:
         assert p.grad is not None and torch.isfinite(p.grad).all()
+
+
+def _pdf_rows(dev, N, K, Q, seed=0):
+    """cdf, bins [N, K] non-decreasing with ties (flat cdf runs, tails
+    clamped to 1, zero-width bins) and jittered stratified u [N, Q]."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.rand(N, K - 1, generator=g)
+    w[torch.rand(N, K - 1, generator=g) < 0.3] = 0.0
+    cdf = torch.cumsum(w, -1)
+    cdf = cdf / cdf[:, -1:].clamp_min(1e-12)
+    cdf[: N // 2] *= 1.05  # overshoots, clamped to 1
+    cdf = torch.cat([torch.zeros(N, 1), cdf.clamp_max(1.0)], -1)
+    widths = torch.rand(N, K - 1, generator=g)
+    widths[torch.rand(N, K - 1, generator=g) < 0.2] = 0.0
+    bins = torch.cat([torch.zeros(N, 1), torch.cumsum(widths, -1)], -1)
+    bins = bins / bins[:, -1:].clamp_min(1e-12)
+    u = (torch.arange(Q) + 0.5) / Q + (torch.rand(N, Q, generator=g) - 0.5) / Q
+    return [x.to(dev).contiguous() for x in (cdf, bins, u)]
+
+
+@pytest.mark.parametrize("N,K,Q", [
+    (16384, 129, 65),  # render chunk, first resampling
+    (8192, 65, 33),    # training batch, second resampling
+    (1001, 17, 9),     # ragged last block
+    (3, 2, 5),         # one-interval rows
+])
+def test_sample_pdf_kernel_matches_plain(dev, N, K, Q):
+    from sanerf_hq_tpu_torch.ops.sample_pdf import (sample_pdf_lookup,
+                                                    sample_pdf_lookup_ref)
+
+    cdf, bins, u = _pdf_rows(dev, N, K, Q)
+    before = sample_pdf_lookup.launches
+    got = sample_pdf_lookup(cdf, bins, u)
+    want = sample_pdf_lookup_ref(cdf, bins, u)
+    torch.cuda.synchronize()
+    assert sample_pdf_lookup.launches == before + 1
+    assert got.shape == (N, Q) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+def test_sample_pdf_wrapper_checks_inputs(dev):
+    from sanerf_hq_tpu_torch.ops.sample_pdf import sample_pdf_lookup
+
+    cdf, bins, u = _pdf_rows(dev, 64, 9, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        sample_pdf_lookup(cdf, bins, u.t().contiguous().t())
+    with pytest.raises(TypeError, match="float32"):
+        sample_pdf_lookup(cdf, bins.double(), u)
+    with pytest.raises(ValueError, match="shape"):
+        sample_pdf_lookup(cdf, bins[:, :-1].contiguous(), u)
+    assert sample_pdf_lookup(cdf[:0], bins[:0], u[:0]).shape == (0, 5)
