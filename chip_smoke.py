@@ -20,45 +20,54 @@ last line:
        rel-max < 2e-2), K2 at T = 128 and 64 and K4 at T = 32 (rel-max
        < 2e-2 on every weight and CP grad; the weight grads bitwise equal
        over two launches; K4's CP grads, summed with atomics, print their
-       run-to-run difference);
+       run-to-run difference); K7 at both proposal levels (weights rel-max
+       < 2e-2, bitwise equal to K1's; prop_level_train's weight grads
+       bitwise equal to prop_level_train_sample's under one cotangent);
+     - K8 (freq encode + MLP forward) at the composable route's shapes of
+       a 6256-ray stage-3 batch: the proposal MLP at 800,768 and 400,384
+       points and the cp_rank-0 trunk at 200,192, rel-max < 2e-2 on the
+       outputs and on the autograd grads of x and every weight, timed
+       beside its plain version and a sin/cos + bf16 F.linear composite;
   4. inference path: a synthetic llff scene written under build/, the
      port's CLI `--test` on it at flagship width with a seeded field (2
      views of 512x512, 16 chunks each), with the launch counts set to 0
      just before and read just after: K5 must launch twice a chunk and K3
      once; then the render rate, and the level-kernel route against the
-     composable route on a 128x128 view (max abs < 2e-2);
+     composable route on a 128x128 view (max abs < 2e-2; the composable
+     render launches K8 twice);
   5. training path: the port's CLI without --test on the same scene at
      flagship width, 20 steps of 8192 rays, counts set to 0 just before and
      read just after: per step K1 twice, K2 twice (every step <= 3000
      updates the proposal MLPs), K3 once and K4 once (K3 and K5 also run in
-     the eval renders); a finite loss, checkpoints on disk, a later --test
+     the eval renders), K7 and K8 never; a finite loss, checkpoints on disk, a later --test
      resuming from them, and the train step rate (host clock around
      synchronised steps);
   6. grad parity: on one 8192-ray batch at step 2000 (distortion ramp fully
      on, so K4's weights grad carries gradient), the level-kernel route's
-     grads against the composable route's (autograd through the plain
-     field), per-leaf rel-L2 <= 5%;
+     grads against the composable route's (K8 forwards, autograd through
+     the plain field), per-leaf rel-L2 <= 5%;
   7. stage 3: analytic sphere masks in the decode output format, then the
      CLI with --with_mask --init_ckpt <phase-5 workspace> and the flags of
      scripts/train_obj_nerf.sh (6000 rays and four 8x8 patches a step, 200
      steps, the ray-pair loss from step 150, the error map at 128), counts
      set to 0 just before and read just after: K5 twice and K6 once a step,
-     a chunk and an error-map view, K1-K4 never; the backbone bitwise equal
+     a chunk and an error-map view, K1-K4, K7, K8 never; the backbone bitwise equal
      to the init checkpoint, the error map rebuilt at step 150, the CE at
      the first and last step, [EVAL] MeanIoU; then the step rate (host
      clock around synchronised steps) and its breakdown (CUDA events: the
      sampler, K5, K6, the mask branch forward and backward, the losses),
      the CP feature lookup as a one-hot matmul and as a gather, the frozen
      route against the composable route on one batch (CE within 2e-2,
-     logits within 3e-2, trainable grads rel-max < 6e-2), and a
-     --test --with_mask resuming the field;
+     logits within 3e-2, trainable grads rel-max < 6e-2; the composable
+     render launches K8 twice), and a --test --with_mask resuming the
+     field;
   8. the hash-grid field (the CLI default, at the published widths): K10
      (inverse-CDF lookup) against its plain version at N = 16384 and 8192
      with (K, Q) = (129, 65) and (65, 33) on rows with ties, max abs <=
      1e-6, timed beside a searchsorted composite (this check runs with
      phase 3); the CLI without --field_type, 20 steps of 8192 rays on the
      phase-4 scene, counts set to 0 just before and read just after: K10
-     twice a step and twice an eval chunk, K1-K6 never; a finite loss,
+     twice a step and twice an eval chunk, K1-K8 never; a finite loss,
      checkpoints, the step rate with its breakdown (CUDA events: the
      sampler, the three hash encodes forward and backward, K10, the MLPs,
      compositing and losses, Adam; one device-only torch.profiler trace);
@@ -68,7 +77,18 @@ last line:
      abs <= 1e-3, table grads rel-max <= 1e-3; on its own bins the output
      bar, grads printed);
      then --field_type hashgrid_packed, 5 steps of 8192 rays;
-  9. one JSON line with every kernel's numbers, the device line again, and
+  9. stage 3 with a trainable backbone: the CLI with the phase-7 flags and
+     masks but no --init_ckpt (the backbone from --seed), 200 steps of 6256
+     rays, counts set to 0 just before and read just after: K8 twice a
+     step (the proposal MLPs of the composable route), K10 twice a step,
+     K5 and K6 only in the error-map and eval renders, K1-K4 and K7 never;
+     backbone_frozen False, the CE at the first and last step, [EVAL]
+     MeanIoU, the peak device memory; the step rate (host clock around
+     synchronised steps) with its breakdown (CUDA events: the sampler, K8,
+     K10, the plain CP trunk, compositing, the mask branch, the losses,
+     Adam; one device-only torch.profiler trace); then 20 steps with
+     --cp_rank 0, where K8 also runs the trunk: three launches a step;
+ 10. one JSON line with every kernel's numbers, the device line again, and
      the last line {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -81,6 +101,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sanerf_hq_tpu_torch import cli
 from sanerf_hq_tpu_torch.data.png import read_png
@@ -91,12 +112,14 @@ from sanerf_hq_tpu_torch.data.sampler import (fixed_fovy_intrinsics,
                                               sample_rgb_batch)
 from sanerf_hq_tpu_torch.data.synthetic import (look_at_pose, write_llff_scene,
                                                 write_sphere_masks)
-from sanerf_hq_tpu_torch.models import SANeRFField, make_field
-from sanerf_hq_tpu_torch.ops import cuda_lib
+from sanerf_hq_tpu_torch.models import SANeRFField, make_field, mlp_field
+from sanerf_hq_tpu_torch.ops import cuda_lib, fused_mlp
 from sanerf_hq_tpu_torch.ops import ray as ray_ops
 from sanerf_hq_tpu_torch.ops import render_level as rl
 from sanerf_hq_tpu_torch.ops.composite import (compute_weights, distort_loss,
                                                proposal_loss)
+from sanerf_hq_tpu_torch.ops.contraction import contract
+from sanerf_hq_tpu_torch.ops.fused_mlp import fused_freq_mlp
 from sanerf_hq_tpu_torch.ops.hashgrid import hash_encode
 from sanerf_hq_tpu_torch.ops.ray import (near_far_from_aabb, spacing_fn,
                                          spacing_fn_inv, stratified_queries)
@@ -112,8 +135,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "sanerf_hq_tpu_torch/csrc/render_level.cu"
 SOURCE_BWD = "sanerf_hq_tpu_torch/csrc/render_level_bwd.cu"
 SOURCE_PDF = "sanerf_hq_tpu_torch/csrc/sample_pdf.cu"
+SOURCE_MLP = "sanerf_hq_tpu_torch/csrc/fused_mlp.cu"
 TPU_FILE = "sanerf_hq_tpu/ops/render_level_pallas.py"
 TPU_FILE_PDF = "sanerf_hq_tpu/ops/sample_pdf_pallas.py"
+TPU_FILE_MLP = "sanerf_hq_tpu/ops/fused_mlp.py"
 # H100 SXM published peaks: bf16 dense tensor cores, fp32 outside them, HBM3
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 CHUNK = 16384  # rays in one render chunk (max_ray_batch)
@@ -125,12 +150,14 @@ MASK_STEPS = 200
 HG_STEPS = 20  # hash-grid CLI training steps (depth cut from 20000)
 PACKED_STEPS = 5
 CPU_RAYS = 1024  # the card-vs-CPU batch
+CP0_STEPS = 20  # stage-3 steps with a trainable backbone at cp_rank 0
 COUNTERS = {"K5": rl.fused_prop_level_sample, "K3": rl.fused_final_level,
             "K6": rl.fused_final_level_frozen,
             "K1": rl.fused_prop_level_sample_train,
             "K2": rl.fused_prop_level_bwd, "K4": rl.fused_final_level_bwd,
+            "K7": rl.fused_prop_level, "K8": fused_freq_mlp,
             "K10": sample_pdf_lookup}
-LEVEL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+LEVEL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
 
 
 def device_line() -> str:
@@ -496,6 +523,169 @@ def check_train_kernels(field):
     return {"K1": k1, "K2": k2, "K4": k4, "K3_train_ms": k3}
 
 
+def check_prop_weights_kernel(field):
+    """Phase 3, K7 on the K1 batch (8192 rays) at both proposal levels:
+    against its twin, its weights bitwise equal to K1's, and the grads of
+    prop_level_train (forward K7, backward K2) bitwise equal to those of
+    prop_level_train_sample (forward K1, backward K2) under one random
+    cotangent.  The headline numbers are sums over the two levels."""
+    dev = field.cp_x.device
+    ro, rd = view_rays(dev, 64, 128)
+    N = ro.shape[0]
+    assert N == BATCH
+    sn, sf = s_space(ro, rd)
+    g = torch.Generator(dev).manual_seed(7)
+    pargs = dict(freq_degree=field.prop_freq_degree,
+                 grid_bound=field.grid_bound, opaque_last=True,
+                 density_bias=field.density_bias)
+    k7 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+          "equal_to_K1": True, "grads_equal_to_K1_K2": True,
+          "per_shape": {}}
+    s_bins = torch.linspace(0.0, 1.0, 129, device=dev).expand(N, 129)
+    s_bins = s_bins.contiguous()
+    for level, (T, Q) in enumerate(((128, 65), (64, 33))):
+        real = spacing_fn_inv(sn * (1.0 - s_bins) + sf * s_bins)
+        u = stratified_queries(N, Q, dev).contiguous()
+        ws = (field.prop_mlp_0 if level == 0 else field.prop_mlp_1).weights
+        with torch.inference_mode():
+            w = rl.fused_prop_level(ro, rd, real, ws, **pargs)
+            w_ref = rl.prop_level_ref(ro, rd, real, ws, **pargs)
+            w1, nb = rl.fused_prop_level_sample_train(ro, rd, real, s_bins,
+                                                      u, ws, **pargs)
+            torch.cuda.synchronize()
+            assert torch.isfinite(w).all(), "K7 weights not finite"
+            rel = rel_max(w, w_ref)
+            err = (w - w_ref).abs().max().item()
+            assert rel < 2e-2, f"K7 (T={T}) weights rel-max error {rel}"
+            assert torch.equal(w, w1), f"K7 (T={T}) weights differ from K1's"
+            ms = cuda_ms(lambda: rl.fused_prop_level(ro, rd, real, ws,
+                                                     **pargs))
+            plain = cuda_ms(lambda: rl.prop_level_ref(ro, rd, real, ws,
+                                                      **pargs))
+        g_w = torch.randn(N, T, generator=g, device=dev)
+        grads = []
+        for fn in (lambda p: rl.prop_level_train(ro, rd, real, p, **pargs),
+                   lambda p: rl.prop_level_train_sample(
+                       ro, rd, real, s_bins, u, p, **pargs)[0]):
+            p = [x.detach().clone().requires_grad_() for x in ws]
+            grads.append(torch.autograd.grad((fn(p) * g_w).sum(), p))
+        torch.cuda.synchronize()
+        for i, (a, b_) in enumerate(zip(*grads)):
+            assert torch.equal(a, b_), f"prop_level_train dW{i} (T={T})"
+        pts = N * T
+        bms, by = bound(nbytes(ro, rd, real, *ws, w), 2 * pts * mlp_macs(ws),
+                        2 * pts * 3 * field.prop_freq_degree)
+        print(f"[kernel] K7 fused_prop_level T={T}: weights rel-max err "
+              f"{rel:.3e} (< 2e-2), bitwise equal to K1's; prop_level_train "
+              f"grads bitwise equal to prop_level_train_sample's; {ms:.4f} "
+              f"ms, plain twin {plain:.4f} ms, bound {bms:.4f} ms ({by})",
+              flush=True)
+        k7["per_shape"][f"T{T}"] = {"ms": ms, "plain_ms": plain,
+                                   "bound_ms": bms, "max_abs_err": err,
+                                   "rel_max_err": rel}
+        k7["ms"] += ms
+        k7["plain_ms"] += plain
+        k7["bound_ms"] += bms
+        k7["bound_by"] = by
+        k7["max_abs_err"] = max(k7["max_abs_err"], err)
+        s_bins = nb.clone()  # a normal tensor: it reaches autograd
+    return k7
+
+
+def path_points(dev, T, grid_bound, n=MASK_BATCH):
+    """The composable route's MLP input at one level of a stage-3 batch:
+    contract(xyz) / grid_bound of n view rays at T uniform s-space samples,
+    [n * T, 3]."""
+    ro, rd = view_rays(dev, 64, 128)
+    ro, rd = ro[:n], rd[:n]
+    sn, sf = s_space(ro, rd)
+    s_ = torch.linspace(0.0, 1.0, T + 1, device=dev)
+    real = spacing_fn_inv(sn * (1.0 - s_) + sf * s_)
+    t = (real[:, 1:] + real[:, :-1]) * 0.5
+    xyz = contract(ro[:, None, :] + rd[:, None, :] * t[..., None])
+    return (xyz / grid_bound).reshape(-1, 3).contiguous()
+
+
+def composite_mlp(x, ws_bf16, deg, skip):
+    """K8's function as PyTorch calls: the freq encoding (torch.sin,
+    torch.cos), then a chain of bf16 F.linear (cuBLAS) with the ReLUs, the
+    last output cast to fp32.  Timed beside K8 for information (no one
+    PyTorch call computes it); the port does not call it."""
+    h = fused_mlp._freq(x, deg).to(torch.bfloat16)
+    h_in = h
+    for l, w in enumerate(ws_bf16):
+        if l == skip:
+            h = torch.cat([h, h_in], dim=-1)
+        h = F.linear(h, w)
+        if l != len(ws_bf16) - 1:
+            h = torch.relu(h)
+    return h.float()
+
+
+def check_mlp_kernel(field, trunk):
+    """Phase 3, K8 at the composable route's shapes of a 6256-ray stage-3
+    batch: the proposal MLPs at 128 and 64 samples a ray and the cp_rank-0
+    trunk (`trunk`) at 32; against its twin, its autograd grads against
+    autograd through the twin, timed beside the twin and a composite.  The
+    headline numbers are the sums over the two proposal shapes (a step's
+    K8 work at CP rank 64)."""
+    dev = field.cp_x.device
+    k8 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "composite_ms": 0.0,
+          "max_abs_err": 0.0, "per_shape": {}}
+    for name, T, mlp in (("proposal", 128, field.prop_mlp_0),
+                         ("proposal", 64, field.prop_mlp_1),
+                         ("trunk", 32, trunk)):
+        ws, deg, skip = mlp.weights, mlp.freq_degree, mlp.skip_layer
+        x = path_points(dev, T, field.grid_bound)
+        B = x.shape[0]
+        with torch.inference_mode():
+            got = fused_freq_mlp(x, ws, deg, skip)
+            want = fused_mlp._reference_forward(x, ws, deg, skip)
+            wb = [w.to(torch.bfloat16) for w in ws]
+            comp = composite_mlp(x, wb, deg, skip)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), f"K8 {name} output not finite"
+            rel = rel_max(got, want)
+            err = (got - want).abs().max().item()
+            assert rel < 2e-2, f"K8 {name} at {B} points rel-max error {rel}"
+            comp_rel = rel_max(comp, want)
+            ms = cuda_ms(lambda: fused_freq_mlp(x, ws, deg, skip))
+            plain = cuda_ms(lambda: fused_mlp._reference_forward(x, ws, deg,
+                                                                skip))
+            cms = cuda_ms(lambda: composite_mlp(x, wb, deg, skip))
+        cot = torch.randn(got.shape, generator=torch.Generator(dev)
+                          .manual_seed(T), device=dev)
+        grads = []
+        for fn in (fused_freq_mlp, fused_mlp._reference_forward):
+            leaves = [t.detach().clone().requires_grad_() for t in [x] + ws]
+            y = fn(leaves[0], leaves[1:], deg, skip)
+            grads.append(torch.autograd.grad(y, leaves, cot))
+        torch.cuda.synchronize()
+        g_rels = [rel_max(a, b_) for a, b_ in zip(*grads)]
+        assert max(g_rels) < 2e-2, f"K8 {name} grads rel-max {g_rels}"
+        macs = mlp_macs(ws)
+        bms, by = bound(nbytes(x, *ws, got), 2 * B * macs, 2 * B * 3 * deg)
+        print(f"[kernel] K8 fused_freq_mlp {name} ({len(ws)} layers, skip "
+              f"{skip}, {macs} MAC a point) at {B} points: rel-max err "
+              f"{rel:.3e} (< 2e-2), grads of x and the weights rel-max "
+              f"{max(g_rels):.3e} (< 2e-2); {ms:.4f} ms, plain twin "
+              f"{plain:.4f} ms, sin/cos + bf16 F.linear composite {cms:.4f} "
+              f"ms (rel-max {comp_rel:.1e}), bound {bms:.4f} ms ({by})",
+              flush=True)
+        k8["per_shape"][f"{name}_N{B}"] = {
+            "ms": ms, "plain_ms": plain, "composite_ms": cms,
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            "rel_max_err": rel, "grad_rel_max": max(g_rels),
+            "mac_per_point": macs}
+        k8["max_abs_err"] = max(k8["max_abs_err"], err)
+        if name == "proposal":
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("bound_ms", bms), ("composite_ms", cms)):
+                k8[key] += v
+            k8["bound_by"] = by
+    return k8
+
+
 def main_path(work):
     """Phase 4: the CLI --test path at flagship width, seeded init."""
     scene = os.path.join(work, "scene")
@@ -520,6 +710,7 @@ def main_path(work):
     assert launches["K3"] == chunks, launches
     assert launches["K1"] == launches["K2"] == launches["K4"] == 0, launches
     assert launches["K10"] == 0, launches  # no composable level
+    assert launches["K7"] == launches["K8"] == 0, launches
     for stem in ("v00", "v16"):
         img = read_png(os.path.join(ws_dir, "results", f"{stem}_rgb.png"))
         depth = np.load(os.path.join(ws_dir, "results", f"{stem}_depth.npy"))
@@ -552,8 +743,13 @@ def main_path(work):
     s = RenderSettings()
     with torch.inference_mode():
         a = render_rays(trainer.model, ro, rd, s)
+        reset_counts()
         b = render_rays(trainer.model, ro, rd,
                         RenderSettings(level_kernels=False))
+        composable = read_counts()
+    print(f"[main] composable route launches: K8 {composable['K8']}, K10 "
+          f"{composable['K10']}", flush=True)
+    assert composable["K8"] == 2 and composable["K10"] == 2, composable
     for k in ("image", "depth", "weights_sum"):
         assert torch.isfinite(a[k]).all(), k
         err = (a[k] - b[k]).abs().max().item()
@@ -588,6 +784,7 @@ def train_path(work):
     assert launches["K5"] > 0 and launches["K5"] % 2 == 0, launches
     assert launches["K3"] == n + launches["K5"] // 2, launches
     assert launches["K10"] == 0, launches
+    assert launches["K7"] == launches["K8"] == 0, launches
     losses = trainer.stats["loss"]
     assert losses and all(np.isfinite(losses)), losses
     ckpts = sorted(os.listdir(os.path.join(ws_dir, "checkpoints")))
@@ -644,12 +841,17 @@ def grad_parity(trainer, scene):
     batch = sample_rgb_batch(gen, *train_tensors(scene, trainer.device),
                              BATCH, random_image_batch=True)
     params = [p for _, p in model.named_parameters()]
-    grads = {}
+    grads, k8 = {}, {}
     for route in (True, False):
         loss_fn = make_rgb_train_step(model, cfg, perturb=False,
                                       level_kernels=route).loss_fn
+        reset_counts()
         loss, _ = loss_fn(batch, 2000, True)
         grads[route] = torch.autograd.grad(loss, params)
+        k8[route] = fused_freq_mlp.launches
+    print(f"[parity] K8 launches: kernel route {k8[True]}, composable route "
+          f"{k8[False]}", flush=True)
+    assert k8 == {True: 0, False: 2}, k8
     per_leaf = {}
     for (name, _), a, b_ in zip(model.named_parameters(), grads[True],
                                 grads[False]):
@@ -817,7 +1019,7 @@ def stage3_path(work, init_ws):
     per_pass = MASK_STEPS + em_chunks + val_chunks
     assert launches["K6"] == per_pass, (launches, per_pass)
     assert launches["K5"] == 2 * per_pass, (launches, per_pass)
-    for k in ("K1", "K2", "K3", "K4", "K10"):
+    for k in ("K1", "K2", "K3", "K4", "K7", "K8", "K10"):
         assert launches[k] == 0, launches
     state = model.state_dict()
     for name, p in init.items():
@@ -938,10 +1140,12 @@ def stage3_path(work, init_ws):
 
     # frozen route against the composable route on this batch
     gt = batch["gt_masks"][:cfg.num_rays]
-    res_r = {}
+    res_r, k8 = {}, {}
     for route in (True, False):
+        reset_counts()
         o = render_rays(model, batch["rays_o"], batch["rays_d"],
                         dataclasses.replace(settings, level_kernels=route))
+        k8[route] = fused_freq_mlp.launches
         ce = torch.nn.functional.cross_entropy(
             o["instance_mask_logits"][:cfg.num_rays], gt)
         res_r[route] = (ce.item(), o["instance_mask_logits"].detach(),
@@ -955,6 +1159,9 @@ def stage3_path(work, init_ws):
           f" < 2e-2), logits max abs {d_logit:.2e} (< 3e-2), trainable "
           f"grads worst rel-max {g_rel:.2e} (< 6e-2)", flush=True)
     assert d_loss < 2e-2 and d_logit < 3e-2 and g_rel < 6e-2
+    print(f"[stage3] K8 launches: frozen route {k8[True]}, composable route "
+          f"{k8[False]}", flush=True)
+    assert k8 == {True: 0, False: 2}, k8
 
     reset_counts()
     tested = cli.main([scene, "--test", "--with_mask", "--mask_root",
@@ -1105,7 +1312,7 @@ def hashgrid_train_path(work):
           f"{dt:.2f} s; launches " + ", ".join(
               f"{k} {v}" for k, v in launches.items()), flush=True)
     assert views > 0 and eval_k10 == 2 * per_view * views, launches
-    for k in LEVEL_KERNELS:
+    for k in LEVEL_KERNELS + ("K8",):
         assert launches[k] == 0, launches
     losses = trainer.stats["loss"]
     assert losses and all(np.isfinite(losses)), losses
@@ -1153,7 +1360,7 @@ def hashgrid_train_path(work):
     assert tested.resumed and tested.state.step == n, tested.state.step
     assert isinstance(tested.model, SANeRFField)
     assert test_launches["K10"] == 2 * 2 * per_view, test_launches
-    for k in LEVEL_KERNELS:
+    for k in LEVEL_KERNELS + ("K8",):
         assert test_launches[k] == 0, test_launches
     for stem in ("v00", "v16"):
         img = read_png(os.path.join(ws_dir, "results", f"{stem}_rgb.png"))
@@ -1385,7 +1592,7 @@ def packed_path(work):
     losses = trainer.stats["loss"]
     assert losses and all(np.isfinite(losses)), losses
     assert launches["K10"] > 2 * PACKED_STEPS, launches
-    for k in LEVEL_KERNELS:
+    for k in LEVEL_KERNELS + ("K8",):
         assert launches[k] == 0, launches
     mb = model.grid.numel() * 4 / 2 ** 20
     print(f"[packed] CLI --field_type hashgrid_packed: {PACKED_STEPS} steps "
@@ -1393,6 +1600,248 @@ def packed_path(work):
           f"table {tuple(model.grid.shape)} ({mb:.1f} MiB); losses {losses}; "
           f"launches K10 {launches['K10']}", flush=True)
     return {"seconds": dt, "losses": losses, "launches": launches}
+
+
+TRAINABLE_GROUPS = (("K8", ("fused_freq_mlp",)),
+                    ("K10", ("sample_pdf_lookup",)),
+                    ("matrix products", ("gemm", "cutlass")),
+                    ("Adam", ("adam", "multi_tensor")))
+
+
+def stage3_trainable_path(work):
+    """Phase 9: stage 3 through the CLI with the phase-7 flags and masks
+    but no --init_ckpt, so the backbone (from --seed) is trainable and the
+    mask step renders through the composable route; its step rate and
+    breakdown; then CP0_STEPS steps at cp_rank 0."""
+    scene = os.path.join(work, "scene")
+    masks_dir = os.path.join(work, "masks")  # written by phase 7
+    ws_dir = os.path.join(work, "obj_trainable_ws")
+    n_views = 17
+    argv = [scene, "--field_type", "mlp", "--data_type", "llff",
+            "--workspace", ws_dir, "--seed", "0", "--with_mask",
+            "--mask_root", masks_dir, "--num_rays", "6000",
+            "--iters", str(MASK_STEPS), "--ray_pair_rgb_loss_weight", "1",
+            "--ray_pair_rgb_threshold", "0.1", "--ray_pair_rgb_iter", "150",
+            "--ray_pair_rgb_num_sample", "8", "--local_sample_patch_size",
+            "8", "--num_local_sample", "4", "--mixed_sampling",
+            "--random_image_batch", "--error_map"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg, model = trainer.cfg, trainer.model
+    n_train = n_views - 2
+    n_rays = (cfg.num_rays
+              + cfg.num_local_sample * cfg.local_sample_patch_size ** 2)
+    rebuilds = [s_ for s_ in range(1, MASK_STEPS + 1)
+                if s_ % cfg.ray_pair_rgb_iter == 0]
+    val_chunks = 2 * -(-VIEW * VIEW // cfg.max_ray_batch)
+    em_chunks = len(rebuilds) * n_train * -(-cfg.error_map_size ** 2
+                                             // cfg.max_ray_batch)
+    print(f"[trainable] CLI --with_mask, no --init_ckpt (cp_rank "
+          f"{model.cp_rank}): {trainer.state.step} steps of {n_rays} rays, "
+          f"error-map rebuilds at {rebuilds}, mIoU eval in {dt:.2f} s; peak "
+          f"device memory {peak:.3f} GiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    assert trainer.state.step == MASK_STEPS and not trainer.backbone_frozen
+    per_pass = em_chunks + val_chunks
+    assert launches["K8"] == 2 * MASK_STEPS, launches
+    assert launches["K10"] == 2 * MASK_STEPS, launches
+    assert launches["K6"] == per_pass, (launches, per_pass)
+    assert launches["K5"] == 2 * per_pass, (launches, per_pass)
+    for k in ("K1", "K2", "K3", "K4", "K7"):
+        assert launches[k] == 0, launches
+    # no loss term reaches the backbone (weights, features and image are
+    # read detached, as in JAX): only the mask branch moves from the seeded
+    # weights, which the EMA (never updated in stage 3) still holds
+    ema = dict(trainer.state.ema_model.named_parameters())
+    moved = sorted(n_ for n_, p in model.named_parameters()
+                   if not torch.equal(p, ema[n_]))
+    assert moved and all(n_.startswith(("cp_m_", "mask_mlp"))
+                         for n_ in moved), moved
+    with open(os.path.join(ws_dir, "log_ngp.txt")) as f:
+        log = f.read()
+    assert "init checkpoint" not in log
+    miou = float(log.split("[EVAL] MeanIoU = ")[-1].split()[0])
+    hist = trainer.stats["mask"]
+    assert all(np.isfinite(v["ce"]) and np.isfinite(v["loss"])
+               for _, v in hist), hist
+    (s_first, m_first), (s_last, m_last) = hist[0], hist[-1]
+    print(f"[trainable] backbone_frozen {trainer.backbone_frozen}; moved "
+          f"from the seeded weights: {len(moved)} mask-branch tensors, no "
+          f"backbone tensor; CE step "
+          f"{s_first} {m_first['ce']:.5f}, step {s_last} {m_last['ce']:.5f} "
+          f"(loss {m_last['loss']:.5f}, acc {m_last['acc']:.4f}); [EVAL] "
+          f"MeanIoU {miou:.6f}", flush=True)
+
+    dev = trainer.device
+    res = cfg.online_resolution
+    s_full = load_scene(scene, "llff")
+    idx = split_indices(n_views, "train")
+    masks_t = torch.as_tensor(
+        np.stack([np.load(os.path.join(masks_dir, f"v{i:02d}_obj_mask.npy"))[0]
+                  for i in idx]), dtype=torch.long, device=dev)
+    poses_t = torch.as_tensor(s_full.poses[idx], device=dev)
+    intr_t = torch.as_tensor(fixed_fovy_intrinsics(res, 60.0), device=dev)
+    S = cfg.error_map_size
+    gen = torch.Generator(dev).manual_seed(6)
+    em = torch.rand((len(idx), S * S), device=dev) + 0.05
+
+    def draw():
+        return sample_mask_batch(gen, masks_t, poses_t, intr_t, em,
+                                 cfg.num_rays, cfg.num_local_sample,
+                                 cfg.local_sample_patch_size, res, res, S)
+
+    mask_step = make_mask_train_step(model, cfg, frozen_backbone=False)
+
+    def step():
+        return mask_step(trainer.state, draw(), gen, em)[0]
+
+    sps = steps_per_s(step)
+    print(f"[trainable] {sps:.3f} steps/s at {n_rays} rays a step "
+          f"({1e3 / sps:.2f} ms a step, mean of 20 after 3 warm-up) on "
+          f"{device_line()}", flush=True)
+    parts = trainable_step_parts(trainer, draw, gen, em)
+    print("[trainable] parts of a step, each timed alone (CUDA events, ms; "
+          "alone each also waits on its own launches): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in parts.items())
+          + f"; whole step {1e3 / sps:.4f} ({device_line()})", flush=True)
+    profile = profile_steps(step, TRAINABLE_GROUPS)
+
+    # cp_rank 0: the trunk has no CP features and runs K8 too
+    ws0 = os.path.join(work, "obj_trainable_cp0_ws")
+    argv0 = [a if a != ws_dir else ws0 for a in argv]
+    argv0[argv0.index("--iters") + 1] = str(CP0_STEPS)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer0 = cli.main(argv0 + ["--cp_rank", "0"])
+    torch.cuda.synchronize()
+    dt0 = time.perf_counter() - t0
+    launches0 = read_counts()
+    assert trainer0.model.cp_rank == 0 and not trainer0.backbone_frozen
+    assert trainer0.state.step == CP0_STEPS
+    assert launches0["K8"] == 3 * CP0_STEPS, launches0
+    assert launches0["K10"] == 2 * CP0_STEPS, launches0
+    assert launches0["K6"] == val_chunks, launches0
+    for k in ("K1", "K2", "K3", "K4", "K7"):
+        assert launches0[k] == 0, launches0
+    hist0 = trainer0.stats["mask"]
+    assert all(np.isfinite(v["ce"]) for _, v in hist0), hist0
+    step0 = make_mask_train_step(trainer0.model, trainer0.cfg,
+                                 frozen_backbone=False)
+    sps0 = steps_per_s(lambda: step0(trainer0.state, draw(), gen, em)[0])
+    print(f"[trainable] cp_rank 0: {CP0_STEPS} CLI steps and the eval in "
+          f"{dt0:.2f} s, launches " + ", ".join(
+              f"{k} {v}" for k, v in launches0.items())
+          + f"; CE step {hist0[0][0]} {hist0[0][1]['ce']:.5f}, step "
+          f"{hist0[-1][0]} {hist0[-1][1]['ce']:.5f}; {sps0:.3f} steps/s on "
+          f"{device_line()}", flush=True)
+    return launches, {"steps_per_s": sps, "rays_per_step": n_rays,
+                      "peak_memory_gib": peak, "miou": miou,
+                      "ce_first": m_first["ce"], "ce_last": m_last["ce"],
+                      "parts_alone_ms": parts, "profile": profile,
+                      "cp0": {"launches": launches0, "steps_per_s": sps0,
+                              "ce_first": hist0[0][1]["ce"],
+                              "ce_last": hist0[-1][1]["ce"]}}
+
+
+def steps_per_s(step, reps=20):
+    """Host clock around `reps` synchronised steps after 3 warm-up steps."""
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        m = step()
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss"]))
+    return reps / (time.perf_counter() - t0)
+
+
+def trainable_step_parts(trainer, draw, gen, em):
+    """CUDA-event times of a trainable-backbone mask step's parts, each
+    alone on one batch's own inputs: the sampler, K8 at both proposal
+    levels, K10 at both levels, the plain CP trunk forward (forward_color,
+    with its autograd graph, as the step builds it), compositing and the
+    view MLP forward, the mask branch forward and backward, the losses
+    forward and backward, and Adam."""
+    model, cfg = trainer.model, trainer.cfg
+    batch = draw()
+    settings = RenderSettings(
+        num_steps=tuple(cfg.num_steps), use_contract=cfg.contract,
+        min_near=cfg.min_near, background=cfg.background, bound=cfg.bound,
+        training=True, return_mask=True, frozen_backbone=False)
+    mlp_calls, lookups = [], []
+
+    def spy_mlp(x, *a, **k):
+        mlp_calls.append((x.detach(), a, k))
+        return fused_freq_mlp(x, *a, **k)
+
+    def spy_lookup(*a):
+        lookups.append(a)
+        return sample_pdf_lookup(*a)
+
+    mlp_field.fused_freq_mlp, ray_ops.sample_pdf_lookup = spy_mlp, spy_lookup
+    try:
+        out, calls = capture_render(model, settings, batch,
+                                    ("forward_color", "mask_features"))
+    finally:
+        mlp_field.fused_freq_mlp = fused_freq_mlp
+        ray_ops.sample_pdf_lookup = sample_pdf_lookup
+    assert len(mlp_calls) == 2 and len(lookups) == 2, (len(mlp_calls),
+                                                       len(lookups))
+    parts = {"sampler": cuda_ms(draw)}
+    with torch.no_grad():
+        parts["K8, both proposal levels"] = cuda_ms(
+            lambda: [fused_freq_mlp(x, *a, **k) for x, a, k in mlp_calls])
+        parts["K10, both levels (device time, CUDA graph)"] = graph_ms(
+            lambda: [sample_pdf_lookup(*a) for a in lookups])
+    (xyz, dirs), _, fc = calls["forward_color"][0]
+    xyz, dirs = xyz.detach(), dirs.detach()
+    parts["plain CP trunk forward (forward_color)"] = cuda_ms(
+        lambda: model.forward_color(xyz, dirs))
+    N, T = xyz.shape[:2]
+    g = torch.Generator(xyz.device).manual_seed(8)
+    bins = torch.sort(torch.rand(N, T + 1, generator=g, device=xyz.device),
+                      -1).values
+    sigma, geo, colors = fc[0].detach(), fc[1].detach(), fc[2].detach()
+
+    def composite():
+        w, _ = compute_weights(bins[:, 1:] - bins[:, :-1], sigma)
+        f = (w[..., None] * colors).sum(-2)
+        return torch.sigmoid(model.apply_view_mlp(f)), w
+
+    parts["compositing and view MLP forward"] = cuda_ms(composite)
+    w = composite()[1].detach()
+    trainable = [p for n_, p in model.named_parameters()
+                 if n_.startswith(("cp_m_", "mask_mlp"))]
+    xm = calls["mask_features"][0][0][0].detach()
+
+    def branch():
+        m_in = torch.cat([model.mask_features(xm), geo], dim=-1)
+        logits = (w[..., None] * model.apply_mask_mlp(m_in)).sum(dim=-2)
+        torch.autograd.grad(logits.square().sum(), trainable)
+
+    parts["mask branch fwd+bwd"] = cuda_ms(branch)
+    logits = out["instance_mask_logits"].detach().requires_grad_()
+    loss_in = dict(out, instance_mask_logits=logits)
+
+    def losses():
+        loss, _, _ = mask_losses(loss_in, batch, MASK_STEPS, em, cfg, gen)
+        torch.autograd.grad(loss, logits)
+
+    parts["losses fwd+bwd"] = cuda_ms(losses)
+    step = make_mask_train_step(model, cfg, frozen_backbone=False)
+    step.loss_fn(batch, trainer.state.step, em, gen)[0].backward()
+    # repeated updates move the weights: timing only, after the step rate
+    parts["Adam (the mask branch has grads)"] = cuda_ms(
+        trainer.state.optimizer.step)
+    trainer.state.optimizer.zero_grad(set_to_none=True)
+    return parts
 
 
 def main():
@@ -1424,6 +1873,9 @@ def main():
         kernels.update(check_train_kernels(field))
         kernels["K10"] = check_sample_pdf_kernel(torch.device("cuda"))
     kernels["K3"]["train_shape_ms"] = kernels.pop("K3_train_ms")
+    kernels["K7"] = check_prop_weights_kernel(field)
+    trunk0 = make_field("mlp", device="cuda", seed=0, cp_rank=0).trunk
+    kernels["K8"] = check_mlp_kernel(field, trunk0)
     launches, mrays = main_path(work)
     trainer, train_launches, sps = train_path(work)
     parity = grad_parity(trainer, os.path.join(work, "scene"))
@@ -1431,6 +1883,7 @@ def main():
     hg_trainer, hg_launches, hg = hashgrid_train_path(work)
     hg["card_vs_cpu"] = card_vs_cpu(hg_trainer, os.path.join(work, "scene"))
     hg["packed"] = packed_path(work)
+    tr_launches, trainable = stage3_trainable_path(work)
 
     # K5, K1, K2 and K10 numbers are the sums over both levels (per_shape
     # has each); K5 and K3 launches are the inference path's, K1, K2 and
@@ -1451,12 +1904,31 @@ def main():
                    "source": SOURCE_PDF, "replaces": f"{TPU_FILE_PDF}:69",
                    "launches": hg_launches["K10"], "library_ms": None,
                    **kernels["K10"]})
+    # K7: no route of the renderer calls it (as in JAX), so its count on
+    # the phase-9 path is 0; K8's launches are phase 9's (2 a step), its
+    # headline numbers the sums over both proposal shapes, the trunk's in
+    # per_shape; K9 is the same CUDA kernel as K8
+    report.append({"name": "fused_prop_level", "route": "cuda",
+                   "source": SOURCE, "replaces": f"{TPU_FILE}:220",
+                   "launches": tr_launches["K7"], "library_ms": None,
+                   **kernels["K7"]})
+    report.append({"name": "fused_freq_mlp", "route": "cuda",
+                   "source": SOURCE_MLP, "replaces": f"{TPU_FILE_MLP}:251",
+                   "launches": tr_launches["K8"], "library_ms": None,
+                   **kernels["K8"]})
+    report.append({"name": "fused_freq_mlp (K9, row-major: the K8 kernel)",
+                   "route": "cuda", "source": SOURCE_MLP,
+                   "replaces": f"{TPU_FILE_MLP}:145",
+                   "launches": tr_launches["K8"], "library_ms": None,
+                   **{k: v for k, v in kernels["K8"].items()
+                      if k != "per_shape"}})
     print(json.dumps({"kernels": report, "render_mrays_per_s": mrays,
                       "train_steps_per_s": sps,
                       "train_launches": train_launches,
                       "grad_parity_worst_rel_l2": max(parity.values()),
                       "stage3_launches": s3_launches, "stage3": s3,
-                      "hashgrid": hg}))
+                      "hashgrid": hg, "stage3_trainable_launches":
+                      tr_launches, "stage3_trainable": trainable}))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,13 @@ evaluates PSNR and SSIM into `<workspace>/validation/`; with `--test` it
 renders the held-out views into `<workspace>/results/{stem}_rgb.png` and
 `{stem}_depth.npy`.
 
-Stage 3 (MLP field only): `--with_mask --mask_root <masks> --init_ckpt
-<stage-1 workspace>` trains the object field over the frozen stage-1 backbone, then evaluates
-mean IoU on the held-out views; `--test --with_mask` resumes it and writes
+Stage 3 (MLP field only): `--with_mask --mask_root <masks>` trains the
+object field, then evaluates mean IoU on the held-out views.  With
+`--init_ckpt <stage-1 workspace>` the backbone is loaded from it and
+frozen, and the mask step renders it through the level kernels (K5, K6);
+without it the backbone is trainable (initialised from `--seed`) and the
+step renders through the composable route (K8, K10), as in JAX.  `--test
+--with_mask` resumes it and writes
 `results/{stem}_mask.npy` and `{stem}_mask_vis.png`.  The mask directory
 holds the decode output: `{stem}_obj_mask.npy` ([1, H, W] uint8 labels)
 and `valid_dict.json`.

@@ -1,6 +1,6 @@
 // Render-level kernels for NVIDIA Hopper (sm_90a): the proposal level with
-// in-kernel inverse-CDF resampling (K5, and K1 with its weights output) and
-// the final level with in-kernel CP line features (K3, and K6 with its
+// in-kernel inverse-CDF resampling (K5, K1 with its weights output, and K7
+// with the weights alone) and the final level with in-kernel CP line features (K3, and K6 with its
 // per-sample trunk features output).  Bound to Python
 // through ctypes (sanerf_hq_tpu_torch/ops/render_level.py); plain C
 // interface, no PyTorch headers.  Shared device code:
@@ -12,6 +12,10 @@
 //   K1  _make_prop_sample_kernel(weights_out=True)   (:258), reached through
 //       prop_level_train_sample (:449) -> _prop_level_sample_train_impl
 //       (:391); the same kernel as K5 with the raw weights stored
+//   K7  _make_prop_kernel                            (:169), reached through
+//       fused_prop_level (:201, pallas_call :220) and prop_level_train
+//       (:1083); the same kernel with the raw weights stored and Q = 0: no
+//       resampling epilogue and no shared memory for it
 //   K3  _make_final_train_kernel                     (:695), reached through
 //       fused_final_level (:64) -> _final_train_fwd_impl (:968)
 //   K6  _make_final_train_kernel(geo_out=True)       (:695), reached through
@@ -31,7 +35,7 @@
 //      bf16, the last layer kept fp32;
 //   4. one thread per ray for the sequential transmittance loop, carried in
 //      registers across passes;
-//   5. (K5) per-ray cdf, prefix-max / suffix-min of the s-bins in shared
+//   5. (K5, K1) per-ray cdf, prefix-max / suffix-min of the s-bins in shared
 //      memory, then one thread per (ray, query) binary search.  K1 also
 //      stores each raw weight (1-e)*trans; the cdf adds the 0.01 floor to
 //      it with __fadd_rn, so K1's bins are K5's bit for bit.
@@ -144,14 +148,15 @@ final_level_kernel(FinalParams p) {
 struct PropParams {
   const float *rays_o, *rays_d, *bins, *s_bins, *u;
   const bf16 *w0, *w1, *w2;
-  float *out, *weights;  // weights [N, T] raw (K1) or null (K5)
+  float *out, *weights;  // weights [N, T] raw (K1, K7) or null (K5)
   int n_rays, T, Q, deg, hidden, kin, rays_per_cta, opaque_last;
   float grid_bound, db;
 };
 
-// K5.  Shared memory: X [P, max(KIN,H)+8], Y [P, H+8], F [P, 16] fp32,
-// scratch, per-point geometry, then per ray: floored weights [T], cdf
-// [T+1], prefix-max and suffix-min of the s-bins [T+1] each, total.
+// K5, K1 and K7 (Q = 0: s_bins, u and out unused).  Shared memory: X [P,
+// max(KIN,H)+8], Y [P, H+8], F [P, 16] fp32, scratch, per-point geometry,
+// then, with Q > 0, per ray: floored weights [T], cdf [T+1], prefix-max and
+// suffix-min of the s-bins [T+1] each, total.
 __global__ void __launch_bounds__(NTHREADS)
 prop_level_sample_kernel(PropParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -197,13 +202,14 @@ prop_level_sample_kernel(PropParams p) {
         const float wr = (1.0f - e) * trans;
         if (p.weights) p.weights[(size_t)(ray0 + tid) * T + s] = wr;
         const float w = __fadd_rn(wr, 0.01f);
-        wb[tid * T + s] = w;
+        if (Q > 0) wb[tid * T + s] = w;
         total += w;
         trans *= e;
       }
     }
     __syncthreads();
   }
+  if (Q == 0) return;  // K7: the weights are all it writes
   // per-ray cdf on the unnormalised running sum, and the s-bin prefix-max /
   // suffix-min the masked lookup reduces to
   if (tid < R && ray0 + tid < p.n_rays) {
@@ -251,11 +257,11 @@ size_t final_smem(int H, int KIN) {
          (size_t)(P * OUT + NWARPS * 256 + P * 5) * 4;
 }
 
-size_t prop_smem(int H, int KIN, int T, int R) {
+size_t prop_smem(int H, int KIN, int T, int Q, int R) {
   const int wx = KIN > H ? KIN : H;
   return (size_t)P * (wx + 8) * 2 + (size_t)P * (H + 8) * 2 +
          (size_t)(P * OUT + NWARPS * 256 + P * 5) * 4 +
-         (size_t)(R * T + 3 * R * (T + 1) + R) * 4;
+         (Q > 0 ? (size_t)(R * T + 3 * R * (T + 1) + R) * 4 : 0);
 }
 
 }  // namespace
@@ -296,7 +302,8 @@ int sanerf_final_level(const float* rays_o, const float* rays_d,
 
 // Weights are bf16 [out, in] padded: w0 [H, KIN], w1 [H, H], w2 [16, H]
 // (row 0 the density head); KIN = 3 + 6*deg rounded up to 16.
-// weights: [N, T] raw weights (K1) or null (K5).
+// weights: [N, T] raw weights (K1, K7) or null (K5).  Q = 0 is K7: no
+// resampling, s_bins, u and out unused (null).
 int sanerf_prop_level_sample(const float* rays_o, const float* rays_d,
                              const float* real_bins, const float* s_bins,
                              const float* u, const void* w0, const void* w1,
@@ -318,7 +325,7 @@ int sanerf_prop_level_sample(const float* rays_o, const float* rays_d,
   if (n_rays == 0) return 0;
   const int grid = (n_rays + p.rays_per_cta - 1) / p.rays_per_cta;
   return launch_checked((const void*)prop_level_sample_kernel, grid,
-                        prop_smem(hidden, kin, T, p.rays_per_cta),
+                        prop_smem(hidden, kin, T, Q, p.rays_per_cta),
                         (cudaStream_t)stream, &p);
 }
 

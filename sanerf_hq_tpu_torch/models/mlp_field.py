@@ -8,8 +8,12 @@ and `fused_final_render` (K3) for inference, through
 `fused_prop_weights_train_sample` (K1, backward K2) and
 `fused_final_render_train` (K3, backward K4) for training, and through
 `fused_prop_next_bins(frozen=True)` (K5) and `fused_final_render_frozen`
-(K6) for the mask branch over a frozen backbone; `density` /
-`forward_color` are the composable route.
+(K6) for the mask branch over a frozen backbone.  `density` /
+`forward_color` are the composable route: the proposal MLPs and, without
+CP features, the trunk run K8 (`FreqMLP`, ops/fused_mlp.py); the trunk
+with CP features stays plain, as in JAX.  `fused_prop_weights` (K7) and
+`fused_prop_weights_train` (K7, backward K2) return a proposal level's
+weights; no route of the renderer calls them, as in JAX.
 
 The mask branch (`with_mask`): a rank-`feat_rank` CP feature volume
 `cp_m_{x,y,z}` [feat_res, feat_rank] with a projection `cp_m_proj`
@@ -26,11 +30,11 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.fused_mlp import _reference_forward, _reference_forward_with_extra
+from ..ops.fused_mlp import _reference_forward_with_extra, fused_freq_mlp
 from ..ops.render_level import (cp_features, final_level_train,
                                 fused_final_level, fused_final_level_frozen,
-                                fused_prop_level_sample,
-                                prop_level_train_sample)
+                                fused_prop_level, fused_prop_level_sample,
+                                prop_level_train, prop_level_train_sample)
 from ..ops.sh import sh_encode
 from ..ops.trunc_exp import safe_trunc_exp
 from .fields import SANeRFField
@@ -42,9 +46,11 @@ SH_DIM = SH_DEGREE * SH_DEGREE
 
 
 class FreqMLP(nn.Module):
-    """Frequency-encode -> bias-free trunk (bf16 compute emulated, fp32
-    parameters and outputs).  Weights w0..w{L-1} are [out, in]; layer 0
-    reads [freq(x) | extra]; the skip layer reads [act | layer-0 input]."""
+    """Frequency-encode -> bias-free trunk (bf16 compute, fp32 parameters
+    and outputs).  Weights w0..w{L-1} are [out, in]; layer 0 reads
+    [freq(x) | extra]; the skip layer reads [act | layer-0 input].  Without
+    extra features it is K8 (`fused_freq_mlp`); with them the plain
+    version, as the JAX FreqMLP takes its reference there."""
 
     def __init__(self, dim_out: int, dim_hidden: int = 256,
                  num_layers: int = 4, freq_degree: int = 10,
@@ -73,8 +79,8 @@ class FreqMLP(nn.Module):
         if extra is not None:
             return _reference_forward_with_extra(
                 x, extra, self.weights, self.freq_degree, self.skip_layer)
-        return _reference_forward(x, self.weights, self.freq_degree,
-                                  self.skip_layer)
+        return fused_freq_mlp(x, self.weights, self.freq_degree,
+                              self.skip_layer)
 
 
 class MLPField(nn.Module):
@@ -206,14 +212,35 @@ class MLPField(nn.Module):
     # level kernels (ops/render_level.py)
     supports_fused_final = True
 
+    def _prop_weights(self, proposal: int):
+        return (self.prop_mlp_0 if proposal == 0 else self.prop_mlp_1).weights
+
+    def fused_prop_weights(self, rays_o, rays_d, real_bins, proposal: int,
+                           opaque_last: bool = True):
+        """A proposal level's per-sample weights [N, T] in one kernel (K7),
+        no resampling."""
+        return fused_prop_level(
+            rays_o, rays_d, real_bins, self._prop_weights(proposal),
+            self.prop_freq_degree, self.grid_bound, opaque_last=opaque_last,
+            density_bias=self.density_bias)
+
+    def fused_prop_weights_train(self, rays_o, rays_d, real_bins,
+                                 proposal: int, opaque_last: bool = True):
+        """Differentiable fused_prop_weights: forward K7, backward K2."""
+        return prop_level_train(
+            rays_o, rays_d, real_bins, self._prop_weights(proposal),
+            self.prop_freq_degree, self.grid_bound, opaque_last=opaque_last,
+            density_bias=self.density_bias)
+
     def fused_prop_next_bins(self, rays_o, rays_d, real_bins, s_bins, u,
                              proposal: int, opaque_last: bool = True,
                              frozen: bool = False):
         """Proposal level + inverse-CDF resampling in one kernel: the NEXT
         level's s-space bin edges [N, Q].  frozen detaches the weights (the
         frozen-backbone route, where no gradient may reach them)."""
-        mlp = self.prop_mlp_0 if proposal == 0 else self.prop_mlp_1
-        ws = [w.detach() for w in mlp.weights] if frozen else mlp.weights
+        ws = self._prop_weights(proposal)
+        if frozen:
+            ws = [w.detach() for w in ws]
         return fused_prop_level_sample(
             rays_o, rays_d, real_bins, s_bins, u, ws,
             self.prop_freq_degree, self.grid_bound, opaque_last=opaque_last,
@@ -256,9 +283,9 @@ class MLPField(nn.Module):
         """Training twin of fused_prop_next_bins: (weights [N, T] for the
         interlevel loss, next s-space edges [N, Q], non-differentiable);
         grads reach the proposal weights through K2."""
-        mlp = self.prop_mlp_0 if proposal == 0 else self.prop_mlp_1
         return prop_level_train_sample(
-            rays_o, rays_d, real_bins, s_bins, u, mlp.weights,
+            rays_o, rays_d, real_bins, s_bins, u,
+            self._prop_weights(proposal),
             self.prop_freq_degree, self.grid_bound, opaque_last=opaque_last,
             density_bias=self.density_bias)
 

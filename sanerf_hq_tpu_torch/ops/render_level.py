@@ -2,7 +2,9 @@
 PyTorch twin beside its wrapper:
   K5 `fused_prop_level_sample`: proposal level + inverse-CDF resampling
      (inference); K1 `fused_prop_level_sample_train`: the same kernel that
-     also writes the raw weights (csrc/render_level.cu);
+     also writes the raw weights; K7 `fused_prop_level`: the same kernel
+     writing the raw weights alone, with no resampling
+     (csrc/render_level.cu);
   K3 `fused_final_level`: final level with CP line features, the inference
      and the training forward (csrc/render_level.cu);
   K6 `fused_final_level_frozen`: K3 with no gradient that can also write
@@ -11,8 +13,9 @@ PyTorch twin beside its wrapper:
   K2 `fused_prop_level_bwd`, K4 `fused_final_level_bwd`: their weight grads
      (csrc/render_level_bwd.cu).
 The training entry points are the autograd Functions `prop_level_train_sample`
-(forward K1, backward K2) and `final_level_train` (forward K3, backward K4);
-gradients flow only to the MLP weights and CP bases.
+(forward K1, backward K2), `prop_level_train` (forward K7, backward K2) and
+`final_level_train` (forward K3, backward K4); gradients flow only to the
+MLP weights and CP bases.
 
 The wrappers keep the JAX names.  A CPU tensor goes to the plain twin, and
 only a CPU tensor; a CUDA tensor launches the kernel or raises.  Each
@@ -92,28 +95,42 @@ def _trunk_input(xn, freq_degree: int, cps=(), cp_res: int = 0):
 
 
 # ---------------------------------------------------------------------------
-# K5 and K1: proposal level + inverse-CDF resampling (K1 adds the weights)
+# K5, K1 and K7: proposal level, with inverse-CDF resampling (K5), with the
+# weights too (K1), or the weights alone (K7)
 # ---------------------------------------------------------------------------
+
+def prop_level_ref(rays_o, rays_d, real_bins, ws: Sequence, freq_degree: int,
+                   grid_bound: float, opaque_last: bool = True,
+                   density_bias: float = 0.0):
+    """Plain twin of K7: the proposal level's raw per-sample weights
+    [N, T] (no 0.01 floor)."""
+    T = real_bins.shape[1] - 1
+    _, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
+    raw = trunk_with_inputs(_trunk_input(xn, freq_degree)[0], ws, -1)[0][..., 0]
+    sigma = _density(raw, density_bias)
+    trans = torch.ones_like(sigma[:, 0])
+    w_raw = []
+    for s in range(T):
+        e = _segment_trans(delta, sigma, s, opaque_last)
+        w_raw.append((1.0 - e) * trans)
+        trans = trans * e
+    return torch.stack(w_raw, dim=1)
+
 
 def prop_level_train_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
                                 ws: Sequence, freq_degree: int,
                                 grid_bound: float, opaque_last: bool = True,
                                 density_bias: float = 0.0):
     """Plain twin of K1.  Returns (raw weights [N, T] without the 0.01
-    floor, next s-space edges [N, Q])."""
+    floor, next s-space edges [N, Q]): K7's twin, then the resampling."""
     T = real_bins.shape[1] - 1
-    _, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
-    raw = trunk_with_inputs(_trunk_input(xn, freq_degree)[0], ws, -1)[0][..., 0]
-    sigma = _density(raw, density_bias)
-    trans = torch.ones_like(sigma[:, 0])
-    total = torch.zeros_like(trans)
-    w_raw, w = [], []
+    w_raw = prop_level_ref(rays_o, rays_d, real_bins, ws, freq_degree,
+                           grid_bound, opaque_last, density_bias)
+    total = torch.zeros_like(w_raw[:, 0])
+    w = []
     for s in range(T):
-        e = _segment_trans(delta, sigma, s, opaque_last)
-        w_raw.append((1.0 - e) * trans)
-        w.append(w_raw[-1] + 0.01)
+        w.append(w_raw[:, s] + 0.01)
         total = total + w[-1]
-        trans = trans * e
     c = [torch.zeros_like(total)]
     for s in range(T):
         c.append(torch.minimum(c[-1] + w[s], total))
@@ -132,7 +149,7 @@ def prop_level_train_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
     denom = c_g1 - c_g0
     t = torch.where(denom > 0,
                     (ut - c_g0) / torch.where(denom > 0, denom, 1.0), 0.0)
-    return torch.stack(w_raw, dim=1), s_g0 + t.clamp(0.0, 1.0) * (s_g1 - s_g0)
+    return w_raw, s_g0 + t.clamp(0.0, 1.0) * (s_g1 - s_g0)
 
 
 def prop_level_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
@@ -219,25 +236,32 @@ def _prop_weights(ws, freq_degree: int, dev, what: str):
 def _launch_prop_sample(rays_o, rays_d, real_bins, s_bins, u, ws,
                         freq_degree, grid_bound, opaque_last, density_bias,
                         weights_out: bool, what: str):
-    """K5 (weights_out False) or K1 on CUDA tensors: (weights or None,
-    next s-edges)."""
+    """K5 (weights_out False), K1, or K7 (s_bins and u None) on CUDA
+    tensors: (weights or None, next s-edges or None)."""
     dev = _device(rays_o)
-    N, T, Q = rays_o.shape[0], real_bins.shape[1] - 1, u.shape[1]
-    if T < 1 or Q < 1:
+    resample = u is not None
+    N, T = rays_o.shape[0], real_bins.shape[1] - 1
+    Q = u.shape[1] if resample else 0
+    if T < 1 or (resample and Q < 1):
         raise ValueError(f"unsupported {what} shape: T {T}, Q {Q}")
-    for name, x, shape in (("rays_o", rays_o, (N, 3)),
-                           ("rays_d", rays_d, (N, 3)),
-                           ("real_bins", real_bins, (N, T + 1)),
-                           ("s_bins", s_bins, (N, T + 1)), ("u", u, (N, Q))):
+    checks = [("rays_o", rays_o, (N, 3)), ("rays_d", rays_d, (N, 3)),
+              ("real_bins", real_bins, (N, T + 1))]
+    if resample:
+        checks += [("s_bins", s_bins, (N, T + 1)), ("u", u, (N, Q))]
+    for name, x, shape in checks:
         _check(name, x, shape, dev)
     (w0, w1, w2), H, kin = _prop_weights(ws, freq_degree, dev, what)
-    out = torch.empty((N, Q), dtype=torch.float32, device=dev)
+    out = (torch.empty((N, Q), dtype=torch.float32, device=dev)
+           if resample else None)
     weights = (torch.empty((N, T), dtype=torch.float32, device=dev)
                if weights_out else None)
+    null = ctypes.c_void_p(0)
     lib, fn = _fn("render_level", "sanerf_prop_level_sample", 10, 6)
-    rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(s_bins),
-            _ptr(u), _ptr(w0), _ptr(w1), _ptr(w2), _ptr(out),
-            ctypes.c_void_p(0) if weights is None else _ptr(weights), N, T,
+    rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins),
+            _ptr(s_bins) if resample else null,
+            _ptr(u) if resample else null, _ptr(w0), _ptr(w1), _ptr(w2),
+            _ptr(out) if resample else null,
+            null if weights is None else _ptr(weights), N, T,
             Q, freq_degree, H, kin, grid_bound, int(opaque_last),
             density_bias, _stream(dev))
     cuda_lib.check(lib, rc, what)
@@ -290,6 +314,27 @@ def fused_prop_level_sample_train(rays_o, rays_d, real_bins, s_bins, u,
 
 
 fused_prop_level_sample_train.launches = 0
+
+
+def fused_prop_level(rays_o, rays_d, real_bins, ws: Sequence,
+                     freq_degree: int, grid_bound: float,
+                     opaque_last: bool = True, density_bias: float = 0.0):
+    """K7: the proposal level's raw per-sample weights [N, T] (no 0.01
+    floor) with no resampling; K5's kernel with Q = 0.  rays_o, rays_d
+    [N, 3]; real_bins [N, T+1]; ws the three bias-free proposal weights
+    [out, in] (last [1, hidden])."""
+    if rays_o.device.type == "cpu":
+        return prop_level_ref(rays_o, rays_d, real_bins, ws, freq_degree,
+                              grid_bound, opaque_last, density_bias)
+    weights, _ = _launch_prop_sample(rays_o, rays_d, real_bins, None, None,
+                                     ws, freq_degree, grid_bound,
+                                     opaque_last, density_bias, True,
+                                     "fused_prop_level")
+    fused_prop_level.launches += 1
+    return weights
+
+
+fused_prop_level.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -690,6 +735,32 @@ def prop_level_train_sample(rays_o, rays_d, real_bins, s_bins, u,
     reference detaches sample_pdf), never to rays, bins or u."""
     return _PropLevelTrainSample.apply(
         rays_o, rays_d, real_bins, s_bins, u,
+        (freq_degree, grid_bound, opaque_last, density_bias), *ws)
+
+
+class _PropLevelTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rays_o, rays_d, real_bins, static, *ws):
+        weights = fused_prop_level(rays_o, rays_d, real_bins, ws, *static)
+        ctx.save_for_backward(rays_o, rays_d, real_bins, *ws)
+        ctx.static = static
+        return weights
+
+    @staticmethod
+    def backward(ctx, g_w):
+        rays_o, rays_d, real_bins, *ws = ctx.saved_tensors
+        dws = fused_prop_level_bwd(rays_o, rays_d, real_bins, ws,
+                                   g_w.contiguous(), *ctx.static)
+        return (None,) * 4 + tuple(dws)
+
+
+def prop_level_train(rays_o, rays_d, real_bins, ws: Sequence,
+                     freq_degree: int, grid_bound: float,
+                     opaque_last: bool = True, density_bias: float = 0.0):
+    """Differentiable proposal level: forward K7, backward K2.  Returns the
+    raw weights [N, T]; grads flow only to ws."""
+    return _PropLevelTrain.apply(
+        rays_o, rays_d, real_bins,
         (freq_degree, grid_bound, opaque_last, density_bias), *ws)
 
 

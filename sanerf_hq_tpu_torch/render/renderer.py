@@ -11,9 +11,14 @@ Fixed per-ray sample counts (default 128, 64, 32).  Two routes:
     gradient: at inference, and in training when `frozen_backbone` says
     the optimizer freezes it; only the mask branch is differentiable;
   - the composable route: per-sample densities and colours from the
-    field's plain methods, `compute_weights`, `sample_pdf`, and autograd
-    through them.  It is the oracle for the kernels and the route of
-    fields without level kernels.
+    field's `density` / `forward_color`, `compute_weights`, `sample_pdf`
+    (its lookup K10), and autograd through them.  On the MLP field the
+    proposal MLPs and, without CP features, the trunk run K8 (freq encode
+    + MLP forward, backward through the plain version); the rest is plain
+    PyTorch.  It is the oracle for the level kernels, the route of fields
+    without level kernels, and, as in JAX, the route of a stage-3
+    training render whose backbone is not frozen (`return_mask` without
+    `frozen_backbone`).
 `update_proposal` is a Python bool: when False the proposal weights are
 detached and the proposal loss is 0 (the reference's cadence, step <= 3000
 or step % 5 == 0, picks it per step).

@@ -210,6 +210,57 @@ def test_cli_stage3_trains_evaluates_and_resumes(scene, tmp_path, capsys):
                                                                      3)
 
 
+@pytest.mark.parametrize("cp_rank,per_step", [("8", 2), ("0", 3)])
+def test_cli_stage3_trains_a_trainable_backbone(scene, tmp_path, capsys,
+                                                monkeypatch, cp_rank,
+                                                per_step):
+    """Stage 3 without --init_ckpt: the backbone is initialised from --seed
+    and stays trainable, so the mask step renders through the composable
+    route, where K8's entry point runs both proposal MLPs (and, without CP
+    features, the trunk) once a step; the error-map and evaluation renders
+    take the frozen inference route and never call it.  A spy counts the
+    calls: the launch counters count only the card."""
+    from sanerf_hq_tpu_torch.data.synthetic import write_sphere_masks
+    from sanerf_hq_tpu_torch.models import mlp_field
+
+    masks = str(tmp_path / "masks")
+    write_sphere_masks(masks, n_views=17, H=HW, W=HW)
+    calls = []
+
+    def spy(x, *a, **k):
+        calls.append(tuple(x.shape))
+        return fused_freq_mlp(x, *a, **k)
+
+    fused_freq_mlp = mlp_field.fused_freq_mlp
+    monkeypatch.setattr(mlp_field, "fused_freq_mlp", spy)
+    argv = _argv(scene, str(tmp_path / "ws3"), "--device", "cpu",
+                 "--with_mask", "--mask_root", masks, "--feat_rank", "8",
+                 "--feat_res", "16", "--online_resolution", str(HW),
+                 "--error_map_size", "8", "--iters", "4", "--num_rays", "64",
+                 "--error_map", "--ray_pair_rgb_loss_weight", "1",
+                 "--ray_pair_rgb_iter", "2", "--local_sample_patch_size",
+                 "4", "--num_local_sample", "2", "--cp_rank", cp_rank)
+    argv.remove("--test")
+    trainer = cli.main(argv)
+    out = capsys.readouterr().out
+    assert not trainer.backbone_frozen and trainer.state.step == 4
+    assert "init checkpoint" not in out and "initialised from --seed" in out
+    assert "error map rebuilt at step 4" in out
+    assert "[mask 4/4] loss=" in out and "[EVAL] MeanIoU = " in out
+    ce = [v["ce"] for _, v in trainer.stats["mask"]]
+    assert len(ce) == 2 and np.isfinite(ce).all()
+    assert len(calls) == per_step * 4, calls
+    n_rays = 64 + 2 * 4 * 4
+    assert calls[:2] == [(n_rays, 16, 3), (n_rays, 8, 3)]
+    # as in JAX, the mask loss reads the backbone's weights, features and
+    # image detached: the trainable backbone gets no grad and keeps its
+    # seeded weights (the EMA, never updated in stage 3, holds them)
+    ema = dict(trainer.state.ema_model.named_parameters())
+    for name, p in trainer.model.named_parameters():
+        moved = not torch.equal(p, ema[name])
+        assert moved == name.startswith(("cp_m_", "mask_mlp")), name
+
+
 def test_entry_points_need_a_device_or_cpu(scene, tmp_path, monkeypatch):
     """Without a GPU and without device='cpu' the entry points raise; they
     never quietly run on the CPU."""

@@ -1,15 +1,17 @@
-"""CUDA kernels K5, K3, K6, K1, K2, K4 and K10 against their plain twins on
-the card, at shapes the flagship smoke (chip_smoke.py) does not reach: ragged
-ray counts, sample counts that do not divide a pass or span several passes,
-other widths, no CP features; plus the wrappers' input checks, the
-backward kernels' run-to-run determinism, and K6's agreement with K3.
+"""CUDA kernels K5, K3, K6, K1, K2, K4, K7, K8 and K10 against their plain
+twins on the card, at shapes the flagship smoke (chip_smoke.py) does not
+reach: ragged ray and point counts, sample counts that do not divide a pass
+or span several passes, other widths and layer counts, no CP features;
+plus the wrappers' input checks and launch counts, the backward kernels'
+run-to-run determinism, K6's agreement with K3 and K7's with K1.
 
 Needs a CUDA device (the kernels have no CPU mode); skips without one.  On
 the card, where JAX (which tests/conftest.py imports) is not installed:
 `python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py`.
 Tolerances as chip_smoke.py: 1e-3 abs on the s-bins of K5 and K1, rel-max
-2e-2 on K3's outputs, K1's weights and the weight and CP grads of K2 and K4,
-1e-6 abs on K10's resampled edges (rows with ties included).
+2e-2 on K3's outputs, K1's and K7's weights, K8's outputs and grads and the
+weight and CP grads of K2 and K4, 1e-6 abs on K10's resampled edges (rows
+with ties included).
 """
 import pytest
 import torch
@@ -305,3 +307,141 @@ def test_sample_pdf_wrapper_checks_inputs(dev):
     with pytest.raises(ValueError, match="shape"):
         sample_pdf_lookup(cdf, bins[:, :-1].contiguous(), u)
     assert sample_pdf_lookup(cdf[:0], bins[:0], u[:0]).shape == (0, 5)
+
+
+def _mlp_ws(dev, g, nin, hidden, n_layers, skip, out):
+    ws, fin = [], nin
+    for l in range(n_layers):
+        if l == skip:
+            fin += nin
+        fout = out if l == n_layers - 1 else hidden
+        ws.append(_w(dev, g, fout, fin))
+        fin = fout
+    return ws
+
+
+@pytest.mark.parametrize("B,deg,hidden,n_layers,skip,out", [
+    (1077, 6, 64, 3, -1, 1),    # proposal MLP, ragged last CTA
+    (4099, 10, 256, 4, 2, 16),  # the trunk at cp_rank 0, ragged
+    (300, 4, 32, 5, 1, 7),      # five layers, skip at 1, odd output
+    (200, 3, 32, 2, 1, 4),      # skip at the last layer
+    (129, 2, 16, 1, -1, 3),     # one layer
+    (5, 6, 64, 3, -1, 1),       # fewer points than a CTA holds
+])
+def test_freq_mlp_kernel_matches_twin(dev, B, deg, hidden, n_layers, skip,
+                                      out):
+    from sanerf_hq_tpu_torch.ops.fused_mlp import (_reference_forward,
+                                                   fused_freq_mlp)
+
+    g = torch.Generator().manual_seed(9)
+    x = (torch.rand(B, 3, generator=g) * 2 - 1).to(dev)
+    ws = _mlp_ws(dev, g, 3 * (1 + 2 * deg), hidden, n_layers, skip, out)
+    before = fused_freq_mlp.launches
+    got = fused_freq_mlp(x, ws, deg, skip)
+    want = _reference_forward(x, ws, deg, skip)
+    torch.cuda.synchronize()
+    assert fused_freq_mlp.launches == before + 1
+    assert got.shape == (B, out) and torch.isfinite(got).all()
+    assert _rel(got, want) < 2e-2, _rel(got, want)
+
+
+@pytest.mark.parametrize("deg,hidden,n_layers,skip,out", [
+    (6, 64, 3, -1, 1), (10, 256, 4, 2, 16)])
+def test_freq_mlp_grads_match_twin_autograd(dev, deg, hidden, n_layers, skip,
+                                            out):
+    """K8's autograd Function: grads of x and of every weight against
+    autograd through the twin, on a [N, T, 3] input as the field gives."""
+    from sanerf_hq_tpu_torch.ops.fused_mlp import (_reference_forward,
+                                                   fused_freq_mlp)
+
+    g = torch.Generator().manual_seed(10)
+    x = (torch.rand(61, 33, 3, generator=g) * 2 - 1).to(dev)
+    ws = _mlp_ws(dev, g, 3 * (1 + 2 * deg), hidden, n_layers, skip, out)
+    cot = torch.randn(61, 33, out, generator=g).to(dev)
+    grads = []
+    for fn in (fused_freq_mlp, _reference_forward):
+        leaves = [t.clone().requires_grad_() for t in [x] + ws]
+        y = fn(leaves[0], leaves[1:], deg, skip)
+        assert y.shape == (61, 33, out)
+        grads.append(torch.autograd.grad((y * cot).sum(), leaves))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*grads)):
+        assert torch.isfinite(a).all(), i
+        assert _rel(a, b) < 2e-2, (i, _rel(a, b))
+
+
+def test_freq_mlp_wrapper_checks_inputs(dev):
+    from sanerf_hq_tpu_torch.ops.fused_mlp import fused_freq_mlp
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.rand(64, 3, generator=g).to(dev)
+    ws = _mlp_ws(dev, g, 39, 64, 3, -1, 1)
+    before = fused_freq_mlp.launches
+    with pytest.raises(TypeError, match="float32"):
+        fused_freq_mlp(x.double(), ws, 6)
+    with pytest.raises(ValueError, match="shape"):
+        fused_freq_mlp(x, ws, 5)  # the weights are for degree 6
+    with pytest.raises(ValueError, match="hidden"):
+        fused_freq_mlp(x, _mlp_ws(dev, g, 39, 40, 3, -1, 1), 6)
+    with pytest.raises(ValueError, match="layers"):
+        fused_freq_mlp(x, _mlp_ws(dev, g, 39, 16, 9, -1, 1), 6)
+    with pytest.raises(ValueError, match="skip layer 0"):
+        fused_freq_mlp(x, _mlp_ws(dev, g, 39, 64, 3, 0, 1), 6, 0)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fused_freq_mlp(x, [ws[0].cpu()] + ws[1:], 6)
+    assert fused_freq_mlp.launches == before
+    assert fused_freq_mlp(x[:0], ws, 6).shape == (0, 1)
+
+
+@pytest.mark.parametrize("N,T,hidden", [
+    (8192, 128, 64),    # the smoke's first proposal level
+    (1000, 48, 64),     # T does not divide the pass
+    (333, 200, 32),     # one ray over two passes
+    (5, 8, 64),         # fewer rays than a CTA holds
+])
+def test_prop_weights_kernel_matches_twin_and_k1(dev, N, T, hidden):
+    """K7 against its twin, its weights bitwise equal to K1's, and
+    prop_level_train's grads (forward K7, backward K2) bitwise equal to
+    prop_level_train_sample's under the same cotangent."""
+    ro, rd, real, s = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(12)
+    ws = [_w(dev, g, hidden, 39), _w(dev, g, hidden, hidden),
+          _w(dev, g, 1, hidden)]
+    u = stratified_queries(N, 17, dev).contiguous()
+    args = (6, 2.0, True, -0.5)
+    before = rl.fused_prop_level.launches
+    got = rl.fused_prop_level(ro, rd, real, ws, *args)
+    want = rl.prop_level_ref(ro, rd, real, ws, *args)
+    k1, _ = rl.fused_prop_level_sample_train(ro, rd, real, s, u, ws, *args)
+    torch.cuda.synchronize()
+    assert rl.fused_prop_level.launches == before + 1
+    assert got.shape == (N, T) and torch.isfinite(got).all()
+    assert _rel(got, want) < 2e-2, _rel(got, want)
+    assert torch.equal(got, k1)
+
+    cot = torch.randn(N, T, generator=g).to(dev)
+    grads = []
+    for fn in (lambda p: rl.prop_level_train(ro, rd, real, p, *args),
+               lambda p: rl.prop_level_train_sample(ro, rd, real, s, u, p,
+                                                    *args)[0]):
+        p = [w.clone().requires_grad_() for w in ws]
+        grads.append(torch.autograd.grad((fn(p) * cot).sum(), p))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_prop_weights_wrapper_checks_inputs(dev):
+    N, T = 64, 8
+    ro, rd, real, _ = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(13)
+    ws = [_w(dev, g, 64, 39), _w(dev, g, 64, 64), _w(dev, g, 1, 64)]
+    before = rl.fused_prop_level.launches
+    with pytest.raises(TypeError, match="float32"):
+        rl.fused_prop_level(ro, rd.double(), real, ws, 6, 2.0)
+    with pytest.raises(ValueError, match="shape"):
+        rl.fused_prop_level(ro, rd, real[:, :1].contiguous(), ws, 6, 2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        rl.fused_prop_level(ro, rd, real.t().contiguous().t(), ws, 6, 2.0)
+    with pytest.raises(ValueError, match="3-layer"):
+        rl.fused_prop_level(ro, rd, real, ws[:2], 6, 2.0)
+    assert rl.fused_prop_level.launches == before

@@ -1,17 +1,19 @@
 """Training twins of the port's render-level kernels against the JAX Pallas
 training kernels and their custom VJPs, run in interpret mode on the CPU
 (as tests/test_render_level_kernels.py runs them): K1
-`prop_level_train_sample`, K2 its backward, K4 the backward of
-`final_level_train` with and without CP features; the port's autograd
-Functions against the twins; and autograd through the forward twins as a
-second oracle.  The CUDA kernels are held to these twins on the card by
-chip_smoke.py and tests/test_torch_kernels_gpu.py.
+`prop_level_train_sample`, K2 its backward, K7 `fused_prop_level` and
+`prop_level_train` (forward K7, backward K2) with the field methods that
+reach them, K4 the backward of `final_level_train` with and without CP
+features; the port's autograd Functions against the twins; and autograd
+through the forward twins as a second oracle.  The CUDA kernels are held
+to these twins on the card by chip_smoke.py and
+tests/test_torch_kernels_gpu.py.
 
 Tolerances: rel-max 2e-2 on weight and CP grads, the JAX package's own bar
 for its kernels against their references
 (tests/test_render_level_kernels.py:114,128); 5e-3 abs on the resampled
-s-bins (:198); K1's weights rel-max 1e-5 against the proposal level's
-weights without resampling (:219).
+s-bins (:198); K1's and K7's weights rel-max 1e-5 against the JAX proposal
+level's weights without resampling (:219).
 """
 import jax
 import jax.numpy as jnp
@@ -103,6 +105,89 @@ def test_prop_train_sample_twin_matches_pallas(rays):
                                 GRID_BOUND, opaque_last=True, density_bias=DB)
     assert _rel(w, w_k7) < 1e-5
     assert float(w.min()) >= 0.0 and float(w.sum(-1).max()) <= 1.0 + 1e-5
+
+
+def test_prop_weights_twin_matches_pallas(rays):
+    """K7's twin against the JAX fused_prop_level, and equal to K1's twin's
+    weights bit for bit (one loop, shared)."""
+    ro, rd, bins, s_bins, u, _ = rays
+    ws = _prop_ws(14)
+    w_j = rlp.fused_prop_level(*(jnp.asarray(a) for a in (ro, rd, bins)),
+                               [jnp.asarray(x) for x in ws], DEG_P,
+                               GRID_BOUND, opaque_last=True, density_bias=DB)
+    args = [_t(a) for a in (ro, rd, bins)]
+    tws = [_t(w).T.contiguous() for w in ws]
+    before = rl.fused_prop_level.launches
+    w = rl.fused_prop_level(*args, tws, DEG_P, GRID_BOUND, True, DB)
+    assert rl.fused_prop_level.launches == before  # the twin on the CPU
+    assert w.shape == (N, T)
+    assert _rel(w, w_j) < 1e-5
+    w1, _ = rl.prop_level_train_sample_ref(*args, _t(s_bins), _t(u), tws,
+                                           DEG_P, GRID_BOUND, True, DB)
+    assert torch.equal(w, w1)
+
+
+@pytest.mark.parametrize("opaque_last", [True, False])
+def test_prop_level_train_matches_pallas_vjp(rays, opaque_last):
+    """prop_level_train (forward K7, backward K2) against the JAX
+    prop_level_train and its custom VJP; its grads are the K2 twin's bit for
+    bit, and none reaches the rays."""
+    ro, rd, bins, _, _, _ = rays
+    ws = _prop_ws(15)
+    g_w = np.random.default_rng(16).normal(size=(N, T)).astype(np.float32)
+    static = (DEG_P, GRID_BOUND, opaque_last, DB)
+    jin = [jnp.asarray(a) for a in (ro, rd, bins)]
+    w_j, vjp = jax.vjp(lambda *p: rlp.prop_level_train(static, *jin, *p),
+                       *(jnp.asarray(w) for w in ws))
+    want = vjp(jnp.asarray(g_w))
+    ro_t = _t(ro).requires_grad_(True)
+    tws = [_t(w).T.contiguous().requires_grad_(True) for w in ws]
+    w = rl.prop_level_train(ro_t, _t(rd), _t(bins), tws, *static)
+    assert _rel(w.detach(), w_j) < 1e-5
+    (w * _t(g_w)).sum().backward()
+    assert ro_t.grad is None
+    twin = rl.prop_level_bwd_ref(_t(ro), _t(rd), _t(bins), tws, _t(g_w),
+                                 *static)
+    for i, (p, b, d) in enumerate(zip(tws, want, twin)):
+        assert p.grad.shape == b.T.shape, i
+        assert _rel(p.grad, np.asarray(b).T) < 2e-2, f"dW{i}"
+        assert torch.equal(p.grad, d), i
+
+
+@pytest.mark.parametrize("proposal", [0, 1])
+def test_field_prop_weight_methods_match_jax(rays, proposal):
+    """MLPField.fused_prop_weights (K7) and fused_prop_weights_train (K7,
+    backward K2) against the JAX field's methods, converted weights."""
+    from sanerf_hq_tpu.models.mlp_field import MLPField as JaxMLPField
+    from sanerf_hq_tpu_torch.models import MLPField, params_from_jax
+
+    kw = dict(grid_bound=GRID_BOUND, hidden=32, num_layers=4,
+              freq_degree=DEG_F, prop_hidden=32, prop_layers=3,
+              prop_freq_degree=DEG_P, cp_rank=4, cp_res=16, density_bias=DB)
+    jm = JaxMLPField(**kw)
+    params = jax.device_get(jax.jit(jm.init)(
+        jax.random.PRNGKey(0), jnp.zeros((4, 3)), jnp.ones((4, 3))))
+    tm = MLPField(**kw, device="cpu")
+    tm.load_state_dict(params_from_jax(params))
+    ro, rd, bins = rays[:3]
+    jin = [jnp.asarray(a) for a in (ro, rd, bins)]
+    tin = [_t(a) for a in (ro, rd, bins)]
+    g_w = np.random.default_rng(17).normal(size=(N, T)).astype(np.float32)
+    want = jm.apply(params, *jin, proposal,
+                    method=JaxMLPField.fused_prop_weights)
+    got = tm.fused_prop_weights(*tin, proposal)
+    assert _rel(got.detach(), want) < 1e-5
+
+    name = f"prop_mlp_{proposal}"
+    j_grads = jax.grad(lambda p: jnp.sum(jm.apply(
+        p, *jin, proposal, method=JaxMLPField.fused_prop_weights_train)
+        * g_w))(params)["params"][name]
+    w = tm.fused_prop_weights_train(*tin, proposal)
+    assert _rel(w.detach(), want) < 1e-5
+    mlp = getattr(tm, name)
+    grads = torch.autograd.grad((w * _t(g_w)).sum(), mlp.weights)
+    for l, g in enumerate(grads):
+        assert _rel(g, np.asarray(j_grads[f"w{l}"]).T) < 2e-2, f"w{l}"
 
 
 @pytest.mark.parametrize("hidden", [32, 64])

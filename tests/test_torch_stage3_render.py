@@ -1,9 +1,13 @@
-"""The stage-3 render (`return_mask`) of the port against the JAX renderer's
-frozen-backbone route, with the same (converted) weights, on the CPU: the
-port's frozen route (K5 and K6, plain twins here) and its composable route
-against the JAX frozen route run in Pallas interpret mode (as
-tests/test_frozen_side_path.py runs it), for both mask MLPs, in training
-and at inference.
+"""The stage-3 render (`return_mask`) of the port against the JAX renderer,
+with the same (converted) weights, on the CPU: the port's frozen route (K5
+and K6, plain twins here) and its composable route against the JAX frozen
+route run in Pallas interpret mode (as tests/test_frozen_side_path.py runs
+it), for both mask MLPs, in training and at inference; and the training
+render with a trainable backbone (`frozen_backbone=False`, the route of
+stage 3 without an init checkpoint: K8 and K10, plain here) against the
+JAX renderer's composable route with the same settings, through the JAX
+FreqMLP's plain reference (as the JAX package runs it off the TPU), at CP
+ranks 64 and 0.
 
 Bars are the JAX package's own between its frozen and composable routes
 (tests/test_frozen_side_path.py:92, 121-124): logits, image and depth
@@ -33,9 +37,23 @@ STEPS = dict(num_steps=(8, 8, 8), bound=4.0, min_near=0.05)
 TRAINABLE = ("cp_m_", "mask_mlp")
 
 
+_BUILT = {}
+
+
+def _build(mask_mlp_type, cp_rank=KW["cp_rank"]):
+    key = (mask_mlp_type, cp_rank)
+    if key not in _BUILT:
+        _BUILT[key] = _make(dict(KW, mask_mlp_type=mask_mlp_type,
+                                 cp_rank=cp_rank))
+    return _BUILT[key]
+
+
 @pytest.fixture(scope="module", params=["default", "lightweight_mask"])
 def setup(request):
-    kw = dict(KW, mask_mlp_type=request.param)
+    return _build(request.param)
+
+
+def _make(kw):
     jm = JaxMLPField(**kw)
     params = jax.device_get(jax.jit(jm.init)(
         jax.random.PRNGKey(0), jnp.zeros((4, 3)), jnp.ones((4, 3))))
@@ -97,22 +115,32 @@ def _jax_name(port_name):
     return port_name, False
 
 
-@pytest.mark.parametrize("level_kernels", [True, False])
-def test_mask_training_render_matches_jax_frozen_route(setup, interpret,
-                                                       level_kernels):
+@pytest.mark.parametrize("level_kernels,frozen,cp_rank", [
+    pytest.param(True, True, KW["cp_rank"], id="True"),
+    pytest.param(False, True, KW["cp_rank"], id="False"),
+    # the trainable backbone: the JAX composable route through its plain
+    # FreqMLP (PALLAS_ENABLED off), the port's composable route
+    pytest.param(True, False, 64, id="trainable-cp64"),
+    pytest.param(True, False, 0, id="trainable-cp0"),
+])
+def test_mask_training_render_matches_jax_frozen_route(
+        setup, interpret, monkeypatch, level_kernels, frozen, cp_rank):
     jm, params, tm, ro, rd, gt = setup
+    if not frozen:
+        jm, params, tm, ro, rd, gt = _build(jm.mask_mlp_type, cp_rank)
+        monkeypatch.setattr(jfm, "PALLAS_ENABLED", False)
     j_loss, j_out, j_grads = _jax_ce(
         jm, params, ro, rd, gt,
         jr.RenderSettings(**STEPS, training=True, return_mask=True,
-                          frozen_backbone=True))
+                          frozen_backbone=frozen))
     before = rl.fused_final_level_frozen.launches
     t_loss, t_out, t_grads = _port_ce(
         tm, ro, rd, gt,
         tr.RenderSettings(**STEPS, training=True, return_mask=True,
-                          frozen_backbone=True, level_kernels=level_kernels))
+                          frozen_backbone=frozen, level_kernels=level_kernels))
     assert rl.fused_final_level_frozen.launches == before  # twins on CPU
     assert abs(t_loss - j_loss) < 2e-2, (t_loss, j_loss)
-    for k in ("instance_mask_logits", "image", "depth"):
+    for k in ("instance_mask_logits", "image", "depth", "weights"):
         a, b = t_out[k].detach().numpy(), np.asarray(j_out[k])
         assert a.shape == b.shape, k
         assert np.abs(a - b).max() < 3e-2, k
