@@ -28,6 +28,14 @@ last line:
        points and the cp_rank-0 trunk at 200,192, rel-max < 2e-2 on the
        outputs and on the autograd grads of x and every weight, timed
        beside its plain version and a sin/cos + bf16 F.linear composite;
+     - the parts of K2 and K4 on the training batch, each beside its plain
+       part: K2's partial slabs (their sum rel-max < 2e-2 against the twin)
+       and their reduction in CTA order (rel-max < 1e-5 against
+       part.sum(0)) at each level; K4's stash of the weight products'
+       operands (rel-L2 < 1e-2 an operand against final_level_bwd_operands,
+       CP grads rel-max < 2e-2) and its weight-grad GEMM (rel-max < 1e-4
+       against d^T x in fp32 on the same stash; torch's bf16 matmul of the
+       same pairs timed beside it);
   4. inference path: a synthetic llff scene written under build/, the
      port's CLI `--test` on it at flagship width with a seeded field (2
      views of 512x512, 16 chunks each), with the launch counts set to 0
@@ -41,7 +49,11 @@ last line:
      updates the proposal MLPs), K3 once and K4 once (K3 and K5 also run in
      the eval renders), K7 and K8 never; a finite loss, checkpoints on disk, a later --test
      resuming from them, and the train step rate (host clock around
-     synchronised steps);
+     synchronised steps), and, traced after phase 9 (see 10), the step's
+     device time by kernel (K1, K2, K3, K4's three GEMMs beside their
+     bounds and its other kernels, the reductions, the rest) and idle
+     share from one device-only torch.profiler trace; K2's and K4's parts
+     launch once a call each;
   6. grad parity: on one 8192-ray batch at step 2000 (distortion ramp fully
      on, so K4's weights grad carries gradient), the level-kernel route's
      grads against the composable route's (K8 forwards, autograd through
@@ -55,8 +67,9 @@ last line:
      to the init checkpoint, the error map rebuilt at step 150, the CE at
      the first and last step, [EVAL] MeanIoU; then the step rate (host
      clock around synchronised steps) and its breakdown (CUDA events: the
-     sampler, K5, K6, the mask branch forward and backward, the losses),
-     the CP feature lookup as a one-hot matmul and as a gather, the frozen
+     sampler, K5, K6, the mask branch forward and backward, the losses;
+     one device-only torch.profiler trace, taken in 10), the CP feature
+     lookup as a one-hot matmul and as a gather, the frozen
      route against the composable route on one batch (CE within 2e-2,
      logits within 3e-2, trainable grads rel-max < 6e-2; the composable
      render launches K8 twice), and a --test --with_mask resuming the
@@ -70,8 +83,8 @@ last line:
      twice a step and twice an eval chunk, K1-K8 never; a finite loss,
      checkpoints, the step rate with its breakdown (CUDA events: the
      sampler, the three hash encodes forward and backward, K10, the MLPs,
-     compositing and losses, Adam; one device-only torch.profiler trace);
-     a --test resuming it (K10 twice a chunk) and the render rate; the
+     compositing and losses, Adam; one device-only torch.profiler trace,
+     taken in 10); a --test resuming it (K10 twice a chunk) and the render rate; the
      card against the CPU on one 1024-ray batch with the same weights
      (the CPU handed the card's resampled bins: image, depth, losses max
      abs <= 1e-3, table grads rel-max <= 1e-3; on its own bins the output
@@ -86,9 +99,12 @@ last line:
      MeanIoU, the peak device memory; the step rate (host clock around
      synchronised steps) with its breakdown (CUDA events: the sampler, K8,
      K10, the plain CP trunk, compositing, the mask branch, the losses,
-     Adam; one device-only torch.profiler trace); then 20 steps with
-     --cp_rank 0, where K8 also runs the trunk: three launches a step;
- 10. one JSON line with every kernel's numbers, the device line again, and
+     Adam; one device-only torch.profiler trace, taken in 10); then 20
+     steps with --cp_rank 0, where K8 also runs the trunk: three launches
+     a step;
+ 10. the device-only torch.profiler traces of phases 5, 7, 8 and 9, taken
+     after every rate, since a trace slows the host's later steps; one
+     JSON line with every kernel's numbers, the device line again, and
      the last line {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -156,7 +172,14 @@ COUNTERS = {"K5": rl.fused_prop_level_sample, "K3": rl.fused_final_level,
             "K1": rl.fused_prop_level_sample_train,
             "K2": rl.fused_prop_level_bwd, "K4": rl.fused_final_level_bwd,
             "K7": rl.fused_prop_level, "K8": fused_freq_mlp,
-            "K10": sample_pdf_lookup}
+            "K10": sample_pdf_lookup,
+            # the parts of K2 and K4: each call of K2 or K4 launches each
+            # of its parts once
+            "K2.partials": rl.prop_level_bwd_partials,
+            "K2.reduce": rl.reduce_partials,
+            "K4.stash": rl.final_level_bwd_stash,
+            "K4.gemm": rl.weight_grads}
+PARTS = {"K2": ("K2.partials", "K2.reduce"), "K4": ("K4.stash", "K4.gemm")}
 LEVEL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
 
 
@@ -397,6 +420,7 @@ def check_train_kernels(field):
           "per_shape": {}}
     k2 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
           "per_shape": {}}
+    k2_parts = {}
     s_bins = torch.linspace(0.0, 1.0, 129, device=dev).expand(N, 129)
     s_bins = s_bins.contiguous()
     for level, (T, Q) in enumerate(((128, 65), (64, 33))):
@@ -458,6 +482,9 @@ def check_train_kernels(field):
         k2["per_shape"][f"T{T}"] = {"ms": ms2, "plain_ms": plain2,
                                    "bound_ms": bms2, "max_abs_err": abs_err,
                                    "rel_max_err": max(rels)}
+        add_parts(k2_parts, prop_bwd_parts(
+            bcall, pargs, want, 2 * pts * macs,
+            2 * pts * 3 * field.prop_freq_degree, plain2))
         for k, part in ((k1, k1["per_shape"][f"T{T}_Q{Q}"]),
                         (k2, k2["per_shape"][f"T{T}"])):
             k["ms"] += part["ms"]
@@ -516,11 +543,144 @@ def check_train_kernels(field):
     k4 = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
           "max_abs_err": abs_err, "rel_max_err": max(rels.values()),
           "dcp_run_to_run_max_abs": cp_run_diff}
+    k4["parts"], k4["gemm_bounds"] = final_bwd_parts(call, fargs, ws, rank)
+    k2["parts"] = k2_parts
     # K3, the training forward, at the same 8192-ray shape
     k3 = cuda_ms(lambda: rl.fused_final_level(ro, rd, real, sh, ws, **fargs))
     print(f"[kernel] K3 fused_final_level at the training shape (8192 rays, "
           f"T=32): {k3:.4f} ms", flush=True)
     return {"K1": k1, "K2": k2, "K4": k4, "K3_train_ms": k3}
+
+
+PART_KEYS = ("ms", "plain_ms", "bound_ms")
+
+
+def add_parts(total, parts):
+    """Sums per-level parts into total (K2 runs at two levels)."""
+    for name, part in parts.items():
+        if name not in total:
+            total[name] = dict(part)
+            continue
+        t = total[name]
+        for k in PART_KEYS + ("library_ms",):
+            if t.get(k) is not None:
+                t[k] += part[k]
+        t["max_abs_err"] = max(t["max_abs_err"], part["max_abs_err"])
+
+
+def part_row(name, what, ms, plain, bms, by, err, library=None):
+    return name, {"name": name, "route": "cuda", "source": SOURCE_BWD,
+                  "replaces": what, "ms": ms, "plain_ms": plain,
+                  "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                  "library_ms": library}
+
+
+def prop_bwd_parts(bcall, pargs, want, flops, fp32_ops, plain):
+    """K2's two kernels on one level's batch: the partial slabs (their sum
+    against the twin; the twin is their plain part, as one slab) and the
+    reduction in CTA order (against part.sum(0))."""
+    ws = bcall[3]
+    H = ws[1].shape[0]
+    kin = rl._round16(ws[0].shape[1])
+    part = rl.prop_level_bwd_partials(*bcall, **pargs)
+    d0, d1, d2 = part.sum(0).split([H * kin, H * H, 16 * H])
+    got = (d0.view(H, kin)[:, :ws[0].shape[1]], d1.view(H, H),
+           d2.view(16, H)[:1])
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    rels = [rel_max(a, b) for a, b in zip(got, want)]
+    assert max(rels) < 2e-2, f"K2 partials rel-max {rels}"
+    red = rl.reduce_partials(part)
+    plain_red = part.sum(0)
+    torch.cuda.synchronize()
+    red_err = (red - plain_red).abs().max().item()
+    assert rel_max(red, plain_red) < 1e-5, "K2 reduction"
+    ms_p = cuda_ms(lambda: rl.prop_level_bwd_partials(*bcall, **pargs))
+    ms_r = cuda_ms(lambda: rl.reduce_partials(part))
+    plain_r = cuda_ms(lambda: part.sum(0))
+    bms_p, by_p = bound(nbytes(*bcall[:3], *ws, bcall[4], part), flops,
+                        fp32_ops)
+    bms_r, by_r = bound(nbytes(part, red), 0, part.numel())
+    print(f"[kernel] K2 parts at T={bcall[2].shape[1] - 1}: partials "
+          f"({part.shape[0]} slabs) rel-max {max(rels):.3e}, {ms_p:.4f} ms, "
+          f"bound {bms_p:.4f} ms ({by_p}); reduction max abs {red_err:.3e}, "
+          f"{ms_r:.4f} ms, plain {plain_r:.4f} ms, bound {bms_r:.4f} ms "
+          f"({by_r})", flush=True)
+    return dict((part_row("prop_level_bwd_partials", f"{TPU_FILE}:861", ms_p,
+                          plain, bms_p, by_p, err),
+                 part_row("reduce_partials", f"{TPU_FILE}:1126", ms_r,
+                          plain_r, bms_r, by_r, red_err)))
+
+
+def final_bwd_parts(call, fargs, ws, rank):
+    """K4's two parts at the flagship batch: the stash of the weight
+    products' operands (against final_level_bwd_operands: rel-L2 < 1e-2 for
+    each operand, since an activation within a rounding of 0 can flip its
+    relu mask; CP grads rel-max < 2e-2) and the weight-grad GEMM (against
+    d^T x in fp32 on the same stash: rel-max < 1e-4, as both sum exact
+    bf16 products in fp32; beside it, torch's bf16 matmul of the same
+    pairs, which rounds its output to bf16)."""
+    pairs, dcps = rl.final_level_bwd_stash(*call, **fargs)
+    want, want_c = rl.final_level_bwd_operands(*call, **fargs)
+    torch.cuda.synchronize()
+    l2 = 0.0
+    for l, ((d, x), (wd, wx)) in enumerate(zip(pairs, want)):
+        for name, a, b in (("d", d[:, :wd.shape[1]], wd),
+                           ("x", x[:, :wx.shape[1]], wx)):
+            r = ((a.float() - b).norm() / b.norm().clamp_min(1e-12)).item()
+            assert r < 1e-2, f"K4 stash {name}{l} rel-L2 {r}"
+            l2 = max(l2, r)
+    cp_rel = max([rel_max(a, b) for a, b in zip(dcps, want_c)] or [0.0])
+    assert cp_rel < 2e-2, f"K4 stash CP grads rel-max {cp_rel}"
+    err = max([(a - b).abs().max().item() for a, b in zip(dcps, want_c)]
+              + [(p[0][:, :w[0].shape[1]].float() - w[0]).abs().max().item()
+                 for p, w in zip(pairs, want)])
+    del want
+    got = rl.weight_grads(pairs)
+    ref = rl.weight_grads_ref(pairs)
+    torch.cuda.synchronize()
+    g_rel = max(rel_max(a, b) for a, b in zip(got, ref))
+    g_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    assert g_rel < 1e-4, f"weight-grad GEMM rel-max {g_rel}"
+    ms_s = cuda_ms(lambda: rl.final_level_bwd_stash(*call, **fargs))
+    plain_s = cuda_ms(lambda: rl.final_level_bwd_operands(*call, **fargs))
+    ms_g = cuda_ms(lambda: rl.weight_grads(pairs))
+    plain_g = cuda_ms(lambda: rl.weight_grads_ref(pairs))
+    lib_g = cuda_ms(lambda: [d.t() @ x for d, x in pairs])
+    H = ws[1].shape[0]
+    pts = call[0].shape[0] * (call[2].shape[1] - 1)
+    # forward (the trunk's MACs) + dA (as K4's bound); the stash's bytes
+    # are written once
+    macs = mlp_macs(ws) + ws[3].numel() + (H + rank) * H + H * H + rank * H
+    stash = nbytes(*(d for d, _ in pairs), pairs[1][1], pairs[2][1],
+                   pairs[3][1])  # d0..d3, A1, [A2 | h_in], A3
+    bms_s, by_s = bound(nbytes(*call[:4], *ws, *fargs["cps"], *call[5:],
+                               *dcps) + stash, 2 * pts * macs,
+                        2 * pts * 3 * fargs["freq_degree"])
+    gmacs = sum(d.shape[1] * x.shape[1] for d, x in pairs)
+    bms_g, by_g = bound(stash + nbytes(*got), 2 * pts * gmacs, 0)
+    # the stash kernels' GEMMs alone: the forward products read each
+    # layer's input and write its output (A1, A2, A3 bf16, F [P, 16]
+    # fp32); the dA products read d3..d0 and the relu masks A3, A2, A1,
+    # and write d2..d0 and the CP columns' grad [P, rank] fp32
+    (d0, h_in), (d1, a1), (d2, xb), (d3, a3) = pairs
+    a2 = H * pts * 2
+    fwd = bound(nbytes(h_in, a1, xb, a3, *ws) + nbytes(a1, a3) + a2
+                + pts * 16 * 4, 2 * pts * mlp_macs(ws), 0)
+    dmacs = ws[3].numel() + (H + rank) * H + H * H + rank * H
+    dab = bound(nbytes(d3, d2, d1, d0, a3, a1, *ws) + a2
+                + nbytes(d2, d1, d0) + pts * rank * 4, 2 * pts * dmacs, 0)
+    gemm_bounds = {"K4 forward products": fwd, "K4 dA products": dab,
+                   "K4 weight-grad GEMM": (bms_g, by_g)}
+    print(f"[kernel] K4 parts: stash ({stash / 2**30:.3f} GiB) operands "
+          f"rel-L2 <= {l2:.3e} (< 1e-2), CP grads rel-max {cp_rel:.3e}, "
+          f"{ms_s:.4f} ms, plain {plain_s:.4f} ms, bound {bms_s:.4f} ms "
+          f"({by_s}); weight-grad GEMM rel-max {g_rel:.3e} (< 1e-4), "
+          f"{ms_g:.4f} ms, plain (fp32 matmul) {plain_g:.4f} ms, torch bf16 "
+          f"matmul {lib_g:.4f} ms, bound {bms_g:.4f} ms ({by_g})", flush=True)
+    return dict((part_row("final_level_bwd_stash", f"{TPU_FILE}:754", ms_s,
+                          plain_s, bms_s, by_s, err),
+                 part_row("weight_grads", f"{TPU_FILE}:1059", ms_g, plain_g,
+                          bms_g, by_g, g_err, lib_g))), gemm_bounds
 
 
 def check_prop_weights_kernel(field):
@@ -781,6 +941,8 @@ def train_path(work):
     assert n == TRAIN_STEPS, n
     assert launches["K1"] == 2 * n and launches["K2"] == 2 * n, launches
     assert launches["K4"] == n, launches
+    for kid, parts in PARTS.items():
+        assert all(launches[k] == launches[kid] for k in parts), launches
     assert launches["K5"] > 0 and launches["K5"] % 2 == 0, launches
     assert launches["K3"] == n + launches["K5"] // 2, launches
     assert launches["K10"] == 0, launches
@@ -822,7 +984,7 @@ def train_path(work):
                         "llff", "--workspace", ws_dir])
     assert resumed.resumed and resumed.state.step == n, resumed.state.step
     print(f"[train] --test resumed at step {resumed.state.step}", flush=True)
-    return trainer, launches, sps
+    return trainer, launches, sps, step
 
 
 def train_tensors(scene, dev):
@@ -906,6 +1068,21 @@ def capture_render(model, settings, batch, names=(
     return out, calls
 
 
+# device kernels of the stage-1 step by source kernel (first match wins):
+# K4's three GEMMs (the forward products, EPI_RELU and EPI_F32; the dA
+# products, EPI_MASK; the weight-grad GEMM) and its other kernels (input,
+# compositing, CP grads); K2's kernel; the split/slab reductions both
+# launch; K1 (K5's kernel); K3
+K4_GEMMS = (("K4 forward products", ("layer_gemm<0>", "layer_gemm<1>")),
+            ("K4 dA products", ("layer_gemm<2>",)),
+            ("K4 weight-grad GEMM", ("weight_grad_gemm",)))
+STAGE1_GROUPS = K4_GEMMS + (
+                 ("K4 other", ("final_input_kernel", "final_composite_kernel",
+                               "final_cp_kernel")),
+                 ("K2", ("prop_level_bwd_kernel",)),
+                 ("K2/K4 reductions", ("reduce_partials",)),
+                 ("K1", ("prop_level_sample_kernel",)),
+                 ("K3", ("final_level_kernel",)))
 STAGE3_GROUPS = (("K5", ("prop_level_sample_kernel",)),
                  ("K6", ("final_level_kernel",)),
                  ("matrix products", ("gemm", "cutlass")))
@@ -1116,8 +1293,6 @@ def stage3_path(work, init_ws):
           "waits on its own launches, so they sum past the step): "
           + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
           + f"; whole step {step_ms:.4f}", flush=True)
-    profile = profile_steps(lambda: mask_step(trainer.state, draw(), gen,
-                                              em))
 
     # the CP lookup as a one-hot matmul (the port) and as a gather
     with torch.no_grad():
@@ -1180,7 +1355,9 @@ def stage3_path(work, init_ws):
     return launches, {"steps_per_s": sps, "rays_per_step": n_rays,
                       "miou": miou,
                       "ce_first": m_first["ce"], "ce_last": m_last["ce"],
-                      "parts_alone_ms": parts, "profile": profile,
+                      "parts_alone_ms": parts,
+                      "trace": (lambda: mask_step(trainer.state, draw(), gen,
+                                                  em), STAGE3_GROUPS),
                       "cp_lookup_ms": lookup,
                       "route_loss_diff": d_loss,
                       "route_logit_max_abs": d_logit,
@@ -1351,7 +1528,6 @@ def hashgrid_train_path(work):
           "alone each also waits on its own launches): " + ", ".join(
               f"{k} {v:.4f}" for k, v in parts.items())
           + f"; whole step {1e3 / sps:.4f}", flush=True)
-    profile = profile_steps(step, HG_GROUPS)
 
     reset_counts()
     tested = cli.main([scene, "--test", "--data_type", "llff", "--workspace",
@@ -1386,7 +1562,7 @@ def hashgrid_train_path(work):
     return trainer, launches, {
         "steps_per_s": sps, "render_mrays_per_s": mrays,
         "train_launches": launches, "test_launches": test_launches,
-        "parts_alone_ms": parts, "profile": profile,
+        "parts_alone_ms": parts, "trace": (step, HG_GROUPS),
         "loss_first_epoch": losses[0], "loss_last_epoch": losses[-1]}
 
 
@@ -1710,7 +1886,6 @@ def stage3_trainable_path(work):
           "alone each also waits on its own launches): " + ", ".join(
               f"{k} {v:.4f}" for k, v in parts.items())
           + f"; whole step {1e3 / sps:.4f} ({device_line()})", flush=True)
-    profile = profile_steps(step, TRAINABLE_GROUPS)
 
     # cp_rank 0: the trunk has no CP features and runs K8 too
     ws0 = os.path.join(work, "obj_trainable_cp0_ws")
@@ -1743,7 +1918,8 @@ def stage3_trainable_path(work):
     return launches, {"steps_per_s": sps, "rays_per_step": n_rays,
                       "peak_memory_gib": peak, "miou": miou,
                       "ce_first": m_first["ce"], "ce_last": m_last["ce"],
-                      "parts_alone_ms": parts, "profile": profile,
+                      "parts_alone_ms": parts,
+                      "trace": (step, TRAINABLE_GROUPS),
                       "cp0": {"launches": launches0, "steps_per_s": sps0,
                               "ce_first": hist0[0][1]["ce"],
                               "ce_last": hist0[-1][1]["ce"]}}
@@ -1877,13 +2053,29 @@ def main():
     trunk0 = make_field("mlp", device="cuda", seed=0, cp_rank=0).trunk
     kernels["K8"] = check_mlp_kernel(field, trunk0)
     launches, mrays = main_path(work)
-    trainer, train_launches, sps = train_path(work)
+    trainer, train_launches, sps, train_step = train_path(work)
     parity = grad_parity(trainer, os.path.join(work, "scene"))
     s3_launches, s3 = stage3_path(work, os.path.join(work, "train_ws"))
     hg_trainer, hg_launches, hg = hashgrid_train_path(work)
     hg["card_vs_cpu"] = card_vs_cpu(hg_trainer, os.path.join(work, "scene"))
     hg["packed"] = packed_path(work)
     tr_launches, trainable = stage3_trainable_path(work)
+    # the device-time breakdowns of phases 5, 7, 8 and 9, traced after
+    # every rate: a torch.profiler trace slows the host's later steps
+    print("[train] the stage-1 step's device time by kernel (phase 5's "
+          "trainer):", flush=True)
+    train_profile = profile_steps(train_step, STAGE1_GROUPS)
+    k4_gemms = {name: {"ms": train_profile[name], "bound_ms": b, "bound_by": by}
+                for name, (b, by) in kernels["K4"].pop("gemm_bounds").items()}
+    print("[train] K4's GEMMs, device ms a stage-1 step (the trace) beside "
+          "their bounds (phase 3's inputs): " + ", ".join(
+              f"{k} {v['ms']:.4f} (bound {v['bound_ms']:.4f}, "
+              f"{v['bound_by']})" for k, v in k4_gemms.items()), flush=True)
+    for tag, res in (("stage3", s3), ("hashgrid", hg),
+                     ("trainable", trainable)):
+        step, groups = res.pop("trace")
+        print(f"[{tag}] the step's device time by kernel:", flush=True)
+        res["profile"] = profile_steps(step, groups)
 
     # K5, K1, K2 and K10 numbers are the sums over both levels (per_shape
     # has each); K5 and K3 launches are the inference path's, K1, K2 and
@@ -1900,6 +2092,11 @@ def main():
                "replaces": f"{TPU_FILE}:{line}", "launches": counts[kid],
                "library_ms": None, **kernels[kid]}
               for kid, name, src, line, counts in rows]
+    # the parts of K2 and K4, with their launches on the training path
+    counter = {fn.__name__: key for key, fn in COUNTERS.items()}
+    for row in report:
+        for name, part in row.get("parts", {}).items():
+            part["launches"] = train_launches[counter[name]]
     report.append({"name": "sample_pdf_lookup", "route": "cuda",
                    "source": SOURCE_PDF, "replaces": f"{TPU_FILE_PDF}:69",
                    "launches": hg_launches["K10"], "library_ms": None,
@@ -1925,6 +2122,8 @@ def main():
     print(json.dumps({"kernels": report, "render_mrays_per_s": mrays,
                       "train_steps_per_s": sps,
                       "train_launches": train_launches,
+                      "train_profile_ms_a_step": train_profile,
+                      "k4_gemms": k4_gemms,
                       "grad_parity_worst_rel_l2": max(parity.values()),
                       "stage3_launches": s3_launches, "stage3": s3,
                       "hashgrid": hg, "stage3_trainable_launches":

@@ -23,30 +23,33 @@ constexpr int SHD = 16;  // SH width (degree 4)
 constexpr size_t SMEM_LIMIT = 232448;
 
 // C[PP x n] = A[PP x k] * W^T.  A: bf16 in shared memory (row-major, lda);
-// W: [n x k] bf16 row-major in global memory, i.e. B col-major with ld k.
-// With O set, writes relu(C) as bf16 into O (ldo); else C as fp32 into F.
-template <int PP>
-__device__ void dense(const bf16* A, int lda, int k, const bf16* W, int n,
-                      bf16* O, int ldo, float* F, int ldf, float* scratch) {
+// W: [n x k] bf16 row-major (ldw) in global or shared memory, i.e. B
+// col-major.  With O set, writes relu(C) as bf16 into O (ldo); else C as
+// fp32 into F.  A warp holds at most MAXM row tiles' sums at once.
+template <int PP, int MAXM = PP / 16>
+__device__ void dense_ld(const bf16* A, int lda, int k, const bf16* W,
+                         int ldw, int n, bf16* O, int ldo, float* F, int ldf,
+                         float* scratch) {
   constexpr int MT = PP / 16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ntiles = n / 16;
   int wpn = 1;  // warps sharing one column tile (power of two dividing MT)
   while (wpn * 2 * ntiles <= NWARPS && wpn * 2 <= MT) wpn *= 2;
+  while (MT / wpn > MAXM) wpn *= 2;
   const int mper = MT / wpn;
   const int units = ntiles * wpn;
   for (int u = warp; u < units; u += NWARPS) {
     const int nt = u / wpn, m0 = (u % wpn) * mper;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT];
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXM];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < MAXM; ++i)
       if (i < mper) wmma::fill_fragment(acc[i], 0.0f);
-    const bf16* wt = W + (size_t)nt * 16 * k;
+    const bf16* wt = W + (size_t)nt * 16 * ldw;
     for (int kt = 0; kt < k; kt += 16) {
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, wt + kt, k);
+      wmma::load_matrix_sync(b, wt + kt, ldw);
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
+      for (int i = 0; i < MAXM; ++i) {
         if (i < mper) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
           wmma::load_matrix_sync(a, A + (m0 + i) * 16 * lda + kt, lda);
@@ -55,7 +58,7 @@ __device__ void dense(const bf16* A, int lda, int k, const bf16* W, int n,
       }
     }
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
+    for (int i = 0; i < MAXM; ++i) {
       if (i < mper) {
         wmma::store_matrix_sync(scratch, acc[i], 16, wmma::mem_row_major);
         __syncwarp();
@@ -69,6 +72,13 @@ __device__ void dense(const bf16* A, int lda, int k, const bf16* W, int n,
       }
     }
   }
+}
+
+// dense_ld with W packed (ldw = k).
+template <int PP>
+__device__ void dense(const bf16* A, int lda, int k, const bf16* W, int n,
+                      bf16* O, int ldo, float* F, int ldf, float* scratch) {
+  dense_ld<PP>(A, lda, k, W, k, n, O, ldo, F, ldf, scratch);
 }
 
 // Midpoint, width and contracted / grid_bound position of one sample.

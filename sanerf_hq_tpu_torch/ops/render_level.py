@@ -11,7 +11,13 @@ PyTorch twin beside its wrapper:
      each sample's trunk features, for a frozen backbone (the same kernel
      with a geo pointer);
   K2 `fused_prop_level_bwd`, K4 `fused_final_level_bwd`: their weight grads
-     (csrc/render_level_bwd.cu).
+     (csrc/render_level_bwd.cu), each the composition of two parts with a
+     wrapper and a plain version of its own: K2 `prop_level_bwd_partials`
+     (a dW slab a CTA, summed on chip) and `reduce_partials` (their sum in
+     CTA order); K4 `final_level_bwd_stash` (the weight products' bf16
+     operands, plain version `final_level_bwd_operands`, and the CP basis
+     grads) and `weight_grads` (the split-K GEMM dW = d^T x, plain version
+     `weight_grads_ref`).
 The training entry points are the autograd Functions `prop_level_train_sample`
 (forward K1, backward K2), `prop_level_train` (forward K7, backward K2) and
 `final_level_train` (forward K3, backward K4); gradients flow only to the
@@ -166,9 +172,7 @@ def _round16(n: int) -> int:
 
 
 def _bf16_padded(w, rows: int, cols: int):
-    out = torch.zeros((rows, cols), dtype=torch.bfloat16, device=w.device)
-    out[:w.shape[0], :w.shape[1]] = w
-    return out
+    return _pad2(w.to(torch.bfloat16), rows, cols)
 
 
 def _check(name, x, shape, device):
@@ -198,17 +202,30 @@ def _fn(source: str, name: str, n_ptr: int, n_int: int):
     """The C launch function `name` of csrc/<source>.cu with its argtypes:
     n_ptr pointers, n_int ints, then grid_bound, opaque_last, density_bias
     and the stream."""
+    return _cfn(source, name, [_P] * n_ptr + [_I] * n_int + [_F, _I, _F, _P])
+
+
+def _cfn(source: str, name: str, argtypes):
+    """The C function `name` of csrc/<source>.cu with the given argtypes,
+    returning an int."""
     lib = cuda_lib.load(source)
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_F, _I, _F, _P]
+        fn.argtypes = argtypes
         fn.restype = _I
     return lib, fn
 
 
-def _max_ctas(device) -> int:
-    """CTAs of the backward kernels: one per SM, each with its own dW slab."""
+def _sm_count(device) -> int:
+    """Streaming multiprocessors of the card: the weight-grad GEMM sizes
+    its split-K count by it."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _pad2(x, rows: int, cols: int):
+    out = x.new_zeros((rows, cols))
+    out[:x.shape[0], :x.shape[1]] = x
+    return out
 
 
 def _device(x):
@@ -534,18 +551,19 @@ def _compositing_bwd(raw, delta, G, opaque_last: bool, db: float):
     return torch.stack(d_raw, dim=1), torch.stack(w, dim=1)
 
 
-def _trunk_bwd(dh, ws, inputs, skip_layer: int, extra_rows: int):
-    """Trunk backward with the kernels' rounding points: dh [M, out] fp32
-    grad of the last layer's output, inputs the layers' inputs [M, in].
-    Returns (dW list [out, in], grad of the trailing extra_rows input
-    columns [M, extra_rows] through layer 0 and the skip re-entry, or
-    None)."""
+def _trunk_bwd_operands(dh, ws, inputs, skip_layer: int, extra_rows: int):
+    """Trunk backward with the kernels' rounding points, up to the weight
+    products: dh [M, out] fp32 grad of the last layer's output, inputs the
+    layers' inputs [M, in].  Returns (per-layer operands (d [M, out],
+    x [M, in]), bf16-valued, with dW_l = d_l^T x_l; grad of the trailing
+    extra_rows input columns [M, extra_rows] through layer 0 and the skip
+    re-entry, or None)."""
     d = bf16_round(dh)
-    dws = [None] * len(ws)
+    pairs = [None] * len(ws)
     d_extra = None
     n_in0 = inputs[0].shape[1]
     for l in range(len(ws) - 1, -1, -1):
-        dws[l] = d.t() @ inputs[l]
+        pairs[l] = (d, inputs[l])
         if l == 0:
             if extra_rows:
                 de = d @ bf16_round(ws[0])[:, -extra_rows:]
@@ -560,7 +578,28 @@ def _trunk_bwd(dh, ws, inputs, skip_layer: int, extra_rows: int):
                 d_extra = de if d_extra is None else d_extra + de
             da, act = da[:, :rows], act[:, :rows]
         d = bf16_round(torch.where(act > 0, da, 0.0))
-    return dws, d_extra
+    return pairs, d_extra
+
+
+def weight_grads_ref(pairs):
+    """Plain version of the weight-grad products: dW_l = d_l^T x_l [out,
+    in] in fp32 from the per-layer operands (d [M, out], x [M, in])."""
+    return [d.float().t() @ x.float() for d, x in pairs]
+
+
+def prop_level_bwd_operands(rays_o, rays_d, real_bins, ws: Sequence, g_w,
+                            freq_degree: int, grid_bound: float,
+                            opaque_last: bool = True,
+                            density_bias: float = 0.0):
+    """Plain first part of K2: the per-layer operands (d [N*T, out],
+    x [N*T, in]), bf16-valued fp32, whose products d^T x are the proposal
+    weights' grads, from g_w = dL/dweights [N, T]."""
+    _, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
+    h, inputs = trunk_with_inputs(_trunk_input(xn, freq_degree)[0], ws, -1)
+    d_raw, _ = _compositing_bwd(h[..., 0], delta, g_w, opaque_last,
+                                density_bias)
+    flat = [x.reshape(-1, x.shape[-1]) for x in inputs]
+    return _trunk_bwd_operands(d_raw.reshape(-1, 1), ws, flat, -1, 0)[0]
 
 
 def prop_level_bwd_ref(rays_o, rays_d, real_bins, ws: Sequence, g_w,
@@ -568,27 +607,36 @@ def prop_level_bwd_ref(rays_o, rays_d, real_bins, ws: Sequence, g_w,
                        opaque_last: bool = True, density_bias: float = 0.0):
     """Plain twin of K2: the proposal weights' grads [out, in] from
     g_w = dL/dweights [N, T]."""
-    _, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
-    h, inputs = trunk_with_inputs(_trunk_input(xn, freq_degree)[0], ws, -1)
-    d_raw, _ = _compositing_bwd(h[..., 0], delta, g_w, opaque_last,
-                                density_bias)
-    flat = [x.reshape(-1, x.shape[-1]) for x in inputs]
-    return _trunk_bwd(d_raw.reshape(-1, 1), ws, flat, -1, 0)[0]
+    return weight_grads_ref(prop_level_bwd_operands(
+        rays_o, rays_d, real_bins, ws, g_w, freq_degree, grid_bound,
+        opaque_last, density_bias))
 
 
-def fused_prop_level_bwd(rays_o, rays_d, real_bins, ws: Sequence, g_w,
-                         freq_degree: int, grid_bound: float,
-                         opaque_last: bool = True, density_bias: float = 0.0):
-    """K2: the proposal weights' grads [out, in] (a list of 3) from
-    g_w = dL/dweights [N, T] of K1's weights."""
+def _prop_slab(H: int, kin: int):
+    """Sizes of K2's slab: dW0 [H, KIN] | dW1 [H, H] | dW2 [16, H]."""
+    return H * kin, H * H, 16 * H
+
+
+def prop_level_bwd_partials(rays_o, rays_d, real_bins, ws: Sequence, g_w,
+                            freq_degree: int, grid_bound: float,
+                            opaque_last: bool = True,
+                            density_bias: float = 0.0):
+    """K2's first kernel: partial weight grads [G, slab], one slab a CTA
+    (dW0 [H, KIN] | dW1 [H, H] | dW2 [16, H], flattened and padded as the
+    kernels take the weights), whose sum over G in order
+    (`reduce_partials`) is the weights' grads.  On CPU tensors the plain
+    version: the twin's grads as one slab [1, slab]."""
     if rays_o.device.type == "cpu":
-        return prop_level_bwd_ref(rays_o, rays_d, real_bins, ws, g_w,
-                                  freq_degree, grid_bound, opaque_last,
-                                  density_bias)
+        dws = prop_level_bwd_ref(rays_o, rays_d, real_bins, ws, g_w,
+                                 freq_degree, grid_bound, opaque_last,
+                                 density_bias)
+        H, kin = ws[1].shape[0], _round16(ws[0].shape[1])
+        return torch.cat([_pad2(dws[0], H, kin).flatten(),
+                          dws[1].flatten(),
+                          _pad2(dws[2], 16, H).flatten()])[None]
     dev = _device(rays_o)
     N, T = rays_o.shape[0], real_bins.shape[1] - 1
     (w0, w1, w2), H, kin = _prop_weights(ws, freq_degree, dev, "K2")
-    nf = 3 + 6 * freq_degree
     if N == 0 or T < 1:
         raise ValueError(f"unsupported K2 shape: N {N}, T {T}")
     for name, x, shape in (("rays_o", rays_o, (N, 3)),
@@ -596,19 +644,68 @@ def fused_prop_level_bwd(rays_o, rays_d, real_bins, ws: Sequence, g_w,
                            ("real_bins", real_bins, (N, T + 1)),
                            ("g_w", g_w, (N, T))):
         _check(name, x, shape, dev)
-    sizes = (H * kin, H * H, 16 * H)
-    ctas = _max_ctas(dev)
-    part = torch.empty((ctas, sum(sizes)), dtype=torch.float32, device=dev)
-    out = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
-    lib, fn = _fn("render_level_bwd", "sanerf_prop_level_bwd", 9, 6)
+    # a slab a CTA: the kernel's own grid at this shape
+    n_part = ctypes.c_int(0)
+    lib, slabs = _cfn("render_level_bwd", "sanerf_prop_level_bwd_slabs",
+                      [_I, _I, _I, _I, _P])
+    cuda_lib.check(lib, slabs(N, T, H, kin, ctypes.byref(n_part)),
+                   "prop_level_bwd_partials")
+    part = torch.empty((n_part.value, sum(_prop_slab(H, kin))),
+                       dtype=torch.float32, device=dev)
+    lib, fn = _fn("render_level_bwd", "sanerf_prop_level_bwd", 8, 6)
     rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(w0), _ptr(w1),
-            _ptr(w2), _ptr(g_w), _ptr(part), _ptr(out), ctas, N, T,
+            _ptr(w2), _ptr(g_w), _ptr(part), n_part.value, N, T,
             freq_degree, H, kin, grid_bound, int(opaque_last), density_bias,
             _stream(dev))
-    cuda_lib.check(lib, rc, "fused_prop_level_bwd")
+    cuda_lib.check(lib, rc, "prop_level_bwd_partials")
+    prop_level_bwd_partials.launches += 1
+    return part
+
+
+prop_level_bwd_partials.launches = 0
+
+
+def reduce_partials(part):
+    """Sum of part [G, slab] over G in row order, fp32 (the second kernel of
+    K2 and of K4's weight grads); on a CPU tensor `part.sum(0)`."""
+    if part.device.type == "cpu":
+        return part.sum(0)
+    dev = _device(part)
+    if part.dtype != torch.float32 or part.dim() != 2 or \
+            not part.is_contiguous() or 0 in part.shape:
+        raise ValueError("reduce_partials takes a non-empty contiguous "
+                         f"float32 [G, slab], got {part.dtype} "
+                         f"{tuple(part.shape)}")
+    out = torch.empty((part.shape[1],), dtype=torch.float32, device=dev)
+    lib, fn = _cfn("render_level_bwd", "sanerf_reduce_partials",
+                   [_P, _P, _I, _I, _P])
+    rc = fn(_ptr(part), _ptr(out), part.shape[0], part.shape[1], _stream(dev))
+    cuda_lib.check(lib, rc, "reduce_partials")
+    reduce_partials.launches += 1
+    return out
+
+
+reduce_partials.launches = 0
+
+
+def fused_prop_level_bwd(rays_o, rays_d, real_bins, ws: Sequence, g_w,
+                         freq_degree: int, grid_bound: float,
+                         opaque_last: bool = True, density_bias: float = 0.0):
+    """K2: the proposal weights' grads [out, in] (a list of 3) from
+    g_w = dL/dweights [N, T] of K1's weights: `prop_level_bwd_partials`,
+    then `reduce_partials`."""
+    if rays_o.device.type == "cpu":
+        return prop_level_bwd_ref(rays_o, rays_d, real_bins, ws, g_w,
+                                  freq_degree, grid_bound, opaque_last,
+                                  density_bias)
+    part = prop_level_bwd_partials(rays_o, rays_d, real_bins, ws, g_w,
+                                   freq_degree, grid_bound, opaque_last,
+                                   density_bias)
+    H, nf = ws[1].shape[0], 3 + 6 * freq_degree
+    sizes = _prop_slab(H, _round16(nf))
+    d0, d1, d2 = reduce_partials(part).split(sizes)
     fused_prop_level_bwd.launches += 1
-    d0, d1, d2 = out.split(sizes)
-    return [d0.view(H, kin)[:, :nf].contiguous(), d1.view(H, H),
+    return [d0.view(H, -1)[:, :nf].contiguous(), d1.view(H, H),
             d2.view(16, H)[:1].contiguous()]
 
 
@@ -622,6 +719,23 @@ def final_level_bwd_ref(rays_o, rays_d, real_bins, sh, ws: Sequence, g_f,
                         cps: Sequence = (), cp_res: int = 0):
     """Plain twin of K4: (trunk grads [out, in], CP basis grads
     [cp_res, rank]) from the grads of K3's four outputs."""
+    pairs, dcps = final_level_bwd_operands(
+        rays_o, rays_d, real_bins, sh, ws, g_f, g_depth, g_wsum, g_w,
+        freq_degree, skip_layer, grid_bound, opaque_last, density_bias, cps,
+        cp_res)
+    return weight_grads_ref(pairs), dcps
+
+
+def final_level_bwd_operands(rays_o, rays_d, real_bins, sh, ws: Sequence,
+                             g_f, g_depth, g_wsum, g_w, freq_degree: int,
+                             skip_layer: int, grid_bound: float,
+                             opaque_last: bool = True,
+                             density_bias: float = 0.0, cps: Sequence = (),
+                             cp_res: int = 0):
+    """Plain first part of K4: (per-layer operands (d [N*T, out],
+    x [N*T, in]), bf16-valued fp32, whose products d^T x are the trunk
+    grads; CP basis grads [cp_res, rank]) from the grads of K3's four
+    outputs."""
     t, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
     h_in, cp = _trunk_input(xn, freq_degree, cps, cp_res)
     h, inputs = trunk_with_inputs(h_in, ws, skip_layer)
@@ -633,10 +747,10 @@ def final_level_bwd_ref(rays_o, rays_d, real_bins, sh, ws: Sequence, g_f,
     dh = torch.cat([d_raw[..., None], w[..., None] * g_f[:, None, :GEO]], -1)
     rank = cps[0].shape[1] if cps else 0
     flat = [x.reshape(-1, x.shape[-1]) for x in inputs]
-    dws, d_extra = _trunk_bwd(dh.reshape(-1, dh.shape[-1]), ws, flat,
-                              skip_layer, rank)
+    pairs, d_extra = _trunk_bwd_operands(dh.reshape(-1, dh.shape[-1]), ws,
+                                         flat, skip_layer, rank)
     if not cps:
-        return dws, []
+        return pairs, []
     lines, i0, f = cp
     lines = [x.reshape(-1, rank) for x in lines]
     i0, f = i0.reshape(-1, 3), f.reshape(-1, 3)
@@ -648,22 +762,27 @@ def final_level_bwd_ref(rays_o, rays_d, real_bins, sh, ws: Sequence, g_f,
         g.index_add_(0, i0[:, a], d_lines[a] * (1.0 - f[:, a, None]))
         g.index_add_(0, i0[:, a] + 1, d_lines[a] * f[:, a, None])
         dcps.append(g)
-    return dws, dcps
+    return pairs, dcps
 
 
-def fused_final_level_bwd(rays_o, rays_d, real_bins, sh, ws: Sequence, g_f,
+def final_level_bwd_stash(rays_o, rays_d, real_bins, sh, ws: Sequence, g_f,
                           g_depth, g_wsum, g_w, freq_degree: int,
                           skip_layer: int, grid_bound: float,
                           opaque_last: bool = True, density_bias: float = 0.0,
                           cps: Sequence = (), cp_res: int = 0):
-    """K4: (trunk grads [out, in] (4), CP basis grads [cp_res, rank] (3 or
-    none)) from g_f [N, 31], g_depth, g_wsum [N] and g_w [N, T], the grads
-    of K3's outputs."""
+    """K4's first kernel: (the trunk's weight-product operands [(d, x)] a
+    layer, CP basis grads [cp_res, rank] (3 or none)) from the grads of
+    K3's outputs, as final_level_bwd_operands.  On the card the operands
+    are bf16 views of one stash in device memory, N*T rows, with the
+    kernels' padded widths: x0 = h_in [KIN], x2 = [A2 | h_in] [H+KIN] (the
+    same rows), padding columns zero; d3 [16].  On CPU tensors the plain
+    version, final_level_bwd_operands."""
     if rays_o.device.type == "cpu":
-        return final_level_bwd_ref(rays_o, rays_d, real_bins, sh, ws, g_f,
-                                   g_depth, g_wsum, g_w, freq_degree,
-                                   skip_layer, grid_bound, opaque_last,
-                                   density_bias, cps, cp_res)
+        return final_level_bwd_operands(rays_o, rays_d, real_bins, sh, ws,
+                                        g_f, g_depth, g_wsum, g_w,
+                                        freq_degree, skip_layer, grid_bound,
+                                        opaque_last, density_bias, cps,
+                                        cp_res)
     dev = _device(rays_o)
     N, T = rays_o.shape[0], real_bins.shape[1] - 1
     (w0, w1, w2, w3), H, nin, kin, rank = _final_weights(
@@ -678,26 +797,119 @@ def fused_final_level_bwd(rays_o, rays_d, real_bins, sh, ws: Sequence, g_f,
                            ("g_depth", g_depth, (N,)),
                            ("g_wsum", g_wsum, (N,)), ("g_w", g_w, (N, T))):
         _check(name, x, shape, dev)
-    sizes = (H * kin, H * H, H * (H + kin), 16 * H)
-    ctas = _max_ctas(dev)
-    part = torch.empty((ctas, sum(sizes)), dtype=torch.float32, device=dev)
-    out = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    P = N * T
+    widths = (H + kin, H, H, 16, H, H, H)  # xb, a1, a3, d3, d2, d1, d0
+    stash = torch.empty((P * sum(widths),), dtype=torch.bfloat16, device=dev)
+    xb, a1, a3, d3, d2, d1, d0 = (
+        v.view(P, w) for v, w in zip(stash.split([P * w for w in widths]),
+                                     widths))
+    # fp32 scratch: the last layer's output [P, 16], the contracted
+    # positions [P, 3] and the CP features' grad [P, rank]
+    f, xn, e = torch.empty((P * (16 + 3 + rank),), dtype=torch.float32,
+                           device=dev).split([P * 16, P * 3, P * rank])
     dcps = [torch.zeros_like(c) for c in cps]
     null = ctypes.c_void_p(0)
     cp_ptrs = [_ptr(c) for c in cps] if cps else [null] * 3
     dcp_ptrs = [_ptr(c) for c in dcps] if cps else [null] * 3
-    lib, fn = _fn("render_level_bwd", "sanerf_final_level_bwd", 20, 8)
+    # the dA products take the weights transposed, [in, out]
+    wts = [w.t().contiguous() for w in (w0, w1, w2, w3)]
+    lib, fn = _fn("render_level_bwd", "sanerf_final_level_bwd", 32, 7)
     rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(sh), _ptr(w0),
-            _ptr(w1), _ptr(w2), _ptr(w3), *cp_ptrs, _ptr(g_f), _ptr(g_depth),
-            _ptr(g_wsum), _ptr(g_w), _ptr(part), _ptr(out), *dcp_ptrs, ctas,
-            N, T, freq_degree, rank, cp_res, H, kin, grid_bound,
-            int(opaque_last), density_bias, _stream(dev))
-    cuda_lib.check(lib, rc, "fused_final_level_bwd")
+            _ptr(w1), _ptr(w2), _ptr(w3), *(_ptr(w) for w in wts), *cp_ptrs,
+            _ptr(g_f), _ptr(g_depth),
+            _ptr(g_wsum), _ptr(g_w), *(_ptr(x) for x in (xb, a1, a3, d3, d2,
+                                                         d1, d0)),
+            _ptr(f), _ptr(xn), _ptr(e) if rank else null, *dcp_ptrs, N, T,
+            freq_degree, rank, cp_res, H, kin, grid_bound, int(opaque_last),
+            density_bias, _stream(dev))
+    cuda_lib.check(lib, rc, "final_level_bwd_stash")
+    final_level_bwd_stash.launches += 1
+    return [(d0, xb[:, H:]), (d1, a1), (d2, xb), (d3, a3)], dcps
+
+
+final_level_bwd_stash.launches = 0
+
+
+def _gemm_splits(pairs, device) -> int:
+    """Split-K count of the weight-grad GEMM: as many as two CTAs an SM
+    hold at once over all 128 x 128 output tiles (one wave), at least 1024
+    points a split.  A function of the shapes and the card only, so the
+    sums' order is the same on every run."""
+    tiles = sum(-(-d.shape[1] // 128) * -(-x.shape[1] // 128)
+                for d, x in pairs)
+    points = pairs[0][0].shape[0]
+    return max(1, min(2 * _sm_count(device) // tiles, -(-points // 1024)))
+
+
+def weight_grads(pairs):
+    """K4's second kernel: dW_l = d_l^T x_l [m, n] fp32 for up to four
+    operand pairs (d [P, m], x [P, n]) over the same P points: a
+    hand-written split-K GEMM (128 x 128 tiles, cp.async ring, wgmma) and
+    the reduction of its splits in order, so the result is the same bits
+    on every run.  On the card each operand is a bf16 matrix with unit
+    column stride, a row stride that is a multiple of 8, a 16-byte aligned
+    start and a multiple of 16 columns.  On CPU tensors the plain version,
+    weight_grads_ref."""
+    if pairs[0][0].device.type == "cpu":
+        return weight_grads_ref(pairs)
+    dev = _device(pairs[0][0])
+    P = pairs[0][0].shape[0]
+    if not 1 <= len(pairs) <= 4:
+        raise ValueError(f"weight_grads takes 1 to 4 pairs, got {len(pairs)}")
+    desc = []
+    for i, (d, x) in enumerate(pairs):
+        for name, t in (("d", d), ("x", x)):
+            if t.device != dev or t.dtype != torch.bfloat16 or t.dim() != 2 \
+                    or t.shape[0] != P or t.shape[1] % 16 or t.stride(1) != 1 \
+                    or t.stride(0) % 8 or t.data_ptr() % 16:
+                raise ValueError(
+                    f"weight_grads: {name}{i} must be a bf16 [{P}, 16k] "
+                    f"matrix on {dev} with unit column stride, a row stride "
+                    f"a multiple of 8 and a 16-byte aligned start; got "
+                    f"{t.dtype} {tuple(t.shape)} stride {t.stride()} on "
+                    f"{t.device}")
+        desc += [d.data_ptr(), x.data_ptr(), d.stride(0), x.stride(0),
+                 d.shape[1], x.shape[1]]
+    sizes = [d.shape[1] * x.shape[1] for d, x in pairs]
+    splits = _gemm_splits(pairs, dev)
+    part = torch.empty((splits, sum(sizes)), dtype=torch.float32, device=dev)
+    out = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    lib, fn = _cfn("render_level_bwd", "sanerf_weight_grads",
+                   [_P, _I, ctypes.c_longlong, _I, _P, _P, _P])
+    rc = fn((ctypes.c_longlong * len(desc))(*desc), len(pairs), P, splits,
+            _ptr(part), _ptr(out), _stream(dev))
+    cuda_lib.check(lib, rc, "weight_grads")
+    weight_grads.launches += 1
+    return [o.view(d.shape[1], x.shape[1])
+            for o, (d, x) in zip(out.split(sizes), pairs)]
+
+
+weight_grads.launches = 0
+
+
+def fused_final_level_bwd(rays_o, rays_d, real_bins, sh, ws: Sequence, g_f,
+                          g_depth, g_wsum, g_w, freq_degree: int,
+                          skip_layer: int, grid_bound: float,
+                          opaque_last: bool = True, density_bias: float = 0.0,
+                          cps: Sequence = (), cp_res: int = 0):
+    """K4: (trunk grads [out, in] (4), CP basis grads [cp_res, rank] (3 or
+    none)) from g_f [N, 31], g_depth, g_wsum [N] and g_w [N, T], the grads
+    of K3's outputs: `final_level_bwd_stash`, then `weight_grads`."""
+    if rays_o.device.type == "cpu":
+        return final_level_bwd_ref(rays_o, rays_d, real_bins, sh, ws, g_f,
+                                   g_depth, g_wsum, g_w, freq_degree,
+                                   skip_layer, grid_bound, opaque_last,
+                                   density_bias, cps, cp_res)
+    pairs, dcps = final_level_bwd_stash(rays_o, rays_d, real_bins, sh, ws,
+                                        g_f, g_depth, g_wsum, g_w,
+                                        freq_degree, skip_layer, grid_bound,
+                                        opaque_last, density_bias, cps,
+                                        cp_res)
+    dw0, dw1, dw2, dw3 = weight_grads(pairs)
+    H, nin = ws[1].shape[0], ws[0].shape[1]
     fused_final_level_bwd.launches += 1
-    d0, d1, d2, d3 = out.split(sizes)
-    return [d0.view(H, kin)[:, :nin].contiguous(), d1.view(H, H),
-            d2.view(H, H + kin)[:, :H + nin].contiguous(),
-            d3.view(16, H)], dcps
+    return [dw0[:, :nin].contiguous(), dw1, dw2[:, :H + nin].contiguous(),
+            dw3], dcps
 
 
 fused_final_level_bwd.launches = 0

@@ -1,5 +1,7 @@
 """CUDA kernels K5, K3, K6, K1, K2, K4, K7, K8 and K10 against their plain
-twins on the card, at shapes the flagship smoke (chip_smoke.py) does not
+twins on the card, and the parts of K2 (partial slabs, their reduction)
+and K4 (the stash of the weight products' operands, the weight-grad GEMM)
+against their plain parts, at shapes the flagship smoke (chip_smoke.py) does not
 reach: ragged ray and point counts, sample counts that do not divide a pass
 or span several passes, other widths and layer counts, no CP features;
 plus the wrappers' input checks and launch counts, the backward kernels'
@@ -10,8 +12,10 @@ the card, where JAX (which tests/conftest.py imports) is not installed:
 `python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py`.
 Tolerances as chip_smoke.py: 1e-3 abs on the s-bins of K5 and K1, rel-max
 2e-2 on K3's outputs, K1's and K7's weights, K8's outputs and grads and the
-weight and CP grads of K2 and K4, 1e-6 abs on K10's resampled edges (rows
-with ties included).
+weight and CP grads of K2 and K4, rel-max 1e-4 on the weight-grad GEMM
+against the fp32 product of the same operands, rel-L2 1e-2 on the
+operands K4's first kernel stashes, 1e-6 abs on K10's resampled edges
+(rows with ties included).
 """
 import pytest
 import torch
@@ -226,17 +230,18 @@ def test_final_bwd_kernel_matches_twin(dev, N, T, hidden, rank):
 
 def test_training_functions_launch_their_kernels(dev):
     """One forward and backward of each autograd Function launches K1 and
-    K2, and K3 and K4, once each."""
+    K2, and K3 and K4, once each, and each part of K2 and K4 once."""
     N, T, Q = 256, 32, 17
     ro, rd, real, s = _rays(dev, N, T)
     g = torch.Generator().manual_seed(7)
     pws = [_w(dev, g, 64, 39).requires_grad_(), _w(dev, g, 64, 64)
            .requires_grad_(), _w(dev, g, 1, 64).requires_grad_()]
     u = stratified_queries(N, Q, dev).contiguous()
-    counts = [f.launches for f in (rl.fused_prop_level_sample_train,
-                                   rl.fused_prop_level_bwd,
-                                   rl.fused_final_level,
-                                   rl.fused_final_level_bwd)]
+    counted = (rl.fused_prop_level_sample_train, rl.fused_prop_level_bwd,
+               rl.fused_final_level, rl.fused_final_level_bwd,
+               rl.prop_level_bwd_partials, rl.reduce_partials,
+               rl.final_level_bwd_stash, rl.weight_grads)
+    counts = [f.launches for f in counted]
     w, _ = rl.prop_level_train_sample(ro, rd, real, s, u, pws, 6, 2.0)
     w.square().sum().backward()
     tws = [_w(dev, g, 64, 67), _w(dev, g, 64, 64), _w(dev, g, 64, 131),
@@ -249,11 +254,7 @@ def test_training_functions_launch_their_kernels(dev):
                                cp_res=16)
     sum(o.square().sum() for o in out).backward()
     torch.cuda.synchronize()
-    assert [f.launches for f in (rl.fused_prop_level_sample_train,
-                                 rl.fused_prop_level_bwd,
-                                 rl.fused_final_level,
-                                 rl.fused_final_level_bwd)] == [
-        c + 1 for c in counts]
+    assert [f.launches for f in counted] == [c + 1 for c in counts]
     for p in pws + tws + cps:
         assert p.grad is not None and torch.isfinite(p.grad).all()
 
@@ -445,3 +446,113 @@ def test_prop_weights_wrapper_checks_inputs(dev):
     with pytest.raises(ValueError, match="3-layer"):
         rl.fused_prop_level(ro, rd, real, ws[:2], 6, 2.0)
     assert rl.fused_prop_level.launches == before
+
+
+def _rel_l2(a, b):
+    return ((a - b).norm() / b.norm().clamp_min(1e-12)).item()
+
+
+def _final_case(dev, N, T, hidden, rank, seed):
+    ro, rd, real, _ = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(seed)
+    nin = 63 + rank
+    ws = [_w(dev, g, hidden, nin), _w(dev, g, hidden, hidden),
+          _w(dev, g, hidden, hidden + nin), _w(dev, g, 16, hidden)]
+    cps = [(torch.randn(64, rank, generator=g) * 0.3).to(dev)
+           for _ in range(3)] if rank else []
+    sh = torch.randn(N, 16, generator=g).to(dev)
+    cots = [torch.randn(*shape, generator=g).to(dev)
+            for shape in [(N, 31), (N,), (N,), (N, T)]]
+    return (ro, rd, real, sh, ws, *cots, 10, 2, 2.0, True, -0.5, cps, 64)
+
+
+@pytest.mark.parametrize("N,T,hidden,rank", [
+    (333, 8, 256, 64),    # 8 rays a group, N not a multiple of it
+    (101, 48, 64, 16),    # one ray a group, 16 idle points
+    (65, 128, 256, 64),   # one ray over two passes
+    (37, 200, 128, 0),    # one ray over four passes, no CP features
+])
+def test_final_bwd_stash_matches_plain_part(dev, N, T, hidden, rank):
+    """K4's first kernel: the stash's operands against the plain
+    final_level_bwd_operands (sliced to the real widths; the padding
+    columns zero) and the CP grads against the plain ones.  The operands
+    are held by rel-L2 < 1e-2: an activation within a bf16 rounding of 0
+    can fall on either side of the relu mask, and then a grad element
+    differs by its whole value; their products d^T x are held at rel-max
+    2e-2, as the kernels' weight grads."""
+    args = _final_case(dev, N, T, hidden, rank, 14)
+    pairs, dcps = rl.final_level_bwd_stash(*args)
+    want, want_c = rl.final_level_bwd_operands(*args)
+    torch.cuda.synchronize()
+    nin = 63 + rank
+    assert not pairs[0][1][:, nin:].float().abs().any()
+    for l, ((d, x), (wd, wx)) in enumerate(zip(pairs, want)):
+        d, x = d[:, :wd.shape[1]].float(), x[:, :wx.shape[1]].float()
+        assert d.shape == wd.shape and x.shape == wx.shape, l
+        assert torch.isfinite(d).all() and torch.isfinite(x).all(), l
+        assert _rel_l2(d, wd) < 1e-2, ("d", l, _rel_l2(d, wd))
+        assert _rel_l2(x, wx) < 1e-2, ("x", l, _rel_l2(x, wx))
+    for a, (x, y) in enumerate(zip(dcps, want_c)):
+        assert _rel(x, y) < 2e-2, ("dcp", a, _rel(x, y))
+
+
+@pytest.mark.parametrize("P,widths", [
+    (1000, [(64, 48), (64, 64), (16, 64)]),          # the proposal MLP
+    (4133, [(256, 128), (256, 256), (256, 384), (16, 256)]),  # the trunk
+    (77, [(32, 16)]),                                  # fewer points than a K tile
+    (40961, [(128, 80)]),                              # many splits
+])
+def test_weight_grads_kernel_matches_plain(dev, P, widths):
+    """K4's second kernel against d^T x in fp32 on the same bf16 operands,
+    at point counts that are not a multiple of its K tile, with an operand
+    that is a column slice of another's rows: rel-max < 1e-4, since both
+    sum exact bf16 products in fp32 and differ only in the sums' order (a
+    bf16 rounding of dW, or sums in bf16 or tf32, would fail it); bitwise
+    equal over two launches."""
+    g = torch.Generator().manual_seed(15)
+    pairs = []
+    for m, n in widths:
+        d = torch.randn(P, m, generator=g).to(dev, torch.bfloat16)
+        x = torch.randn(P, n + 16, generator=g).to(dev, torch.bfloat16)
+        pairs.append((d, x[:, 16:]))
+    got = rl.weight_grads(pairs)
+    again = rl.weight_grads(pairs)
+    want = rl.weight_grads_ref(pairs)
+    torch.cuda.synchronize()
+    for i, (a, b, c) in enumerate(zip(got, want, again)):
+        assert a.shape == b.shape, i
+        assert _rel(a, b) < 1e-4, (i, _rel(a, b))
+        assert torch.equal(a, c), i
+    with pytest.raises(ValueError, match="bf16"):
+        rl.weight_grads([(pairs[0][0].float(), pairs[0][1])])
+
+
+@pytest.mark.parametrize("N,T,hidden", [
+    (333, 8, 64),     # 16 rays a group, N not a multiple of it
+    (1001, 48, 64),   # two rays a group, 32 idle points
+    (4099, 128, 64),  # flagship shape, ragged
+    (97, 200, 64),    # one ray over two passes
+    (300, 128, 256),  # dW too wide for registers: the slab path
+])
+def test_prop_bwd_parts_match_plain(dev, N, T, hidden):
+    """K2's two kernels: the partial slabs' sum against the twin, and the
+    reduction in CTA order against part.sum(0)."""
+    ro, rd, real, _ = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(16)
+    ws = [_w(dev, g, hidden, 39), _w(dev, g, hidden, hidden),
+          _w(dev, g, 1, hidden)]
+    g_w = torch.randn(N, T, generator=g).to(dev)
+    args = (ro, rd, real, ws, g_w, 6, 2.0, True, -0.5)
+    part = rl.prop_level_bwd_partials(*args)
+    want = rl.prop_level_bwd_ref(*args)
+    red = rl.reduce_partials(part)
+    torch.cuda.synchronize()
+    H, kin = hidden, 48
+    assert part.shape[0] >= 1 and part.shape[1] == H * kin + H * H + 16 * H
+    d0, d1, d2 = part.sum(0).split([H * kin, H * H, 16 * H])
+    for i, (a, b) in enumerate(zip(
+            (d0.view(H, kin)[:, :39], d1.view(H, H), d2.view(16, H)[:1]),
+            want)):
+        assert _rel(a, b) < 2e-2, (i, _rel(a, b))
+    assert _rel(red, part.sum(0)) < 1e-5
+    assert torch.equal(red, rl.reduce_partials(part))

@@ -359,3 +359,150 @@ def test_bwd_wrappers_dispatch_only_cpu_tensors_to_twins():
                                  tws, *(torch.ones(s, device="meta") for s in
                                         [(n, 31), (n,), (n,), (n, T)]),
                                  10, 2, 2.0)
+
+
+def _trunk_bwd_unsplit(dh, ws, inputs, skip_layer, extra_rows):
+    """The trunk backward as one function, as the twins computed it before
+    they were split at the weight products: dW_l = d^T x_l formed in the
+    loop."""
+    d = rl.bf16_round(dh)
+    dws, d_extra, n_in0 = [None] * len(ws), None, inputs[0].shape[1]
+    for l in range(len(ws) - 1, -1, -1):
+        dws[l] = d.t() @ inputs[l]
+        if l == 0:
+            if extra_rows:
+                de = d @ rl.bf16_round(ws[0])[:, -extra_rows:]
+                d_extra = de if d_extra is None else d_extra + de
+            break
+        da, act = d @ rl.bf16_round(ws[l]), inputs[l]
+        if l == skip_layer:
+            rows = act.shape[1] - n_in0
+            if extra_rows:
+                de = da[:, rows + n_in0 - extra_rows:]
+                d_extra = de if d_extra is None else d_extra + de
+            da, act = da[:, :rows], act[:, :rows]
+        d = rl.bf16_round(torch.where(act > 0, da, 0.0))
+    return dws, d_extra
+
+
+@pytest.mark.parametrize("skip_layer,extra_rows", [(-1, 0), (2, 4)])
+def test_split_trunk_bwd_reproduces_the_unsplit_one(skip_layer, extra_rows):
+    """The operands half of the trunk backward, then d^T x, gives the
+    unsplit trunk backward's weight grads and extra-row grad bit for bit."""
+    rng = np.random.default_rng(20)
+    M, nin, hidden = 96, 27 + extra_rows, 32
+    if skip_layer < 0:
+        shapes = [(hidden, nin), (hidden, hidden), (1, hidden)]
+    else:
+        shapes = [(hidden, nin), (hidden, hidden), (hidden, hidden + nin),
+                  (16, hidden)]
+    ws = [_t(rng.normal(size=s) * 0.3) for s in shapes]
+    h_in = rl.bf16_round(_t(rng.normal(size=(M, nin))))
+    _, inputs = rl.trunk_with_inputs(h_in, ws, skip_layer)
+    dh = _t(rng.normal(size=(M, shapes[-1][0])))
+    pairs, d_extra = rl._trunk_bwd_operands(dh, ws, inputs, skip_layer,
+                                            extra_rows)
+    want, want_extra = _trunk_bwd_unsplit(dh, ws, inputs, skip_layer,
+                                          extra_rows)
+    for got, w in zip(rl.weight_grads_ref(pairs), want):
+        assert torch.equal(got, w)
+    if extra_rows:
+        assert torch.equal(d_extra, want_extra)
+    for d, x in pairs:  # both operands hold bf16 values
+        assert torch.equal(d, rl.bf16_round(d))
+        assert torch.equal(x, rl.bf16_round(x))
+
+
+@pytest.mark.parametrize("hidden", [32, 64])
+def test_prop_bwd_operands_match_pallas_vjp(rays, hidden):
+    """K2's plain first part: one (d, x) pair a layer over the N*T points;
+    their products are the twin's grads bit for bit and match the Pallas
+    VJP."""
+    ro, rd, bins, s_bins, u, _ = rays
+    ws = _prop_ws(21, hidden)
+    g_w = np.random.default_rng(22).normal(size=(N, T)).astype(np.float32)
+    static = (DEG_P, GRID_BOUND, True, DB)
+    jin = [jnp.asarray(a) for a in (ro, rd, bins, s_bins, u)]
+    (_, nb_j), vjp = jax.vjp(
+        lambda *p: rlp.prop_level_train_sample(static, *jin, *p),
+        *(jnp.asarray(w) for w in ws))
+    want = vjp((jnp.asarray(g_w), jnp.zeros_like(nb_j)))
+    args = (_t(ro), _t(rd), _t(bins), [_t(w).T.contiguous() for w in ws],
+            _t(g_w), *static)
+    pairs = rl.prop_level_bwd_operands(*args)
+    assert [(d.shape, x.shape) for d, x in pairs] == [
+        ((N * T, hidden), (N * T, 3 + 6 * DEG_P)),
+        ((N * T, hidden), (N * T, hidden)), ((N * T, 1), (N * T, hidden))]
+    dws = rl.weight_grads_ref(pairs)
+    for i, (a, b, c) in enumerate(zip(dws, rl.prop_level_bwd_ref(*args),
+                                      want)):
+        assert torch.equal(a, b), i
+        assert _rel(a, np.asarray(c).T) < 2e-2, f"dW{i}"
+
+
+@pytest.mark.parametrize("rank", [0, 4])
+def test_final_bwd_operands_match_pallas_vjp(rays, rank):
+    """K4's plain first part: the (d, x) pairs and the CP grads; the
+    products are the twin's grads bit for bit and match the Pallas VJP;
+    x2 is [A2 | h_in] and x0 is h_in, the same rows."""
+    ro, rd, bins, _, _, sh = rays
+    res = 16
+    ws, cps = _final_params(23, rank, res)
+    cots = _final_cotangents(24)
+    static = (DEG_F, 2, GRID_BOUND, True, DB, rank, res)
+    jin = [jnp.asarray(a) for a in (ro, rd, bins, sh)]
+    _, vjp = jax.vjp(lambda *p: rlp.final_level_train(static, *jin, *p),
+                     *(jnp.asarray(x) for x in ws + cps))
+    want = vjp(tuple(jnp.asarray(c) for c in cots))
+    args = (_t(ro), _t(rd), _t(bins), _t(sh),
+            [_t(w).T.contiguous() for w in ws], *(_t(c) for c in cots),
+            DEG_F, 2, GRID_BOUND, True, DB, [_t(c) for c in cps], res)
+    pairs, dcps = rl.final_level_bwd_operands(*args)
+    nin, hidden = 3 + 6 * DEG_F + rank, 32
+    assert [(d.shape[1], x.shape[1]) for d, x in pairs] == [
+        (hidden, nin), (hidden, hidden), (hidden, hidden + nin), (16, hidden)]
+    assert torch.equal(pairs[2][1][:, hidden:], pairs[0][1])
+    ref_w, ref_c = rl.final_level_bwd_ref(*args)
+    for i, (a, b, c) in enumerate(zip(rl.weight_grads_ref(pairs), ref_w,
+                                      want[:4])):
+        assert torch.equal(a, b), i
+        assert _rel(a, np.asarray(c).T) < 2e-2, f"dW{i}"
+    for a, (g, b, c) in enumerate(zip(dcps, ref_c, want[4:])):
+        assert torch.equal(g, b)
+        assert _rel(g, c) < 2e-2, f"dcp{a}"
+
+
+def test_bwd_part_wrappers_run_the_plain_parts_on_cpu(rays):
+    """On CPU tensors each part of K2 and K4 is its plain version, and no
+    kernel launch is counted."""
+    ro, rd, bins, _, _, sh = (_t(a) for a in rays)
+    counters = (rl.prop_level_bwd_partials, rl.reduce_partials,
+                rl.final_level_bwd_stash, rl.weight_grads)
+    before = [f.launches for f in counters]
+    pws = [_t(w).T.contiguous() for w in _prop_ws(25)]
+    g = _t(np.random.default_rng(26).normal(size=(N, T)))
+    args = (ro, rd, bins, pws, g, DEG_P, GRID_BOUND, True, DB)
+    part = rl.prop_level_bwd_partials(*args)
+    want = rl.prop_level_bwd_ref(*args)
+    kin = 48
+    assert part.shape == (1, 64 * kin + 64 * 64 + 16 * 64)
+    d0, d1, d2 = rl.reduce_partials(part).split([64 * kin, 64 * 64, 16 * 64])
+    assert torch.equal(d0.view(64, kin)[:, :39], want[0])
+    assert not d0.view(64, kin)[:, 39:].any()
+    assert torch.equal(d1.view(64, 64), want[1])
+    assert torch.equal(d2.view(16, 64)[:1], want[2])
+    assert not d2.view(16, 64)[1:].any()
+
+    ws, cps = _final_params(27, 4)
+    fargs = (ro, rd, bins, sh, [_t(x).T.contiguous() for x in ws],
+             *(_t(c) for c in _final_cotangents(28)), DEG_F, 2, GRID_BOUND,
+             True, DB, [_t(c) for c in cps], 16)
+    pairs, dcps = rl.final_level_bwd_stash(*fargs)
+    w_pairs, w_dcps = rl.final_level_bwd_operands(*fargs)
+    for (d, x), (wd, wx) in zip(pairs, w_pairs):
+        assert torch.equal(d, wd) and torch.equal(x, wx)
+    dws = rl.weight_grads(pairs)
+    ref_w, ref_c = rl.fused_final_level_bwd(*fargs)
+    for a, b in zip(dws + dcps, ref_w + ref_c):
+        assert torch.equal(a, b)
+    assert [f.launches for f in counters] == before
