@@ -14,7 +14,12 @@ last line:
        s-bins; K3 (final level, CP-64) rel-max < 2e-2 on f_image, depth,
        weights_sum and weights; K6 (K3 with the per-sample trunk features)
        rel-max < 2e-2 on those four and geo, the four bitwise equal to
-       K3's; K5 and K6 also timed at a 6256-ray stage-3 batch;
+       K3's; K5 and K6 also timed at a 6256-ray stage-3 batch; K3's parts
+       on the chunk, each beside its plain part and its bound: the trunk's
+       input (h_in rel-max < 2e-2), the four layer products (rel-max < 2e-2,
+       the fp32 last layer < 1e-4; torch's bf16 matmul of the same
+       operands timed beside each) and the compositing (rel-max < 2e-2),
+       and the peak device memory a chunk's K3 call adds;
      - training, one 8192-ray batch with random cotangents: K1 at both
        proposal levels (bins max abs <= 1e-3 and equal to K5's, weights
        rel-max < 2e-2), K2 at T = 128 and 64 and K4 at T = 32 (rel-max
@@ -50,8 +55,9 @@ last line:
      the eval renders), K7 and K8 never; a finite loss, checkpoints on disk, a later --test
      resuming from them, and the train step rate (host clock around
      synchronised steps), and, traced after phase 9 (see 10), the step's
-     device time by kernel (K1, K2, K3, K4's three GEMMs beside their
-     bounds and its other kernels, the reductions, the rest) and idle
+     device time by kernel (K1, K2, K3's input, products and compositing,
+     K4's three GEMMs beside their bounds and its other kernels, the
+     reductions, the rest) and idle
      share from one device-only torch.profiler trace; K2's and K4's parts
      launch once a call each;
   6. grad parity: on one 8192-ray batch at step 2000 (distortion ramp fully
@@ -150,6 +156,7 @@ from sanerf_hq_tpu_torch.train.steps import (make_mask_train_step,
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "sanerf_hq_tpu_torch/csrc/render_level.cu"
 SOURCE_BWD = "sanerf_hq_tpu_torch/csrc/render_level_bwd.cu"
+SOURCE_GEMM = "sanerf_hq_tpu_torch/csrc/render_level_gemm.cuh"
 SOURCE_PDF = "sanerf_hq_tpu_torch/csrc/sample_pdf.cu"
 SOURCE_MLP = "sanerf_hq_tpu_torch/csrc/fused_mlp.cu"
 TPU_FILE = "sanerf_hq_tpu/ops/render_level_pallas.py"
@@ -353,8 +360,112 @@ def check_kernels(field):
     results["K3"] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
                      "bound_by": by, "max_abs_err": abs_err,
                      "rel_max_err": rel}
+    # the peak device memory one K3 call adds at a chunk: its scratch (xb,
+    # a1, a3 bf16; f, xn fp32) and outputs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    rl.fused_final_level(*call, **args3)
+    torch.cuda.synchronize()
+    scratch = (torch.cuda.max_memory_allocated() - held) / 2**30
+    print(f"[kernel] K3 at a {N}-ray chunk adds {scratch:.4f} GiB of peak "
+          "device memory (scratch and outputs)", flush=True)
+    results["K3"]["peak_memory_gib"] = scratch
+    results["K3"]["parts"] = final_fwd_parts(call, args3, got)
     results["K6"] = check_frozen_kernel(field, call, args3, got)
     return results
+
+
+def final_fwd_parts(call, args3, k3_out):
+    """K3's three kernels on the chunk, each against its plain part and
+    beside its bound: the trunk's input; the four layer products on the
+    operands the kernels give each other (each beside torch's bf16 matmul
+    of the same operands, a yardstick the port does not call); and the
+    compositing of the last product's output (its outputs against the
+    plain part; the weights K3 wrote, bitwise)."""
+    ro, rd, real, sh, ws = call
+    cps, res = args3["cps"], args3["cp_res"]
+    deg, gb = args3["freq_degree"], args3["grid_bound"]
+    N, T = ro.shape[0], real.shape[1] - 1
+    P, H, nin = N * T, ws[1].shape[0], ws[0].shape[1]
+    kin = rl._round16(nin)
+    rows = {}
+
+    h_in, xn = rl.final_level_inputs(ro, rd, real, deg, gb, cps, res,
+                                     hidden=H)
+    want_h, _ = rl.final_level_inputs_ref(ro, rd, real, deg, gb, cps, res)
+    torch.cuda.synchronize()
+    err = (h_in[:, :nin].float() - want_h).abs().max().item()
+    rel = rel_max(h_in[:, :nin].float(), want_h)
+    assert rel < 2e-2, f"K3 inputs rel-max {rel}"
+    del want_h
+    ms = cuda_ms(lambda: rl.final_level_inputs(ro, rd, real, deg, gb, cps,
+                                               res, hidden=H))
+    plain = cuda_ms(lambda: rl.final_level_inputs_ref(ro, rd, real, deg, gb,
+                                                      cps, res))
+    bms, by = bound(nbytes(ro, rd, real, *cps, h_in, xn), 0,
+                    2 * P * 3 * deg)
+    print(f"[kernel] K3 part final_level_inputs: rel-max {rel:.3e} (< 2e-2), "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})",
+          flush=True)
+    rows.update((part_row("final_level_inputs", f"{TPU_FILE}:695", ms, plain,
+                          bms, by, err, source=SOURCE),))
+
+    # the products on the kernels' own operands: h_in a column slice of
+    # the [A2 | h_in] rows, as K3 reads it
+    w0 = rl._bf16_padded(ws[0], H, kin)
+    w2 = rl._bf16_padded(ws[2], H, H + kin)
+    w1, w3 = (w.to(torch.bfloat16).contiguous() for w in (ws[1], ws[3]))
+    xb = torch.zeros(P, H + kin, dtype=torch.bfloat16, device=ro.device)
+    xb[:, H:H + h_in.shape[1]] = h_in
+    del h_in
+    a1 = rl.layer_product(xb[:, H:], w0)
+    xb[:, :H] = rl.layer_product(a1, w1)
+    a3 = rl.layer_product(xb, w2)
+    layers = (("A1", xb[:, H:], w0, True), ("A2", a1, w1, True),
+              ("A3", xb, w2, True), ("F", a3, w3, False))
+    for name, x, w, relu in layers:
+        got = rl.layer_product(x, w, relu)
+        want = rl.layer_product_ref(x, w, relu)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        rel = rel_max(got.float(), want)
+        bar = 2e-2 if relu else 1e-4
+        assert rel < bar, f"K3 product {name} rel-max {rel}"
+        del want
+        ms = cuda_ms(lambda: rl.layer_product(x, w, relu))
+        plain = cuda_ms(lambda: rl.layer_product_ref(x, w, relu))
+        lib = cuda_ms(lambda: x @ w.t())
+        bms, by = bound(nbytes(x, w, got), 2 * P * x.shape[1] * w.shape[0],
+                        0)
+        print(f"[kernel] K3 product {name} [{P} x {x.shape[1]}] x "
+              f"[{x.shape[1]} x {w.shape[0]}]: rel-max {rel:.3e} "
+              f"(< {bar:g}), {ms:.4f} ms, plain {plain:.4f} ms, torch bf16 "
+              f"matmul {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+        rows.update((part_row(f"layer_product {name}", f"{TPU_FILE}:695", ms,
+                              plain, bms, by, err, lib,
+                              source=SOURCE_GEMM),))
+    f = got
+    del xb, a1, a3
+
+    out = rl.final_composite(f, real, sh, args3["opaque_last"],
+                             args3["density_bias"])
+    ref = rl.final_composite_ref(f, real, sh, args3["opaque_last"],
+                                 args3["density_bias"])
+    torch.cuda.synchronize()
+    rels = [rel_max(a, b) for a, b in zip(out[:4], ref[:4])]
+    assert max(rels) < 2e-2, f"K3 compositing rel-max {rels}"
+    assert torch.equal(out[3], k3_out[3]), "the weights differ from K3's"
+    err = max((a - b).abs().max().item() for a, b in zip(out[:4], ref[:4]))
+    ms = cuda_ms(lambda: rl.final_composite(f, real, sh))
+    plain = cuda_ms(lambda: rl.final_composite_ref(f, real, sh))
+    bms, by = bound(nbytes(f, real, sh, *out[:4]), 0, 0)
+    print(f"[kernel] K3 part final_composite: rel-max {max(rels):.3e} "
+          f"(< 2e-2), weights bitwise K3's, {ms:.4f} ms, plain {plain:.4f} "
+          f"ms, bound {bms:.4f} ms ({by})", flush=True)
+    rows.update((part_row("final_composite", f"{TPU_FILE}:695", ms, plain,
+                          bms, by, err, source=SOURCE),))
+    return rows
 
 
 def check_frozen_kernel(field, call, args3, k3_out):
@@ -568,8 +679,9 @@ def add_parts(total, parts):
         t["max_abs_err"] = max(t["max_abs_err"], part["max_abs_err"])
 
 
-def part_row(name, what, ms, plain, bms, by, err, library=None):
-    return name, {"name": name, "route": "cuda", "source": SOURCE_BWD,
+def part_row(name, what, ms, plain, bms, by, err, library=None,
+             source=SOURCE_BWD):
+    return name, {"name": name, "route": "cuda", "source": source,
                   "replaces": what, "ms": ms, "plain_ms": plain,
                   "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                   "library_ms": library}
@@ -1068,24 +1180,52 @@ def capture_render(model, settings, batch, names=(
     return out, calls
 
 
+# K3 (and K6) and K4 launch the same input kernel and forward products
+# (render_level_gemm.cuh); profile_steps marks each run of them "k3:" or
+# "k4:" by the compositing kernel that ends it
+SHARED_KERNELS = ("final_input_kernel", "layer_gemm<0>", "layer_gemm<1>")
+OWNER_KERNELS = (("final_forward_composite", "k3:"),
+                 ("final_composite_kernel", "k4:"))
 # device kernels of the stage-1 step by source kernel (first match wins):
 # K4's three GEMMs (the forward products, EPI_RELU and EPI_F32; the dA
 # products, EPI_MASK; the weight-grad GEMM) and its other kernels (input,
 # compositing, CP grads); K2's kernel; the split/slab reductions both
-# launch; K1 (K5's kernel); K3
-K4_GEMMS = (("K4 forward products", ("layer_gemm<0>", "layer_gemm<1>")),
+# launch; K1 (K5's kernel); K3's input, products and compositing
+K4_GEMMS = (("K4 forward products", ("k4:layer_gemm<0>", "k4:layer_gemm<1>")),
             ("K4 dA products", ("layer_gemm<2>",)),
             ("K4 weight-grad GEMM", ("weight_grad_gemm",)))
-STAGE1_GROUPS = K4_GEMMS + (
-                 ("K4 other", ("final_input_kernel", "final_composite_kernel",
-                               "final_cp_kernel")),
+K3_PARTS = (("K3 input", ("k3:final_input_kernel",)),
+            ("K3 products", ("k3:layer_gemm",)),
+            ("K3 compositing", ("final_forward_composite",)))
+STAGE1_GROUPS = K4_GEMMS + K3_PARTS + (
+                 ("K4 other", ("k4:final_input_kernel",
+                               "final_composite_kernel", "final_cp_kernel")),
                  ("K2", ("prop_level_bwd_kernel",)),
                  ("K2/K4 reductions", ("reduce_partials",)),
-                 ("K1", ("prop_level_sample_kernel",)),
-                 ("K3", ("final_level_kernel",)))
+                 ("K1", ("prop_level_sample_kernel",)))
 STAGE3_GROUPS = (("K5", ("prop_level_sample_kernel",)),
-                 ("K6", ("final_level_kernel",)),
+                 ("K6", ("k3:", "final_forward_composite")),
                  ("matrix products", ("gemm", "cutlass")))
+
+
+def owned_names(events):
+    """Lower-case names of the device events, each kernel of
+    SHARED_KERNELS marked with its owner's tag: a call of K3 or K4 runs
+    them in a row on one stream, and then its own compositing kernel."""
+    names = [e.name.lower() for e in events]
+    pending = []
+    for i in sorted(range(len(events)),
+                    key=lambda i: events[i].time_range.start):
+        shared = next((k for k in SHARED_KERNELS if k in names[i]), None)
+        if shared:
+            pending.append((i, shared))
+            continue
+        tag = next((t for k, t in OWNER_KERNELS if k in names[i]), None)
+        if tag:
+            for j, k in pending:
+                names[j] = names[j].replace(k, tag + k)
+            pending = []
+    return names
 
 
 def profile_steps(step, kinds=STAGE3_GROUPS, n=5):
@@ -1119,13 +1259,13 @@ def profile_steps(step, kinds=STAGE3_GROUPS, n=5):
     groups = {g: 0.0 for g, _ in kinds}
     groups["other"] = 0.0
     by_name = {}
-    for e in events:  # the device's own events: kernels, copies, memsets
+    # the device's own events: kernels, copies, memsets
+    for e, name in zip(events, owned_names(events)):
         ms = e.time_range.elapsed_us() / 1e3 / n
-        name = e.name.lower()
         g = next((g for g, subs in kinds if any(x in name for x in subs)),
                  "other")
         groups[g] += ms
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + ms
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     union, (lo, hi) = 0.0, spans[0]
     for s, t in spans[1:]:
@@ -2071,6 +2211,11 @@ def main():
           "their bounds (phase 3's inputs): " + ", ".join(
               f"{k} {v['ms']:.4f} (bound {v['bound_ms']:.4f}, "
               f"{v['bound_by']})" for k, v in k4_gemms.items()), flush=True)
+    k3_trace = {name: train_profile[name] for name, _ in K3_PARTS}
+    print("[train] K3's parts, device ms a stage-1 step (the trace): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k3_trace.items())
+          + f"; K3 {sum(k3_trace.values()):.4f}, K1 {train_profile['K1']:.4f}",
+          flush=True)
     for tag, res in (("stage3", s3), ("hashgrid", hg),
                      ("trainable", trainable)):
         step, groups = res.pop("trace")
@@ -2096,7 +2241,10 @@ def main():
     counter = {fn.__name__: key for key, fn in COUNTERS.items()}
     for row in report:
         for name, part in row.get("parts", {}).items():
-            part["launches"] = train_launches[counter[name]]
+            # each launch of K3 runs each of its parts once
+            part["launches"] = (row["launches"] if row["name"] ==
+                                "fused_final_level"
+                                else train_launches[counter[name]])
     report.append({"name": "sample_pdf_lookup", "route": "cuda",
                    "source": SOURCE_PDF, "replaces": f"{TPU_FILE_PDF}:69",
                    "launches": hg_launches["K10"], "library_ms": None,
@@ -2123,7 +2271,7 @@ def main():
                       "train_steps_per_s": sps,
                       "train_launches": train_launches,
                       "train_profile_ms_a_step": train_profile,
-                      "k4_gemms": k4_gemms,
+                      "k4_gemms": k4_gemms, "k3_trace": k3_trace,
                       "grad_parity_worst_rel_l2": max(parity.values()),
                       "stage3_launches": s3_launches, "stage3": s3,
                       "hashgrid": hg, "stage3_trainable_launches":

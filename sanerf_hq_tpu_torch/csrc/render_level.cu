@@ -1,10 +1,10 @@
 // Render-level kernels for NVIDIA Hopper (sm_90a): the proposal level with
 // in-kernel inverse-CDF resampling (K5, K1 with its weights output, and K7
-// with the weights alone) and the final level with in-kernel CP line features (K3, and K6 with its
-// per-sample trunk features output).  Bound to Python
+// with the weights alone) and the final level with CP line features (K3,
+// and K6 with its per-sample trunk features output).  Bound to Python
 // through ctypes (sanerf_hq_tpu_torch/ops/render_level.py); plain C
 // interface, no PyTorch headers.  Shared device code:
-// render_level_common.cuh.
+// render_level_common.cuh, render_level_gemm.cuh.
 //
 // Replaces (JAX reference, sanerf_hq_tpu/ops/render_level_pallas.py):
 //   K5  _make_prop_sample_kernel(weights_out=False)  (:258), reached through
@@ -19,285 +19,590 @@
 //   K3  _make_final_train_kernel                     (:695), reached through
 //       fused_final_level (:64) -> _final_train_fwd_impl (:968)
 //   K6  _make_final_train_kernel(geo_out=True)       (:695), reached through
-//       fused_final_level_frozen (:85, pallas_call :143); the same kernel as
-//       K3 with each sample's 15 trunk features stored (geo [N, T, 15])
+//       fused_final_level_frozen (:85, pallas_call :143); the same launches
+//       as K3 with each sample's 15 trunk features stored (geo [N, T, 15])
 //
-// Design.  One CTA of 8 warps owns a tile of whole rays and walks their
-// (ray, sample) points in passes of P = 128 points:
-//   1. geometry: bin midpoint -> inf-norm contraction -> / grid_bound;
-//   2. the trunk input built in shared memory as bf16: block k-major freq
-//      rows [x | sin(2^k x_d) | cos(2^k x_d)], then (K3) the CP-rank line
-//      features read as a direct two-tap gather from the three bases (the
-//      TPU's iota one-hot matmul existed only because TPU gathers are slow);
-//   3. each layer a bf16 WMMA product (mma.sync tiles, fp32 accumulation):
-//      A from shared memory, B (weights) straight from global memory, where
-//      they stay hot in L1/L2 across CTAs; hidden ReLU outputs rounded to
-//      bf16, the last layer kept fp32;
-//   4. one thread per ray for the sequential transmittance loop, carried in
-//      registers across passes;
-//   5. (K5, K1) per-ray cdf, prefix-max / suffix-min of the s-bins in shared
-//      memory, then one thread per (ray, query) binary search.  K1 also
-//      stores each raw weight (1-e)*trans; the cdf adds the 0.01 floor to
-//      it with __fadd_rn, so K1's bins are K5's bit for bit.
-// What bounds it on this card: K3 is tensor-core work (about 2e5 MAC a
-// sample against a few hundred bytes of I/O); K5 is tensor-core work plus
-// sin/cos and the serial compositing loop.  This first version keeps all
-// activations of a pass on chip, so device memory traffic is inputs and
-// outputs only; it does not yet use wgmma/TMA or overlap weight loads.
-#include "render_level_common.cuh"
+// K3 and K6: a sequence of launches over all N*T points, as K4's stash
+// part runs its forward (render_level_gemm.cuh): final_input_kernel
+// (geometry, block freq rows and the CP line features as a two-tap gather,
+// bf16, into the h_in columns of a [P, H+KIN] scratch xb), four wgmma
+// layer products (128 x 128 tiles, two CTAs an SM: A1, A2 into xb's first
+// H columns so that the skip layer reads one [A2 | h_in] row, A3, and the
+// fp32 last layer F [P, 16]), then final_forward_composite, a warp a ray:
+// the round's 32 rows of F staged through 2 KB of shared memory a warp,
+// transmittance as a shuffle product scan in rounds of 32 samples carried
+// in order (any T), and warp sums for f_image[:15], depth and the weights'
+// sum.  The scratch, about 1.9 KB a point at flagship width, is the
+// design's cost (the first port's fused kernel kept every activation on
+// chip but ran WMMA with B fragments from L1/L2, a CTA barrier between
+// steps and a thread a ray compositing, 19x its bound).  What bounds K3:
+// the products (2e5 MAC a sample) and the scratch's traffic.
+//
+// K5, K1 and K7: one kernel, a CTA of 8 warps walking groups of whole rays
+// (8 rays, or 128 points' worth when T is small) in 128-point passes, the
+// grid as many CTAs as the SMs hold at once.  At widths whose weights let
+// two CTAs share an SM (the flagship's 64-wide proposal MLPs: 18 KB) the
+// weights sit in shared memory for the CTA's life and every product takes
+// A and B from shared memory (mma.sync on ldmatrix fragments, bf16
+// products, fp32 sums, the epilogue straight from the registers); wider
+// layers read their weights through L1/L2 (WMMA), one CTA an SM.  Each
+// pass: geometry and freq rows (sincosf(ldexpf(x, k))), three products,
+// the raw densities kept for the group.  Then a warp a ray: transmittance
+// as a shuffle
+// product scan, each raw weight (1-e)*trans stored coalesced (K1, K7); the
+// floored weight __fadd_rn(w, 0.01f) (not contracted, so that K1's bins
+// are K5's bit for bit) summed by a shuffle scan into the unnormalised
+// cdf, clipped at the total; the s-bins' prefix-max and suffix-min as
+// shuffle scans; then a thread a (ray, query) binary search over shared
+// memory.  What bounds it: the latency of each pass's chain of small steps
+// (8e3 MAC a sample is little tensor work).
+#include "render_level_gemm.cuh"
 
 using namespace sanerf;
 
 namespace {
 
-constexpr int P = 128;  // points per pass
+constexpr unsigned FULL = 0xffffffffu;
 
-struct FinalParams {
-  const float *rays_o, *rays_d, *bins, *sh;
-  const bf16 *w0, *w1, *w2, *w3;
-  const float* cp[3];
+// ---------------------------------------------------------------------------
+// K3 / K6: forward compositing, a warp a ray
+// ---------------------------------------------------------------------------
+
+struct CompositeParams {
+  const float *f, *bins, *sh;  // f [N*T, 16]: raw density | 15 features
   float *f_image, *depth, *wsum, *weights;
   float* geo;  // [N, T, 15] per-sample trunk features (K6) or null (K3)
-  int n_rays, T, deg, rank, res, hidden, kin, rays_per_cta, opaque_last;
-  float grid_bound, db;
+  int n_rays, T, opaque_last;
+  float db;
 };
 
-// K3 and K6.  Shared memory: X [P, H+KIN+8] holds [act | h_in] so the skip layer
-// reads one contiguous [act(H) | h_in(KIN)] row; Y [P, H+8]; F [P, 16] fp32
-// raw outputs; per-warp 16x16 fp32 scratch; per-point geometry.
-__global__ void __launch_bounds__(NTHREADS)
-final_level_kernel(FinalParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int H = p.hidden, KIN = p.kin, T = p.T, R = p.rays_per_cta;
-  const int ldX = H + KIN + 8, ldY = H + 8;
-  bf16* X = reinterpret_cast<bf16*>(smem);
-  bf16* Y = X + P * ldX;
-  float* F = reinterpret_cast<float*>(Y + P * ldY);
-  float* scratch = F + P * OUT;
-  float* xn = scratch + NWARPS * 256;
-  float* tt = xn + P * 3;
-  float* dl = tt + P;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int ray0 = blockIdx.x * R, total_pts = R * T;
-  const int nf = 3 + 6 * p.deg;  // freq columns; CP columns follow
-  bf16* hin = X + H;
+constexpr int FLD = OUT + 1;  // row stride of the staged rows: no conflicts
 
-  float trans = 1.0f, depth = 0.0f, wsum = 0.0f, fe[GEO];
+__global__ void __launch_bounds__(NTHREADS)
+final_forward_composite(CompositeParams p) {
+  __shared__ float rows[NWARPS][32 * FLD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, T = p.T;
+  const int ray = blockIdx.x * NWARPS + warp;
+  if (ray >= p.n_rays) return;  // the whole warp; no CTA barrier follows
+  float* st = rows[warp];
+  const float* b = p.bins + (size_t)ray * (T + 1);
+  const float* F = p.f + (size_t)ray * T * OUT;
+  float carry = 1.0f, fe[GEO], depth = 0.0f, wsum = 0.0f;
 #pragma unroll
   for (int c = 0; c < GEO; ++c) fe[c] = 0.0f;
-
-  for (int p0 = 0; p0 < total_pts; p0 += P) {
-    build_geometry_freq<P>(p.rays_o, p.rays_d, p.bins, p.n_rays, T, ray0,
-                           total_pts, p0, p.deg, p.grid_bound, xn, tt, dl,
-                           hin, ldX);
-    zero_cols<P>(hin, ldX, nf + p.rank, KIN);
-    build_cp<P>(p.cp, p.rank, p.res, xn, hin, ldX, nf);
-    __syncthreads();
-    float* ws = scratch + warp * 256;
-    dense<P>(hin, ldX, KIN, p.w0, H, Y, ldY, nullptr, 0, ws);
-    __syncthreads();
-    dense<P>(Y, ldY, H, p.w1, H, X, ldX, nullptr, 0, ws);
-    __syncthreads();
-    dense<P>(X, ldX, H + KIN, p.w2, H, Y, ldY, nullptr, 0, ws);
-    __syncthreads();
-    dense<P>(Y, ldY, H, p.w3, OUT, nullptr, 0, F, OUT, ws);
-    __syncthreads();
-    if (p.geo) {
-      // K6: a pass holds consecutive points of whole rays, so its points'
-      // features are one contiguous run of geo; every thread stores, and
-      // neighbouring threads write neighbouring addresses
-      const int npts = min(P, total_pts - p0);
-      const int valid = min(npts, (p.n_rays - ray0) * T - p0);
-      float* g = p.geo + ((size_t)ray0 * T + p0) * GEO;
-      for (int item = tid; item < valid * GEO; item += NTHREADS) {
-        const int q = item / GEO;
-        g[item] = F[q * OUT + 1 + (item - q * GEO)];
-      }
+  for (int s0 = 0; s0 < T; s0 += 32) {
+    const int n = min(32, T - s0);
+    // the round's rows of F: 16-byte loads, neighbouring lanes on
+    // neighbouring addresses
+    const float4* src = reinterpret_cast<const float4*>(F + (size_t)s0 * OUT);
+    for (int i = lane; i < n * (OUT / 4); i += 32) {
+      const float4 v = src[i];
+      float* d = st + (i >> 2) * FLD + (i & 3) * 4;
+      d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
     }
-    if (tid < R && ray0 + tid < p.n_rays) {
-      const int ray = ray0 + tid;
-      const int lo = max(p0, tid * T), hi = min(p0 + P, (tid + 1) * T);
-      for (int gp = lo; gp < hi; ++gp) {
-        const int q = gp - p0, s = gp - tid * T;
-        const float* raw = F + q * OUT;
-        const float sigma = expf(fminf(fmaxf(raw[0] + p.db, -30.0f), 15.0f));
-        const float e =
-            (p.opaque_last && s == T - 1) ? 0.0f : expf(-dl[q] * sigma);
-        const float w = (1.0f - e) * trans;
-        trans *= e;
+    __syncwarp();
+    const int s = s0 + lane;
+    float e = 1.0f, t = 0.0f;
+    if (lane < n) {
+      const float b0 = b[s], b1 = b[s + 1];
+      t = (b0 + b1) * 0.5f;
+      const float sigma =
+          expf(fminf(fmaxf(st[lane * FLD] + p.db, -30.0f), 15.0f));
+      e = (p.opaque_last && s == T - 1) ? 0.0f : expf(-(b1 - b0) * sigma);
+    }
+    float inc = e;  // product over the round's lanes up to this one
 #pragma unroll
-        for (int c = 0; c < GEO; ++c) fe[c] += w * raw[1 + c];
-        depth += w * tt[q];
-        wsum += w;
-        p.weights[(size_t)ray * T + s] = w;
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(FULL, inc, o);
+      if (lane >= o) inc *= v;
+    }
+    const float prev = __shfl_up_sync(FULL, inc, 1);
+    const float w = (1.0f - e) * (carry * (lane == 0 ? 1.0f : prev));
+    carry *= __shfl_sync(FULL, inc, 31);
+    if (lane < n) {
+      p.weights[(size_t)ray * T + s] = w;
+#pragma unroll
+      for (int c = 0; c < GEO; ++c) fe[c] += w * st[lane * FLD + 1 + c];
+      depth += w * t;
+      wsum += w;
+    }
+    if (p.geo) {  // K6: the round's features, one contiguous run of geo
+      float* g = p.geo + ((size_t)ray * T + s0) * GEO;
+      for (int i = lane; i < n * GEO; i += 32) {
+        const int q = i / GEO;
+        g[i] = st[q * FLD + 1 + (i - q * GEO)];
       }
     }
-    __syncthreads();
+    __syncwarp();
   }
-  if (tid < R && ray0 + tid < p.n_rays) {
-    const size_t ray = ray0 + tid;
-    float* fo = p.f_image + ray * (GEO + SHD);
 #pragma unroll
-    for (int c = 0; c < GEO; ++c) fo[c] = fe[c];
-    for (int c = 0; c < SHD; ++c) fo[GEO + c] = wsum * p.sh[ray * SHD + c];
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int c = 0; c < GEO; ++c) fe[c] += __shfl_xor_sync(FULL, fe[c], o);
+    depth += __shfl_xor_sync(FULL, depth, o);
+    wsum += __shfl_xor_sync(FULL, wsum, o);
+  }
+  float* fo = p.f_image + (size_t)ray * (GEO + SHD);
+  float v = 0.0f;
+#pragma unroll
+  for (int c = 0; c < GEO; ++c)
+    if (lane == c) v = fe[c];
+  if (lane < GEO) fo[lane] = v;
+  else if (lane < GEO + SHD)
+    fo[lane] = wsum * p.sh[(size_t)ray * SHD + lane - GEO];
+  if (lane == 31) {
     p.depth[ray] = depth;
     p.wsum[ray] = wsum;
   }
 }
 
+int launch_composite(CompositeParams c, cudaStream_t stream) {
+  return launch_checked((const void*)final_forward_composite,
+                        (c.n_rays + NWARPS - 1) / NWARPS, 0, stream, &c);
+}
+
+// ---------------------------------------------------------------------------
+// K5, K1, K7: the proposal level
+// ---------------------------------------------------------------------------
+
+constexpr int PP = 128;  // points a pass
+
 struct PropParams {
   const float *rays_o, *rays_d, *bins, *s_bins, *u;
   const bf16 *w0, *w1, *w2;
   float *out, *weights;  // weights [N, T] raw (K1, K7) or null (K5)
-  int n_rays, T, Q, deg, hidden, kin, rays_per_cta, opaque_last;
+  int n_rays, T, Q, deg, hidden, kin, rays_per_group, n_groups, opaque_last;
   float grid_bound, db;
 };
 
-// K5, K1 and K7 (Q = 0: s_bins, u and out unused).  Shared memory: X [P,
-// max(KIN,H)+8], Y [P, H+8], F [P, 16] fp32, scratch, per-point geometry,
-// then, with Q > 0, per ray: floored weights [T], cdf [T+1], prefix-max and
-// suffix-min of the s-bins [T+1] each, total.
-__global__ void __launch_bounds__(NTHREADS)
-prop_level_sample_kernel(PropParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int H = p.hidden, KIN = p.kin, T = p.T, Q = p.Q, R = p.rays_per_cta;
-  const int ldX = (KIN > H ? KIN : H) + 8, ldY = H + 8;
-  bf16* X = reinterpret_cast<bf16*>(smem);
-  bf16* Y = X + P * ldX;
-  float* F = reinterpret_cast<float*>(Y + P * ldY);
-  float* scratch = F + P * OUT;
-  float* xn = scratch + NWARPS * 256;
-  float* tt = xn + P * 3;
-  float* dl = tt + P;
-  float* wb = dl + P;            // [R, T]
-  float* cdf = wb + R * T;       // [R, T+1]
-  float* pmax = cdf + R * (T + 1);
-  float* smin = pmax + R * (T + 1);
-  float* tot = smin + R * (T + 1);  // [R]
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int ray0 = blockIdx.x * R, total_pts = R * T;
+struct PropSmem {
+  bf16 *X, *Y, *W0, *W1, *W2;
+  float *F, *scratch, *xn, *tt, *dl, *raw, *cdf, *pmax, *smin, *tot;
+};
 
-  float trans = 1.0f, total = 0.0f;
-  for (int p0 = 0; p0 < total_pts; p0 += P) {
-    build_geometry_freq<P>(p.rays_o, p.rays_d, p.bins, p.n_rays, T, ray0,
-                           total_pts, p0, p.deg, p.grid_bound, xn, tt, dl, X,
-                           ldX);
-    zero_cols<P>(X, ldX, 3 + 6 * p.deg, KIN);
-    __syncthreads();
-    float* ws = scratch + warp * 256;
-    dense<P>(X, ldX, KIN, p.w0, H, Y, ldY, nullptr, 0, ws);
-    __syncthreads();
-    dense<P>(Y, ldY, H, p.w1, H, X, ldX, nullptr, 0, ws);
-    __syncthreads();
-    dense<P>(X, ldX, H, p.w2, OUT, nullptr, 0, F, OUT, ws);
-    __syncthreads();
-    if (tid < R && ray0 + tid < p.n_rays) {
-      const int lo = max(p0, tid * T), hi = min(p0 + P, (tid + 1) * T);
-      for (int gp = lo; gp < hi; ++gp) {
-        const int q = gp - p0, s = gp - tid * T;
-        const float sigma =
-            expf(fminf(fmaxf(F[q * OUT] + p.db, -30.0f), 15.0f));
-        const float e =
-            (p.opaque_last && s == T - 1) ? 0.0f : expf(-dl[q] * sigma);
-        const float wr = (1.0f - e) * trans;
-        if (p.weights) p.weights[(size_t)(ray0 + tid) * T + s] = wr;
-        const float w = __fadd_rn(wr, 0.01f);
-        if (Q > 0) wb[tid * T + s] = w;
-        total += w;
-        trans *= e;
+__host__ __device__ inline int prop_ldx(int H, int KIN) {
+  return (KIN > H ? KIN : H) + 8;
+}
+
+// bf16 elements of Y, which also holds the last layer's fp32 F [PP, 16].
+__host__ __device__ inline int prop_y_elems(int H) {
+  return PP * (H + 8) > PP * OUT * 2 ? PP * (H + 8) : PP * OUT * 2;
+}
+
+__host__ __device__ inline int prop_w_elems(int H, int KIN) {
+  return H * (KIN + 8) + H * (H + 8) + OUT * (H + 8);
+}
+
+// X [PP, max(KIN,H)+8] the layer-0 input, then layer 1's output; Y [PP,
+// H+8] layer 0's output, then F; the weights (wsm); per-warp WMMA scratch;
+// the pass's geometry; the group's raw densities [R*T]; with Q > 0 per ray
+// the cdf, prefix-max and suffix-min of the s-bins [T+1] each, and the
+// total.
+__host__ __device__ inline size_t prop_smem(int H, int KIN, int T, int Q,
+                                            int R, bool wsm) {
+  const size_t b16 = (size_t)PP * prop_ldx(H, KIN) + prop_y_elems(H) +
+                     (wsm ? prop_w_elems(H, KIN) : 0);
+  const size_t f32 = (wsm ? 0 : (size_t)NWARPS * 256) + PP * 5 +
+                     (size_t)R * T +
+                     (Q > 0 ? (size_t)3 * R * (T + 1) + R : 0);
+  return b16 * 2 + f32 * 4;
+}
+
+__device__ PropSmem prop_layout(unsigned char* smem, int H, int KIN, int T,
+                                int Q, int R, bool wsm) {
+  PropSmem s;
+  s.X = reinterpret_cast<bf16*>(smem);
+  s.Y = s.X + PP * prop_ldx(H, KIN);
+  s.W0 = s.Y + prop_y_elems(H);                // [H, KIN+8]
+  s.W1 = s.W0 + (wsm ? H * (KIN + 8) : 0);     // [H, H+8]
+  s.W2 = s.W1 + (wsm ? H * (H + 8) : 0);       // [16, H+8]
+  s.F = reinterpret_cast<float*>(s.Y);
+  float* f = reinterpret_cast<float*>(s.W2 + (wsm ? OUT * (H + 8) : 0));
+  s.scratch = f;  // WMMA scratch: dense_ld's, without wsm
+  s.xn = s.scratch + (wsm ? 0 : NWARPS * 256);
+  s.tt = s.xn + PP * 3;
+  s.dl = s.tt + PP;
+  s.raw = s.dl + PP;
+  s.cdf = s.raw + R * T;
+  s.pmax = s.cdf + (Q > 0 ? R * (T + 1) : 0);
+  s.smin = s.pmax + (Q > 0 ? R * (T + 1) : 0);
+  s.tot = s.smin + (Q > 0 ? R * (T + 1) : 0);
+  return s;
+}
+
+// One warp, one ray: transmittance and raw weights from the ray's raw
+// densities (shared), sample s in lane s % 32 of round s / 32, the rounds
+// carried in order; bins read once, coalesced; each raw weight stored
+// (weights non-null).  With Q > 0: the cdf [T+1] on the floored weights'
+// running sum clipped at their total, the s-bins' prefix-max and
+// suffix-min [T+1], and the total.  Every lane of the warp calls it.
+__device__ void prop_composite_warp(const PropParams& p, int ray,
+                                    const float* raw, float* cdf, float* pmax,
+                                    float* smin, float* tot) {
+  const int lane = threadIdx.x & 31, T = p.T;
+  const float* b = p.bins + (size_t)ray * (T + 1);
+  float carry = 1.0f, csum = 0.0f;
+  for (int s0 = 0; s0 < T; s0 += 32) {
+    const int s = s0 + lane;
+    float e = 1.0f;
+    if (s < T) {
+      const float sigma = expf(fminf(fmaxf(raw[s] + p.db, -30.0f), 15.0f));
+      e = (p.opaque_last && s == T - 1) ? 0.0f
+                                        : expf(-(b[s + 1] - b[s]) * sigma);
+    }
+    float inc = e;  // product over the round's lanes up to this one
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(FULL, inc, o);
+      if (lane >= o) inc *= v;
+    }
+    const float prev = __shfl_up_sync(FULL, inc, 1);
+    const float wr = (1.0f - e) * (carry * (lane == 0 ? 1.0f : prev));
+    carry *= __shfl_sync(FULL, inc, 31);
+    if (s < T && p.weights) p.weights[(size_t)ray * T + s] = wr;
+    if (p.Q == 0) continue;
+    float w = s < T ? __fadd_rn(wr, 0.01f) : 0.0f;  // running sum in the round
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(FULL, w, o);
+      if (lane >= o) w += v;
+    }
+    if (s < T) cdf[s + 1] = csum + w;
+    csum += __shfl_sync(FULL, w, 31);
+  }
+  if (p.Q == 0) return;
+  __syncwarp();
+  for (int k = lane; k <= T; k += 32)
+    cdf[k] = k == 0 ? 0.0f : fminf(cdf[k], csum);
+  const float* sb = p.s_bins + (size_t)ray * (T + 1);
+  float cm = -3.0e38f;
+  for (int k0 = 0; k0 <= T; k0 += 32) {
+    const int k = k0 + lane;
+    float v = k <= T ? sb[k] : -3.0e38f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float x = __shfl_up_sync(FULL, v, o);
+      if (lane >= o) v = fmaxf(v, x);
+    }
+    if (k <= T) pmax[k] = fmaxf(cm, v);
+    cm = fmaxf(cm, __shfl_sync(FULL, v, 31));
+  }
+  cm = 3.0e38f;
+  for (int k0 = T / 32 * 32; k0 >= 0; k0 -= 32) {
+    const int k = k0 + lane;
+    float v = k <= T ? sb[k] : 3.0e38f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float x = __shfl_down_sync(FULL, v, o);
+      if (lane + o < 32) v = fminf(v, x);
+    }
+    if (k <= T) smin[k] = fminf(cm, v);
+    cm = fminf(cm, __shfl_sync(FULL, v, 0));
+  }
+  if (lane == 0) *tot = csum;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+// d [16 x 8] += a [16 x 16] b [16 x 8]: bf16 products, fp32 sums.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
+                                          const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// C [PP x n] = A [PP x k] W^T with A (row-major, lda) and W ([n, k]
+// row-major, ldw) both in shared memory: warp w takes rows 16 w .. 16 w +
+// 15 in column blocks of 64, fragments by ldmatrix (the +8 row padding
+// keeps its eight rows on distinct banks), mma.sync m16n8k16, and the
+// sums leave the registers straight: relu(C) as bf16 pairs into O (ldo),
+// or C as fp32 pairs into F (ldf).  k a multiple of 16, n of 8.
+__device__ void dense_mma(const bf16* A, int lda, int k, const bf16* W,
+                          int ldw, int n, bf16* O, int ldo, float* F,
+                          int ldf) {
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const bf16* ap = A + (r0 + (lane & 15)) * lda + ((lane >> 4) << 3);
+  for (int n0 = 0; n0 < n; n0 += 64) {
+    const int nt = min(8, (n - n0) / 8);
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    const bf16* bp = W + (n0 + (lane & 7)) * ldw + (((lane >> 3) & 1) << 3);
+    for (int kk = 0; kk < k; kk += 16) {
+      unsigned a[4];
+      ldmatrix_x4(a, ap + kk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < nt) {
+          unsigned b[2];
+          ldmatrix_x2(b, bp + j * 8 * ldw + kk);
+          mma_16816(acc[j], a, b);
+        }
       }
     }
+    const int row = r0 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j >= nt) continue;
+      const int col = n0 + j * 8 + ((lane & 3) << 1);
+      if (O) {
+        *reinterpret_cast<__nv_bfloat162*>(O + row * ldo + col) =
+            __floats2bfloat162_rn(fmaxf(acc[j][0], 0.0f),
+                                  fmaxf(acc[j][1], 0.0f));
+        *reinterpret_cast<__nv_bfloat162*>(O + (row + 8) * ldo + col) =
+            __floats2bfloat162_rn(fmaxf(acc[j][2], 0.0f),
+                                  fmaxf(acc[j][3], 0.0f));
+      } else {
+        *reinterpret_cast<float2*>(F + row * ldf + col) =
+            make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(F + (row + 8) * ldf + col) =
+            make_float2(acc[j][2], acc[j][3]);
+      }
+    }
+  }
+}
+
+// One layer of the proposal MLP over the pass: dense_mma with the weights
+// in shared memory (WSM), else dense_ld with them from L1/L2.
+template <bool WSM>
+__device__ __forceinline__ void prop_layer(const bf16* A, int lda, int k,
+                                           const bf16* W, int ldw, int n,
+                                           bf16* O, int ldo, float* F,
+                                           int ldf, float* ws) {
+  if constexpr (WSM) dense_mma(A, lda, k, W, ldw, n, O, ldo, F, ldf);
+  else dense_ld<PP>(A, lda, k, W, ldw, n, O, ldo, F, ldf, ws);
+}
+
+// WSM: the weights in shared memory for the CTA's life, two CTAs an SM.
+template <bool WSM>
+__global__ void __launch_bounds__(NTHREADS, WSM ? 2 : 1)
+prop_level_sample_kernel(PropParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int H = p.hidden, KIN = p.kin, T = p.T, Q = p.Q;
+  const int R = p.rays_per_group, GP = R * T, LDX = prop_ldx(H, KIN);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const PropSmem s = prop_layout(smem, H, KIN, T, Q, R, WSM);
+  float* ws = s.scratch + warp * 256;
+  const bf16* W[3] = {p.w0, p.w1, p.w2};
+  int ldw[3] = {KIN, H, H};
+  if (WSM) {  // read before the first product, past two barriers
+    copy_rows(p.w0, KIN, s.W0, KIN + 8, H, KIN);
+    copy_rows(p.w1, H, s.W1, H + 8, H, H);
+    copy_rows(p.w2, H, s.W2, H + 8, OUT, H);
+    W[0] = s.W0, W[1] = s.W1, W[2] = s.W2;
+    ldw[0] = KIN + 8, ldw[1] = H + 8, ldw[2] = H + 8;
+  }
+  for (int g = blockIdx.x; g < p.n_groups; g += gridDim.x) {
+    const int ray0 = g * R;
+    for (int p0 = 0; p0 < GP; p0 += PP) {
+      build_geometry_freq<PP>(p.rays_o, p.rays_d, p.bins, p.n_rays, T, ray0,
+                              GP, p0, p.deg, p.grid_bound, s.xn, s.tt, s.dl,
+                              s.X, LDX);
+      zero_cols<PP>(s.X, LDX, 3 + 6 * p.deg, KIN);
+      __syncthreads();
+      prop_layer<WSM>(s.X, LDX, KIN, W[0], ldw[0], H, s.Y, H + 8, nullptr, 0,
+                      ws);
+      __syncthreads();
+      prop_layer<WSM>(s.Y, H + 8, H, W[1], ldw[1], H, s.X, LDX, nullptr, 0,
+                      ws);
+      __syncthreads();
+      prop_layer<WSM>(s.X, LDX, H, W[2], ldw[2], OUT, nullptr, 0, s.F, OUT,
+                      ws);
+      __syncthreads();
+      if (tid < PP && p0 + tid < GP) s.raw[p0 + tid] = s.F[tid * OUT];
+      // the next pass writes F again only past two barriers
+    }
     __syncthreads();
-  }
-  if (Q == 0) return;  // K7: the weights are all it writes
-  // per-ray cdf on the unnormalised running sum, and the s-bin prefix-max /
-  // suffix-min the masked lookup reduces to
-  if (tid < R && ray0 + tid < p.n_rays) {
-    const float* sb = p.s_bins + (size_t)(ray0 + tid) * (T + 1);
-    float* c = cdf + tid * (T + 1);
-    float* pm = pmax + tid * (T + 1);
-    float* sm = smin + tid * (T + 1);
-    c[0] = 0.0f;
-    for (int k = 0; k < T; ++k) c[k + 1] = fminf(c[k] + wb[tid * T + k], total);
-    pm[0] = sb[0];
-    for (int k = 1; k <= T; ++k) pm[k] = fmaxf(pm[k - 1], sb[k]);
-    sm[T] = sb[T];
-    for (int k = T - 1; k >= 0; --k) sm[k] = fminf(sm[k + 1], sb[k]);
-    tot[tid] = total;
-  }
-  __syncthreads();
-  for (int item = tid; item < R * Q; item += NTHREADS) {
-    const int r = item / Q, ray = ray0 + r;
-    if (ray >= p.n_rays) continue;
-    const float* c = cdf + r * (T + 1);
-    const float ut = p.u[(size_t)ray * Q + (item - r * Q)] * tot[r];
-    // c is non-decreasing, so {k : c_k <= ut} is a prefix [0, j]
-    const int j = count_le(c, T + 1, ut) - 1;
-    float cg0 = -1e38f, sg0 = -1e38f, cg1, sg1;
-    if (j >= 0) {
-      cg0 = c[j];
-      sg0 = pmax[r * (T + 1) + j];
+    for (int r = warp; r < R; r += NWARPS)
+      if (ray0 + r < p.n_rays)
+        prop_composite_warp(p, ray0 + r, s.raw + r * T, s.cdf + r * (T + 1),
+                            s.pmax + r * (T + 1), s.smin + r * (T + 1),
+                            s.tot + r);
+    if (Q == 0) continue;  // K7: the weights are all it writes
+    __syncthreads();
+    for (int item = tid; item < R * Q; item += NTHREADS) {
+      const int r = item / Q, ray = ray0 + r;
+      if (ray >= p.n_rays) continue;
+      const float* c = s.cdf + r * (T + 1);
+      const float ut = p.u[(size_t)ray * Q + (item - r * Q)] * s.tot[r];
+      // c is non-decreasing, so {k : c_k <= ut} is a prefix [0, j]
+      const int j = count_le(c, T + 1, ut) - 1;
+      float cg0 = -1e38f, sg0 = -1e38f, cg1, sg1;
+      if (j >= 0) {
+        cg0 = c[j];
+        sg0 = s.pmax[r * (T + 1) + j];
+      }
+      if (j < T) {
+        cg1 = c[j + 1];
+        sg1 = s.smin[r * (T + 1) + j + 1];
+      } else {
+        cg1 = c[T];
+        sg1 = s.smin[r * (T + 1) + T];
+      }
+      const float denom = cg1 - cg0;
+      float t = denom > 0.0f ? (ut - cg0) / denom : 0.0f;
+      t = fminf(fmaxf(t, 0.0f), 1.0f);
+      p.out[(size_t)ray * Q + (item - r * Q)] = sg0 + t * (sg1 - sg0);
     }
-    if (j < T) {
-      cg1 = c[j + 1];
-      sg1 = smin[r * (T + 1) + j + 1];
-    } else {
-      cg1 = c[T];
-      sg1 = smin[r * (T + 1) + T];
-    }
-    const float denom = cg1 - cg0;
-    float t = denom > 0.0f ? (ut - cg0) / denom : 0.0f;
-    t = fminf(fmaxf(t, 0.0f), 1.0f);
-    p.out[(size_t)ray * Q + (item - r * Q)] = sg0 + t * (sg1 - sg0);
+    // the next group writes the cdf and the totals only past its passes'
+    // barriers
   }
 }
 
-size_t final_smem(int H, int KIN) {
-  return (size_t)P * (H + KIN + 8) * 2 + (size_t)P * (H + 8) * 2 +
-         (size_t)(P * OUT + NWARPS * 256 + P * 5) * 4;
-}
-
-size_t prop_smem(int H, int KIN, int T, int Q, int R) {
-  const int wx = KIN > H ? KIN : H;
-  return (size_t)P * (wx + 8) * 2 + (size_t)P * (H + 8) * 2 +
-         (size_t)(P * OUT + NWARPS * 256 + P * 5) * 4 +
-         (Q > 0 ? (size_t)(R * T + 3 * R * (T + 1) + R) * 4 : 0);
+// The proposal kernel's launch at this shape: the kernel (weights in
+// shared memory when two CTAs an SM then fit), its shared memory, the ray
+// groups in p and the grid (as many CTAs as the SMs hold at once, at most
+// one a group).  Returns 0 or a cudaError_t code.
+int prop_launch_shape(PropParams& p, const void*& kernel, size_t& smem,
+                      int& grid) {
+  if (p.n_rays <= 0 || p.T < 1 || p.Q < 0) return (int)cudaErrorInvalidValue;
+  const int H = p.hidden, KIN = p.kin, T = p.T, Q = p.Q;
+  int R = T >= PP / NWARPS ? NWARPS : PP / T;
+  while (R > 1 && prop_smem(H, KIN, T, Q, R, false) > SMEM_LIMIT) R /= 2;
+  p.rays_per_group = R;
+  p.n_groups = (p.n_rays + R - 1) / R;
+  int per_sm = 0;
+  for (int wsm = 1; wsm >= 0; --wsm) {
+    kernel = wsm ? (const void*)prop_level_sample_kernel<true>
+                 : (const void*)prop_level_sample_kernel<false>;
+    smem = prop_smem(H, KIN, T, Q, R, wsm);
+    if (smem > SMEM_LIMIT) continue;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        NTHREADS, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm >= 2 || !wsm) break;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  grid = per_sm * sm_count();
+  grid = grid < p.n_groups ? grid : p.n_groups;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns 0 or a cudaError_t code.  Weights are bf16 [out, in] padded:
-// w0 [H, KIN], w1 [H, H], w2 [H, H+KIN] (columns [act | h_in]), w3 [16, H];
-// KIN = 3 + 6*deg + rank rounded up to 16, H a multiple of 16.
-// geo: [N, T, 15] per-sample trunk features (K6) or null (K3).
+// K3 (geo null) and K6.  Returns 0 or a cudaError_t code.  Weights are
+// bf16 [out, in] padded: w0 [H, KIN], w1 [H, H], w2 [H, H+KIN] (columns
+// [act | h_in]), w3 [16, H]; KIN = 3 + 6*deg + rank rounded up to 16, H a
+// multiple of 16.  Scratch, P = N*T rows each: xb [P, H+KIN], a1, a3
+// [P, H] bf16; f [P, 16], xn [P, 3] fp32.  geo: [N, T, 15] per-sample
+// trunk features (K6) or null (K3).  Launches, in order: the inputs, four
+// products and the compositing.
 int sanerf_final_level(const float* rays_o, const float* rays_d,
                        const float* real_bins, const float* sh,
                        const void* w0, const void* w1, const void* w2,
                        const void* w3, const float* cp_x, const float* cp_y,
-                       const float* cp_z, float* f_image, float* depth,
+                       const float* cp_z, void* xb, void* a1, void* a3,
+                       float* f, float* xn, float* f_image, float* depth,
                        float* wsum, float* weights, float* geo, int n_rays,
-                       int T,
-                       int freq_degree, int cp_rank, int cp_res, int hidden,
-                       int kin, float grid_bound, int opaque_last,
+                       int T, int freq_degree, int cp_rank, int cp_res,
+                       int hidden, int kin, float grid_bound, int opaque_last,
                        float density_bias, void* stream) {
-  FinalParams p;
-  p.rays_o = rays_o; p.rays_d = rays_d; p.bins = real_bins; p.sh = sh;
-  p.w0 = (const bf16*)w0; p.w1 = (const bf16*)w1;
-  p.w2 = (const bf16*)w2; p.w3 = (const bf16*)w3;
-  p.cp[0] = cp_x; p.cp[1] = cp_y; p.cp[2] = cp_z;
-  p.f_image = f_image; p.depth = depth; p.wsum = wsum; p.weights = weights;
-  p.geo = geo;
-  p.n_rays = n_rays; p.T = T; p.deg = freq_degree; p.rank = cp_rank;
-  p.res = cp_res; p.hidden = hidden; p.kin = kin;
-  p.rays_per_cta = T >= P ? 1 : P / T;
-  p.opaque_last = opaque_last; p.grid_bound = grid_bound;
-  p.db = density_bias;
   if (n_rays == 0) return 0;
-  const int grid = (n_rays + p.rays_per_cta - 1) / p.rays_per_cta;
-  return launch_checked((const void*)final_level_kernel, grid,
-                        final_smem(hidden, kin), (cudaStream_t)stream, &p);
+  if (n_rays < 0 || T < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  FinalInput in = {rays_o, rays_d, real_bins, {cp_x, cp_y, cp_z}, (bf16*)xb,
+                   xn, n_rays, T, freq_degree, cp_rank, cp_res, hidden, kin,
+                   grid_bound};
+  int rc = launch_final_input(in, st);
+  if (rc) return rc;
+  rc = launch_trunk_forward((long long)n_rays * T, hidden, kin,
+                            (const bf16*)w0, (const bf16*)w1, (const bf16*)w2,
+                            (const bf16*)w3, (bf16*)xb, (bf16*)a1, (bf16*)a3,
+                            f, st);
+  if (rc) return rc;
+  CompositeParams c = {f, real_bins, sh, f_image, depth, wsum, weights, geo,
+                       n_rays, T, opaque_last, density_bias};
+  return launch_composite(c, st);
+}
+
+// K3's first part alone: h_in into xb's columns [H, H+KIN) and xn, as
+// sanerf_final_level takes them.
+int sanerf_final_inputs(const float* rays_o, const float* rays_d,
+                        const float* real_bins, const float* cp_x,
+                        const float* cp_y, const float* cp_z, void* xb,
+                        float* xn, int n_rays, int T, int freq_degree,
+                        int cp_rank, int cp_res, int hidden, int kin,
+                        float grid_bound, void* stream) {
+  if (n_rays == 0) return 0;
+  if (n_rays < 0 || T < 1) return (int)cudaErrorInvalidValue;
+  FinalInput in = {rays_o, rays_d, real_bins, {cp_x, cp_y, cp_z}, (bf16*)xb,
+                   xn, n_rays, T, freq_degree, cp_rank, cp_res, hidden, kin,
+                   grid_bound};
+  return launch_final_input(in, (cudaStream_t)stream);
+}
+
+// One layer product alone (layer_gemm): y = bf16(relu(x w^T)) (relu) or
+// f = x w^T in fp32.  x [points, k] bf16 with row stride ldx, w [n, k]
+// bf16 (ldw), y or f [points, n] with row stride ldy; k a multiple of 16,
+// n and the strides multiples of 8, every row 16-byte aligned.
+int sanerf_layer_product(const void* x, const void* w, void* y, float* f,
+                         long long points, long long ldx, int ldw,
+                         long long ldy, int k, int n, int relu,
+                         void* stream) {
+  if (points == 0) return 0;
+  if (points < 0 || k < 16 || k % 16 || n < 8 || n % 8 || ldx % 8 ||
+      ldw % 8 || ldy % 8)
+    return (int)cudaErrorInvalidValue;
+  LayerGemm g = {};
+  g.points = points;
+  g.x = (const bf16*)x; g.ldx = ldx; g.k = k; g.w = (const bf16*)w;
+  g.ldw = ldw; g.n = n;
+  if (relu) {
+    g.y = (bf16*)y; g.ldy = ldy;
+    return launch_layer<EPI_RELU>(g, (cudaStream_t)stream);
+  }
+  g.f = f; g.ldf = (int)ldy;
+  return launch_layer<EPI_F32>(g, (cudaStream_t)stream);
+}
+
+// K3's compositing alone: f [N*T, 16] (raw density | 15 features) fp32 ->
+// f_image [N, 31], depth, wsum [N], weights [N, T], geo [N, T, 15] or
+// null.
+int sanerf_final_composite(const float* f, const float* real_bins,
+                           const float* sh, float* f_image, float* depth,
+                           float* wsum, float* weights, float* geo,
+                           int n_rays, int T, int opaque_last,
+                           float density_bias, void* stream) {
+  if (n_rays == 0) return 0;
+  if (n_rays < 0 || T < 1) return (int)cudaErrorInvalidValue;
+  CompositeParams c = {f, real_bins, sh, f_image, depth, wsum, weights, geo,
+                       n_rays, T, opaque_last, density_bias};
+  return launch_composite(c, (cudaStream_t)stream);
+}
+
+// The proposal kernel's grid and ray groups at this shape, into *grid and
+// *groups: a CTA walks more than one group when groups > grid.  Returns 0
+// or a cudaError_t code.
+int sanerf_prop_level_sample_shape(int n_rays, int T, int Q, int hidden,
+                                   int kin, int* grid, int* groups) {
+  PropParams p = {};
+  p.n_rays = n_rays; p.T = T; p.Q = Q; p.hidden = hidden; p.kin = kin;
+  const void* kernel;
+  size_t smem;
+  const int rc = prop_launch_shape(p, kernel, smem, *grid);
+  *groups = p.n_groups;
+  return rc;
 }
 
 // Weights are bf16 [out, in] padded: w0 [H, KIN], w1 [H, H], w2 [16, H]
@@ -312,6 +617,7 @@ int sanerf_prop_level_sample(const float* rays_o, const float* rays_d,
                              int Q, int freq_degree, int hidden, int kin,
                              float grid_bound, int opaque_last,
                              float density_bias, void* stream) {
+  if (n_rays == 0) return 0;
   PropParams p;
   p.rays_o = rays_o; p.rays_d = rays_d; p.bins = real_bins;
   p.s_bins = s_bins; p.u = u;
@@ -319,14 +625,14 @@ int sanerf_prop_level_sample(const float* rays_o, const float* rays_d,
   p.out = out; p.weights = weights;
   p.n_rays = n_rays; p.T = T; p.Q = Q; p.deg = freq_degree;
   p.hidden = hidden; p.kin = kin;
-  p.rays_per_cta = T >= P ? 1 : P / T;
   p.opaque_last = opaque_last; p.grid_bound = grid_bound;
   p.db = density_bias;
-  if (n_rays == 0) return 0;
-  const int grid = (n_rays + p.rays_per_cta - 1) / p.rays_per_cta;
-  return launch_checked((const void*)prop_level_sample_kernel, grid,
-                        prop_smem(hidden, kin, T, Q, p.rays_per_cta),
-                        (cudaStream_t)stream, &p);
+  const void* kernel;
+  size_t smem;
+  int grid;
+  const int rc = prop_launch_shape(p, kernel, smem, grid);
+  if (rc) return rc;
+  return launch_checked(kernel, grid, smem, (cudaStream_t)stream, &p);
 }
 
 const char* sanerf_error_string(int code) {

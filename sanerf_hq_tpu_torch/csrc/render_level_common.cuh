@@ -74,13 +74,6 @@ __device__ void dense_ld(const bf16* A, int lda, int k, const bf16* W,
   }
 }
 
-// dense_ld with W packed (ldw = k).
-template <int PP>
-__device__ void dense(const bf16* A, int lda, int k, const bf16* W, int n,
-                      bf16* O, int ldo, float* F, int ldf, float* scratch) {
-  dense_ld<PP>(A, lda, k, W, k, n, O, ldo, F, ldf, scratch);
-}
-
 // Midpoint, width and contracted / grid_bound position of one sample.
 __device__ __forceinline__ void geometry(const float* o, const float* d,
                                          float b0, float b1, float grid_bound,
@@ -204,6 +197,15 @@ __device__ __forceinline__ int count_le(const float* c, int n, float v) {
     else b = m;
   }
   return a;
+}
+
+// Streaming multiprocessors of the current device: the persistent grids
+// size themselves by it.
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
 }
 
 inline int launch_checked(const void* kernel, int grid, size_t smem,

@@ -6,9 +6,13 @@ PyTorch twin beside its wrapper:
      writing the raw weights alone, with no resampling
      (csrc/render_level.cu);
   K3 `fused_final_level`: final level with CP line features, the inference
-     and the training forward (csrc/render_level.cu);
+     and the training forward (csrc/render_level.cu), a sequence of three
+     parts over all points, each with a wrapper and a plain version of its
+     own: `final_level_inputs` (the trunk's layer-0 input), four
+     `layer_product`s (the wgmma layer products K4 also runs,
+     csrc/render_level_gemm.cuh) and `final_composite` (a warp a ray);
   K6 `fused_final_level_frozen`: K3 with no gradient that can also write
-     each sample's trunk features, for a frozen backbone (the same kernel
+     each sample's trunk features, for a frozen backbone (the same launches
      with a geo pointer);
   K2 `fused_prop_level_bwd`, K4 `fused_final_level_bwd`: their weight grads
      (csrc/render_level_bwd.cu), each the composition of two parts with a
@@ -250,6 +254,17 @@ def _prop_weights(ws, freq_degree: int, dev, what: str):
             _bf16_padded(ws[2], 16, H)), H, kin
 
 
+def _prop_launch_shape(N: int, T: int, Q: int, hidden: int, kin: int):
+    """(grid, ray groups) of the proposal kernel at this shape: a CTA walks
+    more than one group when groups > grid."""
+    grid, groups = ctypes.c_int(0), ctypes.c_int(0)
+    lib, fn = _cfn("render_level", "sanerf_prop_level_sample_shape",
+                   [_I] * 5 + [_P, _P])
+    cuda_lib.check(lib, fn(N, T, Q, hidden, kin, ctypes.byref(grid),
+                           ctypes.byref(groups)), "the proposal kernel's shape")
+    return grid.value, groups.value
+
+
 def _launch_prop_sample(rays_o, rays_d, real_bins, s_bins, u, ws,
                         freq_degree, grid_bound, opaque_last, density_bias,
                         weights_out: bool, what: str):
@@ -358,17 +373,36 @@ fused_prop_level.launches = 0
 # K3 and K6: final level with CP line features (K6 adds the trunk features)
 # ---------------------------------------------------------------------------
 
-def final_level_frozen_ref(rays_o, rays_d, real_bins, sh, ws: Sequence,
-                           freq_degree: int, skip_layer: int,
-                           grid_bound: float, opaque_last: bool = True,
-                           density_bias: float = 0.0, cps: Sequence = (),
-                           cp_res: int = 0, need_geo: bool = False):
-    """Plain twin of K6: final_level_ref, plus the trunk's per-sample
-    features h[..., 1:] [N, T, 15] when need_geo (else None)."""
-    T = real_bins.shape[1] - 1
-    t, delta, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
+def final_level_inputs_ref(rays_o, rays_d, real_bins, freq_degree: int,
+                           grid_bound: float, cps: Sequence = (),
+                           cp_res: int = 0):
+    """Plain first part of K3: the trunk's layer-0 input h_in [N*T, 3 +
+    6*deg + rank], bf16-valued fp32 ([freq | CP features]), and the
+    contracted / grid_bound positions xn [N*T, 3]."""
+    _, _, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
     h_in, _ = _trunk_input(xn, freq_degree, cps, cp_res)
-    h, _ = trunk_with_inputs(h_in, ws, skip_layer)
+    return h_in.reshape(-1, h_in.shape[-1]), xn.reshape(-1, 3)
+
+
+def layer_product_ref(x, w, relu: bool = True):
+    """Plain version of one layer product: bf16(relu(x w^T)), bf16-valued
+    fp32 (relu), or x w^T in fp32 (the last layer); x [P, k] bf16-valued,
+    w [n, k] rounded to bf16."""
+    y = x.float() @ bf16_round(w).t()
+    return bf16_round(torch.relu(y)) if relu else y
+
+
+def final_composite_ref(f, real_bins, sh, opaque_last: bool = True,
+                        density_bias: float = 0.0, need_geo: bool = False):
+    """Plain last part of K3: compositing of the trunk's outputs f [N*T, 16]
+    (raw density | 15 features) with the sequential transmittance product.
+    Returns (f_image [N, 31] = [sum w*features | wsum*sh], depth [N],
+    weights_sum [N], weights [N, T], the features [N, T, 15] when need_geo
+    or None)."""
+    N, T = real_bins.shape[0], real_bins.shape[1] - 1
+    h = f.reshape(N, T, f.shape[-1])
+    t = (real_bins[:, :-1] + real_bins[:, 1:]) * 0.5
+    delta = real_bins[:, 1:] - real_bins[:, :-1]
     sigma = _density(h[..., 0], density_bias)
     trans = torch.ones_like(sigma[:, 0])
     f_feat = torch.zeros_like(h[:, 0, 1:])
@@ -386,6 +420,20 @@ def final_level_frozen_ref(rays_o, rays_d, real_bins, sh, ws: Sequence,
     f_image = torch.cat([f_feat, wsum[:, None] * sh], dim=-1)
     geo = h[..., 1:] if need_geo else None
     return f_image, depth, wsum, torch.stack(weights, dim=1), geo
+
+
+def final_level_frozen_ref(rays_o, rays_d, real_bins, sh, ws: Sequence,
+                           freq_degree: int, skip_layer: int,
+                           grid_bound: float, opaque_last: bool = True,
+                           density_bias: float = 0.0, cps: Sequence = (),
+                           cp_res: int = 0, need_geo: bool = False):
+    """Plain twin of K6: final_level_ref, plus the trunk's per-sample
+    features h[..., 1:] [N, T, 15] when need_geo (else None)."""
+    _, _, xn = _geometry(rays_o, rays_d, real_bins, grid_bound)
+    h_in, _ = _trunk_input(xn, freq_degree, cps, cp_res)
+    h, _ = trunk_with_inputs(h_in, ws, skip_layer)
+    return final_composite_ref(h.reshape(-1, h.shape[-1]), real_bins, sh,
+                               opaque_last, density_bias, need_geo)
 
 
 def final_level_ref(rays_o, rays_d, real_bins, sh, ws: Sequence,
@@ -423,47 +471,67 @@ def _final_weights(ws, cps, cp_res, freq_degree, skip_layer, dev, what):
     return padded, H, nin, kin, rank
 
 
+def _final_rays(rays_o, rays_d, real_bins, dev, what, sh=None):
+    """Checks the final level's ray inputs; returns (N, T)."""
+    N, T = rays_o.shape[0], real_bins.shape[1] - 1
+    if T < 1:
+        raise ValueError(f"unsupported {what} shape: T {T}")
+    checks = [("rays_o", rays_o, (N, 3)), ("rays_d", rays_d, (N, 3)),
+              ("real_bins", real_bins, (N, T + 1))]
+    if sh is not None:
+        checks.append(("sh", sh, (N, SH_DIM)))
+    for name, x, shape in checks:
+        _check(name, x, shape, dev)
+    return N, T
+
+
+def _composite_outputs(N, T, need_geo, dev):
+    """K3's outputs: f_image [N, 31], depth, wsum [N], weights [N, T], geo
+    [N, T, 15] or None."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    return (empty(N, GEO + SH_DIM), empty(N), empty(N), empty(N, T),
+            empty(N, T, GEO) if need_geo else None)
+
+
 def _launch_final(rays_o, rays_d, real_bins, sh, ws, freq_degree,
                   skip_layer, grid_bound, opaque_last, density_bias, cps,
                   cp_res, need_geo: bool, what: str):
     """K3 (need_geo False) or K6 on CUDA tensors: (f_image, depth,
-    weights_sum, weights, geo or None)."""
+    weights_sum, weights, geo or None).  The scratch the launches pass
+    their activations through, P = N*T rows: xb [P, H+KIN] ([A2 | h_in]),
+    a1, a3 [P, H] bf16; f [P, 16] (the last layer's output), xn [P, 3]
+    fp32."""
     dev = _device(rays_o)
-    N, T = rays_o.shape[0], real_bins.shape[1] - 1
     (w0, w1, w2, w3), H, nin, kin, rank = _final_weights(
         ws, cps, cp_res, freq_degree, skip_layer, dev, what)
-    if T < 1:
-        raise ValueError(f"unsupported {what} shape: T {T}")
-    for name, x, shape in (("rays_o", rays_o, (N, 3)),
-                           ("rays_d", rays_d, (N, 3)),
-                           ("real_bins", real_bins, (N, T + 1)),
-                           ("sh", sh, (N, SH_DIM))):
-        _check(name, x, shape, dev)
-    f_image = torch.empty((N, GEO + SH_DIM), dtype=torch.float32, device=dev)
-    depth = torch.empty((N,), dtype=torch.float32, device=dev)
-    wsum = torch.empty((N,), dtype=torch.float32, device=dev)
-    weights = torch.empty((N, T), dtype=torch.float32, device=dev)
-    geo = (torch.empty((N, T, GEO), dtype=torch.float32, device=dev)
-           if need_geo else None)
+    N, T = _final_rays(rays_o, rays_d, real_bins, dev, what, sh)
+    P = N * T
+    xb, a1, a3 = torch.empty((P * (3 * H + kin),), dtype=torch.bfloat16,
+                             device=dev).split([P * (H + kin), P * H, P * H])
+    f, xn = torch.empty((P * 19,), dtype=torch.float32,
+                        device=dev).split([P * 16, P * 3])
+    outs = _composite_outputs(N, T, need_geo, dev)
     null = ctypes.c_void_p(0)
     cp_ptrs = [_ptr(c) for c in cps] if cps else [null] * 3
-    lib, fn = _fn("render_level", "sanerf_final_level", 16, 7)
+    lib, fn = _fn("render_level", "sanerf_final_level", 21, 7)
     rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(sh), _ptr(w0),
-            _ptr(w1), _ptr(w2), _ptr(w3), *cp_ptrs, _ptr(f_image),
-            _ptr(depth), _ptr(wsum), _ptr(weights),
-            null if geo is None else _ptr(geo), N, T, freq_degree, rank,
-            cp_res, H, kin, grid_bound, int(opaque_last), density_bias,
-            _stream(dev))
+            _ptr(w1), _ptr(w2), _ptr(w3), *cp_ptrs,
+            *(_ptr(x) for x in (xb, a1, a3, f, xn)),
+            *(null if x is None else _ptr(x) for x in outs), N, T,
+            freq_degree, rank, cp_res, H, kin, grid_bound, int(opaque_last),
+            density_bias, _stream(dev))
     cuda_lib.check(lib, rc, what)
-    return f_image, depth, wsum, weights, geo
+    return outs
 
 
 def fused_final_level(rays_o, rays_d, real_bins, sh, ws: Sequence,
                       freq_degree: int, skip_layer: int, grid_bound: float,
                       opaque_last: bool = True, density_bias: float = 0.0,
                       cps: Sequence = (), cp_res: int = 0):
-    """Final level in one kernel (K3): geometry, freq + CP features, the
-    4-layer trunk with its skip at layer 2, and compositing.
+    """Final level (K3), one call launching its kernels: geometry, freq +
+    CP features, the 4-layer trunk with its skip at layer 2 (four layer
+    products over all points), and compositing.
 
     rays_o, rays_d [N, 3]; real_bins [N, T+1]; sh [N, 16] per-ray direction
     encoding; ws trunk weights [out, in]; cps three CP bases [cp_res, rank]
@@ -517,6 +585,129 @@ def fused_final_level_frozen(rays_o, rays_d, real_bins, sh, ws: Sequence,
 
 
 fused_final_level_frozen.launches = 0
+
+
+# The parts of K3 (and K6) alone, for the tests and the part timings; the
+# kernel entry points above launch all three in one call.
+
+def final_level_inputs(rays_o, rays_d, real_bins, freq_degree: int,
+                       grid_bound: float, cps: Sequence = (), cp_res: int = 0,
+                       hidden: int = 0):
+    """K3's first kernel: (h_in, xn), the trunk's layer-0 input and the
+    contracted / grid_bound positions of the N*T points.  On the card h_in
+    is a bf16 view [P, KIN] (padding columns zero) of the scratch row
+    [A2 | h_in] of width hidden + KIN that K3 gives the trunk.  On CPU
+    tensors the plain part, final_level_inputs_ref."""
+    if rays_o.device.type == "cpu":
+        return final_level_inputs_ref(rays_o, rays_d, real_bins, freq_degree,
+                                      grid_bound, cps, cp_res)
+    dev = _device(rays_o)
+    rank = cps[0].shape[1] if cps else 0
+    kin = _round16(3 + 6 * freq_degree + rank)
+    if hidden < 0 or hidden % 16 or (cps and cp_res < 2):
+        raise ValueError(f"unsupported final_level_inputs shape: hidden "
+                         f"{hidden}, cp_res {cp_res}")
+    N, T = _final_rays(rays_o, rays_d, real_bins, dev, "final_level_inputs")
+    for a, c in enumerate(cps):
+        _check(f"cps[{a}]", c, (cp_res, rank), dev)
+    xb = torch.empty((N * T, hidden + kin), dtype=torch.bfloat16, device=dev)
+    xn = torch.empty((N * T, 3), dtype=torch.float32, device=dev)
+    null = ctypes.c_void_p(0)
+    cp_ptrs = [_ptr(c) for c in cps] if cps else [null] * 3
+    lib, fn = _cfn("render_level", "sanerf_final_inputs",
+                   [_P] * 8 + [_I] * 7 + [_F, _P])
+    rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), *cp_ptrs, _ptr(xb),
+            _ptr(xn), N, T, freq_degree, rank, cp_res, hidden, kin,
+            grid_bound, _stream(dev))
+    cuda_lib.check(lib, rc, "final_level_inputs")
+    final_level_inputs.launches += 1
+    return xb[:, hidden:], xn
+
+
+final_level_inputs.launches = 0
+
+
+def _check_rows(name, x, dtype, dev, rows, cols):
+    """x must be a [rows, cols] `dtype` matrix on dev with unit column
+    stride, a row stride that is a multiple of 8 and a 16-byte aligned
+    start: what the layer product's 16-byte loads take."""
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != (rows, cols):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{(rows, cols)}")
+    if x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous along its rows, with a "
+                         f"row stride a multiple of 8 and a 16-byte aligned "
+                         f"start; got stride {x.stride()}")
+
+
+def layer_product(x, w, relu: bool = True):
+    """One layer product of K3 (and K4), y = bf16(relu(x w^T)) as bf16
+    (relu) or x w^T in fp32: the hand-written wgmma GEMM over all points
+    (128 x 128 tiles, cp.async ring, two CTAs an SM).  x [P, k] bf16 (k a
+    multiple of 16) and w [n, k] bf16 (n a multiple of 8), each with unit
+    column stride, a row stride a multiple of 8 and a 16-byte aligned
+    start.  On CPU tensors the plain version, layer_product_ref."""
+    if x.device.type == "cpu":
+        return layer_product_ref(x, w, relu)
+    dev = _device(x)
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError("layer_product takes matrices x [P, k], w [n, k]")
+    (P, k), n = x.shape, w.shape[0]
+    if k % 16 or n % 8 or k == 0 or n == 0:
+        raise ValueError(f"unsupported layer_product shape: k {k}, n {n}")
+    _check_rows("x", x, torch.bfloat16, dev, P, k)
+    _check_rows("w", w, torch.bfloat16, dev, n, k)
+    out = torch.empty((P, n), dtype=torch.bfloat16 if relu else torch.float32,
+                      device=dev)
+    null = ctypes.c_void_p(0)
+    lib, fn = _cfn("render_level", "sanerf_layer_product",
+                   [_P] * 4 + [ctypes.c_longlong] * 2 + [_I, ctypes.c_longlong]
+                   + [_I] * 3 + [_P])
+    rc = fn(_ptr(x), _ptr(w), _ptr(out) if relu else null,
+            null if relu else _ptr(out), P, x.stride(0), w.stride(0), n, k, n,
+            int(relu), _stream(dev))
+    cuda_lib.check(lib, rc, "layer_product")
+    layer_product.launches += 1
+    return out
+
+
+layer_product.launches = 0
+
+
+def final_composite(f, real_bins, sh, opaque_last: bool = True,
+                    density_bias: float = 0.0, need_geo: bool = False):
+    """K3's last kernel: compositing of the trunk's outputs f [N*T, 16]
+    fp32 (raw density | 15 features), a warp a ray, into (f_image [N, 31],
+    depth [N], weights_sum [N], weights [N, T], geo [N, T, 15] or None).
+    On CPU tensors the plain part, final_composite_ref."""
+    if f.device.type == "cpu":
+        return final_composite_ref(f, real_bins, sh, opaque_last,
+                                   density_bias, need_geo)
+    dev = _device(f)
+    N, T = real_bins.shape[0], real_bins.shape[1] - 1
+    if T < 1:
+        raise ValueError(f"unsupported final_composite shape: T {T}")
+    for name, x, shape in (("f", f, (N * T, 16)),
+                           ("real_bins", real_bins, (N, T + 1)),
+                           ("sh", sh, (N, SH_DIM))):
+        _check(name, x, shape, dev)
+    outs = _composite_outputs(N, T, need_geo, dev)
+    null = ctypes.c_void_p(0)
+    lib, fn = _cfn("render_level", "sanerf_final_composite",
+                   [_P] * 8 + [_I] * 3 + [_F, _P])
+    rc = fn(_ptr(f), _ptr(real_bins), _ptr(sh),
+            *(null if x is None else _ptr(x) for x in outs), N, T,
+            int(opaque_last), density_bias, _stream(dev))
+    cuda_lib.check(lib, rc, "final_composite")
+    final_composite.launches += 1
+    return outs
+
+
+final_composite.launches = 0
 
 
 # ---------------------------------------------------------------------------

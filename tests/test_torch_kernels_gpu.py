@@ -556,3 +556,167 @@ def test_prop_bwd_parts_match_plain(dev, N, T, hidden):
         assert _rel(a, b) < 2e-2, (i, _rel(a, b))
     assert _rel(red, part.sum(0)) < 1e-5
     assert torch.equal(red, rl.reduce_partials(part))
+
+
+def _final_weights_bf16(ws, kin):
+    """The trunk's weights as K3's products take them: bf16 [out, in],
+    w0 and w2's h_in block padded to KIN columns."""
+    nin = ws[0].shape[1]
+    H = ws[1].shape[0]
+    w0 = torch.zeros(H, kin, device=ws[0].device)
+    w0[:, :nin] = ws[0]
+    w2 = torch.zeros(H, H + kin, device=ws[0].device)
+    w2[:, :H + nin] = ws[2]
+    return [w.to(torch.bfloat16).contiguous() for w in (w0, ws[1], w2, ws[3])]
+
+
+@pytest.mark.parametrize("N,T,hidden,rank", [
+    (1000, 24, 64, 0),     # no CP features, T not a multiple of 32
+    (333, 160, 256, 64),   # flagship widths, five compositing rounds
+    (777, 32, 128, 16),
+    (5, 8, 32, 4),         # fewer points than a product's tile
+    (6256, 32, 256, 64),   # the stage-3 batch at flagship widths
+])
+def test_final_level_parts_match_plain(dev, N, T, hidden, rank):
+    """K3's three kernels, each against its plain part on the same inputs:
+    the trunk's input (h_in rel-max 2e-2 with its padding columns zero, xn
+    1e-5 abs), the four layer products on the plain part's bf16 operands
+    (relu layers rel-max 2e-2, a bf16 rounding; the fp32 last layer 1e-4,
+    the sums' order), and the compositing on the plain trunk's output
+    (rel-max 2e-2; geo its copy, bit for bit)."""
+    ro, rd, real, _ = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(17)
+    nin = 63 + rank
+    kin = (nin + 15) // 16 * 16
+    ws = [_w(dev, g, hidden, nin), _w(dev, g, hidden, hidden),
+          _w(dev, g, hidden, hidden + nin), _w(dev, g, 16, hidden)]
+    cps = [(torch.randn(64, rank, generator=g) * 0.3).to(dev)
+           for _ in range(3)] if rank else []
+    sh = torch.randn(N, 16, generator=g).to(dev)
+    counters = (rl.final_level_inputs, rl.layer_product, rl.final_composite)
+    before = [c.launches for c in counters]
+
+    h_in, xn = rl.final_level_inputs(ro, rd, real, 10, 2.0, cps, 64,
+                                     hidden=hidden)
+    want_h, want_xn = rl.final_level_inputs_ref(ro, rd, real, 10, 2.0, cps,
+                                                64)
+    torch.cuda.synchronize()
+    assert h_in.shape == (N * T, kin) and h_in.dtype == torch.bfloat16
+    assert not h_in[:, nin:].float().abs().any()
+    assert _rel(h_in[:, :nin].float(), want_h) < 2e-2
+    assert (xn - want_xn).abs().max().item() <= 1e-5
+
+    # the products on the plain part's operands, h_in as a column slice of
+    # the [A2 | h_in] rows, as K3 reads it
+    w0, w1, w2, w3 = _final_weights_bf16(ws, kin)
+    xb = torch.zeros(N * T, hidden + kin, device=dev, dtype=torch.bfloat16)
+    xb[:, hidden:hidden + nin] = want_h.to(torch.bfloat16)
+    a1 = rl.layer_product(xb[:, hidden:], w0)
+    xb[:, :hidden] = rl.layer_product_ref(a1, w1).to(torch.bfloat16)
+    layers = [(xb[:, hidden:], w0, True), (a1, w1, True), (xb, w2, True),
+              (rl.layer_product_ref(xb, w2).to(torch.bfloat16), w3, False)]
+    for l, (x, w, relu) in enumerate(layers):
+        got = rl.layer_product(x, w, relu)
+        want = rl.layer_product_ref(x, w, relu)
+        torch.cuda.synchronize()
+        assert got.dtype == (torch.bfloat16 if relu else torch.float32), l
+        assert torch.isfinite(got.float()).all(), l
+        assert _rel(got.float(), want) < (2e-2 if relu else 1e-4), (
+            l, _rel(got.float(), want))
+
+    f = rl.layer_product_ref(layers[3][0], w3, relu=False)
+    out = rl.final_composite(f, real, sh, True, -0.5, need_geo=True)
+    ref = rl.final_composite_ref(f, real, sh, True, -0.5, need_geo=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("f_image", "depth", "wsum", "weights"), out, ref):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) < 2e-2, (name, _rel(a, b))
+    assert torch.equal(out[4], ref[4])
+    assert [c.launches for c in counters] == [before[0] + 1, before[1] + 5,
+                                              before[2] + 1]
+
+
+@pytest.mark.parametrize("N,T", [(13, 1), (13, 31), (300, 33), (61, 77),
+                                 (9, 200)])
+def test_final_composite_matches_plain_at_any_t(dev, N, T):
+    """K3's compositing at sample counts that are not a multiple of 32 (a
+    warp a ray, rounds of 32 carried in order; N not a multiple of a CTA's
+    8 warps) with densities across the clip at (-30, 15): rel-max 2e-2
+    against the plain part; with geo, the other four outputs bitwise equal
+    to those without it (K6 against K3)."""
+    _, _, real, _ = _rays(dev, N, T)
+    g = torch.Generator().manual_seed(18)
+    f = (torch.randn(N * T, 16, generator=g) * 4).to(dev)
+    f[::7, 0] = 40.0  # clipped above
+    f[::5, 0] = -50.0  # clipped below
+    sh = torch.randn(N, 16, generator=g).to(dev)
+    for opaque_last in (True, False):
+        k3 = rl.final_composite(f, real, sh, opaque_last, 0.3)
+        k6 = rl.final_composite(f, real, sh, opaque_last, 0.3, need_geo=True)
+        ref = rl.final_composite_ref(f, real, sh, opaque_last, 0.3)
+        torch.cuda.synchronize()
+        assert k3[4] is None and k6[4].shape == (N, T, 15)
+        assert torch.equal(k6[4], f.view(N, T, 16)[..., 1:])
+        for name, a, b, c in zip(("f_image", "depth", "wsum", "weights"),
+                                 k3, ref, k6):
+            assert torch.isfinite(a).all(), name
+            assert _rel(a, b) < 2e-2, (name, opaque_last, _rel(a, b))
+            assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("N,T,Q,hidden", [
+    (8192, 128, 65, 64),   # the training batch's first proposal level
+    (8192, 64, 33, 256),   # wide layers: weights through L1/L2
+])
+def test_prop_kernel_walks_several_groups(dev, N, T, Q, hidden):
+    """K1 and K5 on a grid of fewer CTAs than ray groups, so that a CTA
+    walks several groups (with the weights in shared memory at hidden 64,
+    through L1/L2 at 256): K1 against its twin (weights rel-max 2e-2,
+    bins 1e-3 abs), its bins K5's bit for bit."""
+    grid, groups = rl._prop_launch_shape(N, T, Q, hidden, 48)
+    assert groups > grid >= 1, (grid, groups)
+    ro, rd, real, s = _rays(dev, N, T, seed=3)
+    g = torch.Generator().manual_seed(19)
+    ws = [_w(dev, g, hidden, 39), _w(dev, g, hidden, hidden),
+          _w(dev, g, 1, hidden)]
+    u = stratified_queries(N, Q, dev, torch.Generator(dev).manual_seed(2))
+    args = (ro, rd, real, s, u.contiguous(), ws, 6, 2.0, True, -0.5)
+    w, nb = rl.fused_prop_level_sample_train(*args)
+    w_ref, nb_ref = rl.prop_level_train_sample_ref(*args)
+    nb5 = rl.fused_prop_level_sample(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(w).all() and torch.isfinite(nb).all()
+    assert _rel(w, w_ref) < 2e-2
+    assert (nb - nb_ref).abs().max().item() <= 1e-3
+    assert torch.equal(nb, nb5)
+
+
+def test_final_level_part_wrappers_check_inputs(dev):
+    """The part wrappers raise, and launch nothing, on operands of the
+    wrong type or layout."""
+    g = torch.Generator().manual_seed(20)
+    x = torch.randn(300, 64, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(32, 64, generator=g).to(dev, torch.bfloat16)
+    f = torch.randn(40 * 8, 16, generator=g).to(dev)
+    _, _, real, _ = _rays(dev, 40, 8)
+    sh = torch.randn(40, 16, generator=g).to(dev)
+    counters = (rl.layer_product, rl.final_composite)
+    before = [c.launches for c in counters]
+    with pytest.raises(TypeError, match="bfloat16"):
+        rl.layer_product(x.float(), w)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rl.layer_product(x, w.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        rl.layer_product(x.t().contiguous().t(), w)
+    with pytest.raises(ValueError, match="row stride"):
+        rl.layer_product(torch.zeros(300, 68, device=dev,
+                                     dtype=torch.bfloat16)[:, 4:], w)
+    with pytest.raises(ValueError, match="shape"):
+        rl.layer_product(x[:, :40], w[:, :40])  # k not a multiple of 16
+    with pytest.raises(TypeError, match="float32"):
+        rl.final_composite(f.double(), real, sh)
+    with pytest.raises(ValueError, match="contiguous"):
+        rl.final_composite(f.t().contiguous().t(), real, sh)
+    with pytest.raises(ValueError, match="shape"):
+        rl.final_composite(f[:-1], real, sh)
+    assert [c.launches for c in counters] == before

@@ -142,3 +142,98 @@ def test_wrappers_dispatch_only_cpu_tensors_to_twins():
     with pytest.raises(ValueError, match="unsupported device"):
         rl.fused_final_level(*meta[:3], torch.zeros(n, 16, device="meta"),
                              tws, 10, 2, 2.0)
+
+
+def _final_case(T, rank, hidden=32, deg=4, res=16, n=64, seed=3):
+    """Rays, sh, trunk weights [out, in] and CP bases from one numpy seed."""
+    rng = np.random.default_rng(seed)
+    ro = rng.normal(size=(n, 3)) * 2
+    rd = rng.normal(size=(n, 3))
+    bins = np.sort(rng.uniform(0.2, 4.0, (n, T + 1)), axis=1)
+    sh = rng.normal(size=(n, 16))
+    nin = 3 + 6 * deg + rank
+    ws = [rng.normal(size=s) * 0.3 for s in
+          [(hidden, nin), (hidden, hidden), (hidden, hidden + nin),
+           (16, hidden)]]
+    cps = [rng.normal(size=(res, rank)) * 0.3 for _ in range(3)] if rank \
+        else []
+    rays = [_t(a) for a in (ro, rd, bins, sh)]
+    return rays, [_t(w) for w in ws], [_t(c) for c in cps], deg, res
+
+
+def _compose_parts(ro, rd, bins, sh, ws, deg, cps, res, need_geo):
+    """K3's plain parts in the kernels' order: the inputs, A1, A2 beside
+    h_in, A3, the fp32 last layer, the compositing."""
+    h_in, _ = rl.final_level_inputs_ref(ro, rd, bins, deg, GRID_BOUND, cps,
+                                        res)
+    a1 = rl.layer_product_ref(h_in, ws[0])
+    a2 = rl.layer_product_ref(a1, ws[1])
+    a3 = rl.layer_product_ref(torch.cat([a2, h_in], dim=-1), ws[2])
+    f = rl.layer_product_ref(a3, ws[3], relu=False)
+    return rl.final_composite_ref(f, bins, sh, True, DB, need_geo)
+
+
+@pytest.mark.parametrize("T,rank,need_geo", [(8, 4, True), (37, 0, False),
+                                             (40, 4, True)])
+def test_final_level_parts_compose_to_the_twin(T, rank, need_geo):
+    """K3's plain parts (inputs, four layer products, compositing), composed
+    as the kernels run them, give final_level_frozen_ref's outputs bit for
+    bit, at sample counts that are and are not a multiple of 8 or 32."""
+    (ro, rd, bins, sh), ws, cps, deg, res = _final_case(T, rank)
+    got = _compose_parts(ro, rd, bins, sh, ws, deg, cps, res, need_geo)
+    want = rl.final_level_frozen_ref(ro, rd, bins, sh, ws, deg, 2,
+                                     GRID_BOUND, True, DB, cps, res,
+                                     need_geo)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            assert torch.equal(a, b)
+    h_in, xn = rl.final_level_inputs_ref(ro, rd, bins, deg, GRID_BOUND, cps,
+                                         res)
+    assert h_in.shape == (64 * T, 3 + 6 * deg + rank) and xn.shape == (
+        64 * T, 3)
+    assert torch.equal(h_in, h_in.to(torch.bfloat16).float())  # bf16 values
+
+
+@pytest.mark.parametrize("rank", [0, 4])
+def test_final_level_parts_match_pallas(rank):
+    """K3's plain parts composed against the JAX kernel run in interpret
+    mode on the same inputs, at the JAX package's rel-max 2e-2."""
+    (ro, rd, bins, sh), ws, cps, deg, res = _final_case(8, rank, n=N)
+    got = _compose_parts(ro, rd, bins, sh, ws, deg, cps, res, False)
+    jin = [jnp.asarray(x.numpy()) for x in (ro, rd, bins, sh)]
+    want = rlp.final_level_train(
+        (deg, 2, GRID_BOUND, True, DB, rank, res), *jin,
+        *(jnp.asarray(w.T.numpy()) for w in ws),
+        *(jnp.asarray(c.numpy()) for c in cps))
+    for name, a, b in zip(("f_image", "depth", "weights_sum", "weights"),
+                          got, want):
+        assert a.shape == b.shape, name
+        assert _rel(a, b) < 2e-2, name
+
+
+def test_final_level_part_wrappers_run_the_plain_parts_on_cpu():
+    """On CPU tensors each K3 part wrapper runs its plain part without
+    counting a launch; another device raises rather than falling back."""
+    (ro, rd, bins, sh), ws, cps, deg, res = _final_case(8, 4)
+    counters = (rl.final_level_inputs, rl.layer_product, rl.final_composite)
+    before = [c.launches for c in counters]
+    h_in, xn = rl.final_level_inputs(ro, rd, bins, deg, GRID_BOUND, cps, res,
+                                     hidden=32)
+    want = rl.final_level_inputs_ref(ro, rd, bins, deg, GRID_BOUND, cps, res)
+    assert torch.equal(h_in, want[0]) and torch.equal(xn, want[1])
+    a1 = rl.layer_product(h_in, ws[0])
+    assert torch.equal(a1, rl.layer_product_ref(h_in, ws[0]))
+    f = rl.layer_product(a1, ws[1][:16], relu=False)
+    assert torch.equal(f, rl.layer_product_ref(a1, ws[1][:16], relu=False))
+    out = rl.final_composite(f, bins, sh, True, DB, need_geo=True)
+    ref = rl.final_composite_ref(f, bins, sh, True, DB, need_geo=True)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert out[4].shape == (64, 8, 15)
+    assert [c.launches for c in counters] == before
+    meta = f.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rl.final_composite(meta, bins.to("meta"), sh.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        rl.layer_product(meta, ws[0].to("meta"))
