@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (`sanerf_hq_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase
+    python3 chip_smoke.py --ab      # phases 1 and 2, the level kernels'
+                                    # output digests and K8's check alone
+
+`--ab` is what an A/B call runs on each of two commits: copied into an
+earlier commit's checkout, it measures that commit's package the same way
+(the design lines of K8 are left out where its module has no design rule).
 
 Phases, each printing its own lines; any failure exits non-zero before the
 last line:
@@ -28,11 +34,21 @@ last line:
        run-to-run difference); K7 at both proposal levels (weights rel-max
        < 2e-2, bitwise equal to K1's; prop_level_train's weight grads
        bitwise equal to prop_level_train_sample's under one cotangent);
+     - the level kernels' output digests (sha256 of K5, K1, K7, K2, K3,
+       K6 and K4's outputs on this phase's shapes and fixed seeds), which
+       an A/B call compares across commits where shared device code moved;
      - K8 (freq encode + MLP forward) at the composable route's shapes of
        a 6256-ray stage-3 batch: the proposal MLP at 800,768 and 400,384
-       points and the cp_rank-0 trunk at 200,192, rel-max < 2e-2 on the
-       outputs and on the autograd grads of x and every weight, timed
-       beside its plain version and a sin/cos + bf16 F.linear composite;
+       points (the narrow design) and the cp_rank-0 trunk at 200,192 (the
+       wide design), with the design the wrapper's rule takes, rel-max <
+       2e-2 on the outputs and on the autograd grads of x and every weight,
+       two launches bitwise equal, timed with its wrapper and on the device
+       alone (CUDA graph) beside its plain version, a sin/cos + bf16
+       F.linear composite and the weights' bf16 conversions as PyTorch
+       launches; at the trunk the wide design's peak device memory and its
+       parts, each beside its plain part and its bound: the weight pack
+       (bitwise), the input kernel and each layer product (torch's bf16
+       matmul of the same operands beside each);
      - the parts of K2 and K4 on the training batch, each beside its plain
        part: K2's partial slabs (their sum rel-max < 2e-2 against the twin)
        and their reduction in CTA order (rel-max < 1e-5 against
@@ -103,17 +119,20 @@ last line:
      K5 and K6 only in the error-map and eval renders, K1-K4 and K7 never;
      backbone_frozen False, the CE at the first and last step, [EVAL]
      MeanIoU, the peak device memory; the step rate (host clock around
-     synchronised steps) with its breakdown (CUDA events: the sampler, K8,
-     K10, the plain CP trunk, compositing, the mask branch, the losses,
-     Adam; one device-only torch.profiler trace, taken in 10); then 20
-     steps with --cp_rank 0, where K8 also runs the trunk: three launches
-     a step;
+     synchronised steps) with its breakdown (CUDA events: the sampler, K8
+     with its wrapper and on the device alone, K10, the plain CP trunk,
+     compositing, the mask branch, the losses, Adam; one device-only
+     torch.profiler trace, taken in 10, K8's narrow kernel by name); then
+     20 steps with --cp_rank 0, where K8 also runs the trunk through its
+     wide design: three launches a step, and its trace (K8 narrow, the wide
+     design's pack and input kernels, its layer products);
  10. the device-only torch.profiler traces of phases 5, 7, 8 and 9, taken
      after every rate, since a trace slows the host's later steps; one
      JSON line with every kernel's numbers, the device line again, and
      the last line {"ok": true, "device": {...}}.
 """
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -897,21 +916,37 @@ def composite_mlp(x, ws_bf16, deg, skip):
 def check_mlp_kernel(field, trunk):
     """Phase 3, K8 at the composable route's shapes of a 6256-ray stage-3
     batch: the proposal MLPs at 128 and 64 samples a ray and the cp_rank-0
-    trunk (`trunk`) at 32; against its twin, its autograd grads against
-    autograd through the twin, timed beside the twin and a composite.  The
-    headline numbers are the sums over the two proposal shapes (a step's
-    K8 work at CP rank 64)."""
+    trunk (`trunk`) at 32.  At each shape: the design the wrapper's rule
+    takes, the output against the twin and two launches bitwise equal, the
+    autograd grads against autograd through the twin, the time with the
+    wrapper (CUDA events around each call) and on the device alone (a CUDA
+    graph of the calls), beside the twin, the sin/cos + bf16 F.linear
+    composite, the bf16 weight conversions the first port's wrapper ran on
+    every call (2 PyTorch launches a layer), and the bound; at the trunk the
+    wide design's peak device memory and its parts (mlp_wide_parts).  The
+    headline numbers are the sums over the two proposal shapes (a step's K8
+    work at CP rank 64).  Over a package without the design rule (an
+    earlier commit's, for an A/B comparison) the design lines are left
+    out."""
     dev = field.cp_x.device
-    k8 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "composite_ms": 0.0,
-          "max_abs_err": 0.0, "per_shape": {}}
+    design_of = getattr(fused_mlp, "mlp_design", None)
+    k8 = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "composite_ms": 0.0, "conversions_ms": 0.0, "max_abs_err": 0.0,
+          "bitwise_equal": True, "per_shape": {}}
     for name, T, mlp in (("proposal", 128, field.prop_mlp_0),
                          ("proposal", 64, field.prop_mlp_1),
                          ("trunk", 32, trunk)):
         ws, deg, skip = mlp.weights, mlp.freq_degree, mlp.skip_layer
         x = path_points(dev, T, field.grid_bound)
         B = x.shape[0]
+        nin = 3 * (1 + 2 * deg)
+        kin = rl._round16(nin)
+        design = (design_of(len(ws), ws[0].shape[0], nin, kin,
+                            ws[-1].shape[0], skip)
+                  if design_of else "one kernel")
         with torch.inference_mode():
             got = fused_freq_mlp(x, ws, deg, skip)
+            again = fused_freq_mlp(x, ws, deg, skip)
             want = fused_mlp._reference_forward(x, ws, deg, skip)
             wb = [w.to(torch.bfloat16) for w in ws]
             comp = composite_mlp(x, wb, deg, skip)
@@ -920,11 +955,25 @@ def check_mlp_kernel(field, trunk):
             rel = rel_max(got, want)
             err = (got - want).abs().max().item()
             assert rel < 2e-2, f"K8 {name} at {B} points rel-max error {rel}"
+            equal = torch.equal(got, again)
+            assert equal, f"K8 {name}: two launches differ"
             comp_rel = rel_max(comp, want)
             ms = cuda_ms(lambda: fused_freq_mlp(x, ws, deg, skip))
+            gms = graph_ms(lambda: fused_freq_mlp(x, ws, deg, skip))
             plain = cuda_ms(lambda: fused_mlp._reference_forward(x, ws, deg,
                                                                 skip))
             cms = cuda_ms(lambda: composite_mlp(x, wb, deg, skip))
+            conv = cuda_ms(lambda: [
+                rl._bf16_padded(w, rl._round16(w.shape[0]),
+                                rl._round16(w.shape[1])) for w in ws])
+            peak = None
+            if name == "trunk":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                fused_freq_mlp(x, ws, deg, skip)
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - held) / 2**30
         cot = torch.randn(got.shape, generator=torch.Generator(dev)
                           .manual_seed(T), device=dev)
         grads = []
@@ -938,24 +987,182 @@ def check_mlp_kernel(field, trunk):
         macs = mlp_macs(ws)
         bms, by = bound(nbytes(x, *ws, got), 2 * B * macs, 2 * B * 3 * deg)
         print(f"[kernel] K8 fused_freq_mlp {name} ({len(ws)} layers, skip "
-              f"{skip}, {macs} MAC a point) at {B} points: rel-max err "
-              f"{rel:.3e} (< 2e-2), grads of x and the weights rel-max "
-              f"{max(g_rels):.3e} (< 2e-2); {ms:.4f} ms, plain twin "
-              f"{plain:.4f} ms, sin/cos + bf16 F.linear composite {cms:.4f} "
-              f"ms (rel-max {comp_rel:.1e}), bound {bms:.4f} ms ({by})",
-              flush=True)
-        k8["per_shape"][f"{name}_N{B}"] = {
-            "ms": ms, "plain_ms": plain, "composite_ms": cms,
-            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
-            "rel_max_err": rel, "grad_rel_max": max(g_rels),
-            "mac_per_point": macs}
+              f"{skip}, {macs} MAC a point) at {B} points, design {design}: "
+              f"rel-max err {rel:.3e} (< 2e-2), two launches bitwise equal "
+              f"{equal}, grads of x and the weights rel-max "
+              f"{max(g_rels):.3e} (< 2e-2); {ms:.4f} ms a call with its "
+              f"wrapper, {gms:.4f} ms on the device alone (CUDA graph), "
+              f"plain twin {plain:.4f} ms, sin/cos + bf16 F.linear composite "
+              f"{cms:.4f} ms (rel-max {comp_rel:.1e}), the weights' bf16 "
+              f"conversions as PyTorch launches {conv:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})"
+              + ("" if peak is None else
+                 f"; adds {peak:.4f} GiB of peak device memory"), flush=True)
+        shape = {"design": design, "ms": ms, "graph_ms": gms,
+                 "plain_ms": plain, "composite_ms": cms,
+                 "conversions_ms": conv, "bound_ms": bms, "bound_by": by,
+                 "max_abs_err": err, "rel_max_err": rel,
+                 "grad_rel_max": max(g_rels), "bitwise_equal": equal,
+                 "mac_per_point": macs}
+        if peak is not None:
+            shape["peak_memory_gib"] = peak
+        if name == "trunk" and design == "wide":
+            shape["parts"] = mlp_wide_parts(x, ws, deg, skip)
+        k8["per_shape"][f"{name}_N{B}"] = shape
         k8["max_abs_err"] = max(k8["max_abs_err"], err)
+        k8["bitwise_equal"] &= equal
         if name == "proposal":
-            for key, v in (("ms", ms), ("plain_ms", plain),
-                           ("bound_ms", bms), ("composite_ms", cms)):
+            for key, v in (("ms", ms), ("graph_ms", gms), ("plain_ms", plain),
+                           ("bound_ms", bms), ("composite_ms", cms),
+                           ("conversions_ms", conv)):
                 k8[key] += v
             k8["bound_by"] = by
+            k8["design"] = design
     return k8
+
+
+def mlp_wide_parts(x, ws, deg, skip):
+    """K8's wide design at the trunk's shape, part by part, each against
+    its plain part and beside its bound, as final_fwd_parts does for K3:
+    the weight pack (bitwise equal to pack_weights_ref), the input kernel
+    (rel-max < 2e-2 against trunk_input) and each layer's product on the
+    operands the kernels give each other (rel-max < 2e-2, the fp32 last
+    layer < 1e-4; torch's bf16 matmul of the same operands beside each, a
+    yardstick the port does not call)."""
+    L, H, out_dim = len(ws), ws[0].shape[0], ws[-1].shape[0]
+    B, nin = x.shape[0], 3 * (1 + 2 * deg)
+    kin = rl._round16(nin)
+    c0 = H if skip > 0 else 0
+    src = f"{TPU_FILE_MLP}:213"
+    rows = {}
+
+    def report(part, got_ok, err, what, ms, plain, bms, by, lib=None):
+        print(f"[kernel] K8 wide part {part}: {what}, {ms:.4f} ms, plain "
+              f"{plain:.4f} ms" + ("" if lib is None else
+                                   f", torch bf16 matmul {lib:.4f} ms")
+              + f", bound {bms:.4f} ms ({by})", flush=True)
+        assert got_ok, f"K8 wide part {part}: {what}"
+        rows.update((part_row(part, src, ms, plain, bms, by, err, lib,
+                              source=SOURCE_MLP),))
+
+    wp = fused_mlp.pack_weights(ws, deg, skip)
+    ref = fused_mlp.pack_weights_ref(ws, nin, kin, skip)
+    torch.cuda.synchronize()
+    equal = torch.equal(wp, ref)
+    ms = cuda_ms(lambda: fused_mlp.pack_weights(ws, deg, skip))
+    plain = cuda_ms(lambda: fused_mlp.pack_weights_ref(ws, nin, kin, skip))
+    bms, by = bound(nbytes(*ws, wp), 0, 0)
+    report("pack_weights", equal, 0.0 if equal else float("inf"),
+           f"bitwise equal to its plain version {equal}", ms, plain, bms, by)
+
+    h = fused_mlp.freq_input(x, deg, c0)
+    want = fused_mlp.trunk_input(x, deg)
+    torch.cuda.synchronize()
+    rel = rel_max(h[:, :nin].float(), want)
+    err = (h[:, :nin].float() - want).abs().max().item()
+    ms = cuda_ms(lambda: fused_mlp.freq_input(x, deg, c0))
+    plain = cuda_ms(lambda: fused_mlp.trunk_input(x, deg))
+    bms, by = bound(nbytes(x, h), 0, 2 * B * 3 * deg)
+    report("freq_input", rel < 2e-2, err, f"rel-max {rel:.3e} (< 2e-2)", ms,
+           plain, bms, by)
+
+    # the products on the kernels' own operands, as the wide design chains
+    # them (fused_mlp.wide_plan): h_in a column slice of the [A | h_in] rows
+    offs = fused_mlp.packed_offsets(L, H, nin, kin, out_dim, skip)
+    shapes = fused_mlp.layer_shapes(L, H, nin, kin, out_dim, skip)
+    xb = torch.zeros(B, c0 + kin, dtype=torch.bfloat16, device=x.device)
+    xb[:, c0:] = h
+    del h
+    cur = None
+    for l, (n, _, k) in enumerate(shapes):
+        w = wp[offs[l]:offs[l + 1]].view(n, k)
+        xl = xb if l == skip else (xb[:, c0:] if l == 0 else cur)
+        relu = l != L - 1
+        got = rl.layer_product(xl, w, relu)
+        want = rl.layer_product_ref(xl, w, relu)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        rel = rel_max(got.float(), want)
+        bar = 2e-2 if relu else 1e-4
+        del want
+        ms = cuda_ms(lambda: rl.layer_product(xl, w, relu))
+        plain = cuda_ms(lambda: rl.layer_product_ref(xl, w, relu))
+        lib = cuda_ms(lambda: xl @ w.t())
+        bms, by = bound(nbytes(xl, w, got), 2 * B * k * n, 0)
+        report(f"layer_product {l} [{B} x {k}] x [{k} x {n}]", rel < bar,
+               err, f"rel-max {rel:.3e} (< {bar:g})", ms, plain, bms, by, lib)
+        if relu and l + 1 == skip:
+            xb[:, :H] = got
+        cur = got
+    return rows
+
+
+def level_digests(field):
+    """sha256 (16 hex digits) of the level kernels' outputs on phase 3's
+    shapes, with the seeded field, the chunk's (16384) and the training
+    batch's (8192) view rays, and queries and cotangents from fixed seeds:
+    K5 and K1 at both proposal levels (K1's bins and weights), K7, K2's
+    weight grads, K3 and K6 (all outputs) and K4's weight grads (its CP
+    grads are summed with atomics and left out).  Builds whose device code
+    computes alike give equal digests: an A/B call compares them across
+    commits (--ab)."""
+    dev = field.cp_x.device
+    out = {}
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    pargs = dict(freq_degree=field.prop_freq_degree,
+                 grid_bound=field.grid_bound, opaque_last=True,
+                 density_bias=field.density_bias)
+    args3 = dict(freq_degree=field.freq_degree, skip_layer=2,
+                 grid_bound=field.grid_bound, opaque_last=True,
+                 density_bias=field.density_bias, cps=field.cp_basis,
+                 cp_res=field.cp_res)
+    for N, (vh, vw) in ((CHUNK, (128, 128)), (BATCH, (64, 128))):
+        ro, rd = view_rays(dev, vh, vw)
+        sn, sf = s_space(ro, rd)
+        s_bins = torch.linspace(0.0, 1.0, 129, device=dev).expand(N, 129)
+        s_bins = s_bins.contiguous()
+        for level, (T, Q) in enumerate(((128, 65), (64, 33))):
+            real = spacing_fn_inv(sn * (1.0 - s_bins) + sf * s_bins)
+            u = stratified_queries(N, Q, dev, torch.Generator(dev)
+                                   .manual_seed(level)).contiguous()
+            ws = (field.prop_mlp_0 if level == 0 else field.prop_mlp_1).weights
+            nb = rl.fused_prop_level_sample(ro, rd, real, s_bins, u, ws,
+                                            **pargs)
+            out[f"K5 N{N} T{T}"] = digest(nb)
+            out[f"K1 N{N} T{T}"] = digest(*rl.fused_prop_level_sample_train(
+                ro, rd, real, s_bins, u, ws, **pargs))
+            out[f"K7 N{N} T{T}"] = digest(rl.fused_prop_level(ro, rd, real, ws,
+                                                              **pargs))
+            g_w = torch.randn(N, T, generator=torch.Generator(dev)
+                              .manual_seed(10 + level), device=dev)
+            out[f"K2 N{N} T{T}"] = digest(*rl.fused_prop_level_bwd(
+                ro, rd, real, ws, g_w, **pargs))
+            s_bins = nb
+        real = spacing_fn_inv(sn * (1.0 - s_bins) + sf * s_bins)
+        sh = sh_encode(rd / torch.linalg.norm(rd, dim=-1, keepdim=True))
+        ws = field.trunk.weights
+        k3 = rl.fused_final_level(ro, rd, real, sh, ws, **args3)
+        out[f"K3 N{N}"] = digest(*k3)
+        k6 = rl.fused_final_level_frozen(ro, rd, real, sh, ws, need_geo=True,
+                                         **args3)
+        out[f"K6 N{N}"] = digest(*k6)
+        gen = torch.Generator(dev).manual_seed(20)
+        T = real.shape[1] - 1
+        cots = [torch.randn(shape, generator=gen, device=dev)
+                for shape in ((N, 31), (N,), (N,), (N, T))]
+        dws, _ = rl.fused_final_level_bwd(ro, rd, real, sh, ws, *cots,
+                                          **args3)
+        out[f"K4 N{N}"] = digest(*dws)
+    torch.cuda.synchronize()
+    print("[kernel] level kernels' output digests (sha256, 16 hex digits): "
+          + ", ".join(f"{k} {v}" for k, v in out.items()), flush=True)
+    return out
 
 
 def main_path(work):
@@ -1211,15 +1418,21 @@ STAGE3_GROUPS = (("K5", ("prop_level_sample_kernel",)),
 def owned_names(events):
     """Lower-case names of the device events, each kernel of
     SHARED_KERNELS marked with its owner's tag: a call of K3 or K4 runs
-    them in a row on one stream, and then its own compositing kernel."""
+    them in a row on one stream, and then its own compositing kernel; a
+    call of K8's wide design runs its input kernel and then its layer
+    products (tagged "k8:")."""
     names = [e.name.lower() for e in events]
-    pending = []
+    pending, k8 = [], False
     for i in sorted(range(len(events)),
                     key=lambda i: events[i].time_range.start):
         shared = next((k for k in SHARED_KERNELS if k in names[i]), None)
+        if shared and k8:
+            names[i] = names[i].replace(shared, "k8:" + shared)
+            continue
         if shared:
             pending.append((i, shared))
             continue
+        k8 = "fused_freq_mlp_input" in names[i]
         tag = next((t for k, t in OWNER_KERNELS if k in names[i]), None)
         if tag:
             for j, k in pending:
@@ -1918,7 +2131,10 @@ def packed_path(work):
     return {"seconds": dt, "losses": losses, "launches": launches}
 
 
-TRAINABLE_GROUPS = (("K8", ("fused_freq_mlp",)),
+TRAINABLE_GROUPS = (("K8 narrow", ("fused_freq_mlp_narrow",)),
+                    ("K8 wide: weight pack and input", (
+                        "fused_freq_mlp_pack", "fused_freq_mlp_input")),
+                    ("K8 wide: layer products", ("k8:layer_gemm",)),
                     ("K10", ("sample_pdf_lookup",)),
                     ("matrix products", ("gemm", "cutlass")),
                     ("Adam", ("adam", "multi_tensor")))
@@ -2061,6 +2277,9 @@ def stage3_trainable_path(work):
                       "parts_alone_ms": parts,
                       "trace": (step, TRAINABLE_GROUPS),
                       "cp0": {"launches": launches0, "steps_per_s": sps0,
+                              "trace": (lambda: step0(trainer0.state, draw(),
+                                                      gen, em)[0],
+                                        TRAINABLE_GROUPS),
                               "ce_first": hist0[0][1]["ce"],
                               "ce_last": hist0[-1][1]["ce"]}}
 
@@ -2112,8 +2331,11 @@ def trainable_step_parts(trainer, draw, gen, em):
                                                        len(lookups))
     parts = {"sampler": cuda_ms(draw)}
     with torch.no_grad():
-        parts["K8, both proposal levels"] = cuda_ms(
+        parts["K8, both proposal levels (narrow design)"] = cuda_ms(
             lambda: [fused_freq_mlp(x, *a, **k) for x, a, k in mlp_calls])
+        parts["K8, both proposal levels (device time, CUDA graph)"] = \
+            graph_ms(lambda: [fused_freq_mlp(x, *a, **k)
+                              for x, a, k in mlp_calls])
         parts["K10, both levels (device time, CUDA graph)"] = graph_ms(
             lambda: [sample_pdf_lookup(*a) for a in lookups])
     (xyz, dirs), _, fc = calls["forward_color"][0]
@@ -2160,10 +2382,15 @@ def trainable_step_parts(trainer, draw, gen, em):
     return parts
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
         return 1
+    ab = argv == ["--ab"]
+    if argv and not ab:
+        print(f"error: unknown arguments {argv} (none, or --ab)",
+              file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 twins stay fp32
     torch.backends.cudnn.allow_tf32 = False
     dev_line = device_line()
@@ -2184,13 +2411,24 @@ def main():
     os.makedirs(work)
     field = make_field("mlp", device="cuda", seed=0, grid_bound=2.0,
                        cp_rank=64, cp_res=256)
+    trunk0 = make_field("mlp", device="cuda", seed=0, cp_rank=0).trunk
+    if ab:
+        with torch.inference_mode():
+            digests = level_digests(field)
+        k8 = check_mlp_kernel(field, trunk0)
+        print(json.dumps({"digests": digests, "K8": k8}))
+        print(dev_line)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     with torch.inference_mode():
+        digests = level_digests(field)
         kernels = check_kernels(field)
         kernels.update(check_train_kernels(field))
         kernels["K10"] = check_sample_pdf_kernel(torch.device("cuda"))
     kernels["K3"]["train_shape_ms"] = kernels.pop("K3_train_ms")
     kernels["K7"] = check_prop_weights_kernel(field)
-    trunk0 = make_field("mlp", device="cuda", seed=0, cp_rank=0).trunk
     kernels["K8"] = check_mlp_kernel(field, trunk0)
     launches, mrays = main_path(work)
     trainer, train_launches, sps, train_step = train_path(work)
@@ -2217,7 +2455,8 @@ def main():
           + f"; K3 {sum(k3_trace.values()):.4f}, K1 {train_profile['K1']:.4f}",
           flush=True)
     for tag, res in (("stage3", s3), ("hashgrid", hg),
-                     ("trainable", trainable)):
+                     ("trainable", trainable),
+                     ("trainable cp_rank 0", trainable["cp0"])):
         step, groups = res.pop("trace")
         print(f"[{tag}] the step's device time by kernel:", flush=True)
         res["profile"] = profile_steps(step, groups)
@@ -2252,7 +2491,7 @@ def main():
     # K7: no route of the renderer calls it (as in JAX), so its count on
     # the phase-9 path is 0; K8's launches are phase 9's (2 a step), its
     # headline numbers the sums over both proposal shapes, the trunk's in
-    # per_shape; K9 is the same CUDA kernel as K8
+    # per_shape; K9 is the same CUDA code as K8
     report.append({"name": "fused_prop_level", "route": "cuda",
                    "source": SOURCE, "replaces": f"{TPU_FILE}:220",
                    "launches": tr_launches["K7"], "library_ms": None,
@@ -2261,13 +2500,14 @@ def main():
                    "source": SOURCE_MLP, "replaces": f"{TPU_FILE_MLP}:251",
                    "launches": tr_launches["K8"], "library_ms": None,
                    **kernels["K8"]})
-    report.append({"name": "fused_freq_mlp (K9, row-major: the K8 kernel)",
+    report.append({"name": "fused_freq_mlp (K9, row-major: K8's kernels)",
                    "route": "cuda", "source": SOURCE_MLP,
                    "replaces": f"{TPU_FILE_MLP}:145",
                    "launches": tr_launches["K8"], "library_ms": None,
                    **{k: v for k, v in kernels["K8"].items()
                       if k != "per_shape"}})
-    print(json.dumps({"kernels": report, "render_mrays_per_s": mrays,
+    print(json.dumps({"kernels": report, "level_digests": digests,
+                      "render_mrays_per_s": mrays,
                       "train_steps_per_s": sps,
                       "train_launches": train_launches,
                       "train_profile_ms_a_step": train_profile,
@@ -2284,4 +2524,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

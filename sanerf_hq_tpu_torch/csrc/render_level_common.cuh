@@ -1,8 +1,8 @@
 // Device code shared by the render-level kernels (render_level.cu, forward;
-// render_level_bwd.cu, backward): the bf16 WMMA products, the sample
-// geometry with its contraction, the block freq encoding and the CP line
-// features.  Every function works on a pass of PP points held by one CTA of
-// NWARPS warps; PP is a multiple of 16.
+// render_level_bwd.cu, backward) and K8 (fused_mlp.cu): the bf16 WMMA and
+// mma.sync products, the sample geometry with its contraction, the block
+// freq encoding and the CP line features.  Every function works on a pass
+// of PP points held by one CTA of NWARPS warps; PP is a multiple of 16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,6 +72,38 @@ __device__ void dense_ld(const bf16* A, int lda, int k, const bf16* W,
       }
     }
   }
+}
+
+// mma.sync products on ldmatrix fragments (the proposal kernel in
+// render_level.cu, K8's narrow kernel in fused_mlp.cu).
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+// d [16 x 8] += a [16 x 16] b [16 x 8]: bf16 products, fp32 sums; b as
+// the fragment's two registers.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
+                                          unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
+                                          const unsigned (&b)[2]) {
+  mma_16816(d, a, b[0], b[1]);
 }
 
 // Midpoint, width and contracted / grid_bound position of one sample.

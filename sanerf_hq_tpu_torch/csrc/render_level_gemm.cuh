@@ -3,7 +3,8 @@
 // wgmma helpers on 128-byte-swizzled tiles, the trunk-input kernel over
 // all points (geometry, freq and CP features), and the per-layer product
 // over all points (layer_gemm) with its launch and the trunk's four forward
-// products.  One copy, so that K3 and K4 run the same code.
+// products.  One copy, so that K3, K4 and K8's wide design (fused_mlp.cu)
+// run the same code.
 #pragma once
 
 #include "render_level_common.cuh"
@@ -164,7 +165,8 @@ inline int launch_final_input(FinalInput p, cudaStream_t stream) {
 // 128 x 128 output tiles, two warpgroups of 64 rows each, the k loop in
 // 64-wide steps through a three-stage cp.async ring into swizzled K-major
 // tiles, wgmma products, two CTAs an SM.  The sums pass through shared
-// memory to the epilogues: EPI_RELU y = bf16(relu); EPI_F32 f = sum;
+// memory to the epilogues: EPI_RELU y = bf16(relu); EPI_F32 f = sum (any
+// n and ldf: 16-byte stores where a group of 8 columns fits);
 // EPI_MASK column c < nmask y = bf16(m > 0 ? sum : 0), column c in
 // [e0, e1) into f[:, c - e0] (added when eadd); a thread writes 8
 // consecutive columns of a row.
@@ -277,10 +279,14 @@ layer_gemm(const LayerGemm p) {
         *reinterpret_cast<const float4*>(tile + row * LSCR + c8);
     *reinterpret_cast<float4*>(v + 4) =
         *reinterpret_cast<const float4*>(tile + row * LSCR + c8 + 4);
-    if (EPI == EPI_F32) {
+    if (EPI == EPI_F32 && c + 8 <= p.n && p.ldf % 4 == 0) {
       float4* f = reinterpret_cast<float4*>(p.f + r * p.ldf + c);
       f[0] = make_float4(v[0], v[1], v[2], v[3]);
       f[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else if (EPI == EPI_F32) {  // a ragged last group or row stride
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        if (c + t < p.n) p.f[r * p.ldf + c + t] = v[t];
     } else if (EPI == EPI_RELU || c < p.nmask) {
       uint4 mk = make_uint4(0, 0, 0, 0);
       if (EPI == EPI_MASK)

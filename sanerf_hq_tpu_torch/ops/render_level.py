@@ -48,7 +48,7 @@ import torch
 
 from . import cuda_lib
 from .contraction import contract
-from .fused_mlp import bf16_round, trunk_input, trunk_with_inputs
+from .fused_mlp import _round16, bf16_round, trunk_input, trunk_with_inputs
 
 GEO = 15  # geometry features the final level composites
 SH_DIM = 16
@@ -169,10 +169,6 @@ def prop_level_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
     return prop_level_train_sample_ref(rays_o, rays_d, real_bins, s_bins, u,
                                        ws, freq_degree, grid_bound,
                                        opaque_last, density_bias)[1]
-
-
-def _round16(n: int) -> int:
-    return (n + 15) // 16 * 16
 
 
 def _bf16_padded(w, rows: int, cols: int):

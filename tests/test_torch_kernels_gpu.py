@@ -5,7 +5,10 @@ against their plain parts, at shapes the flagship smoke (chip_smoke.py) does not
 reach: ragged ray and point counts, sample counts that do not divide a pass
 or span several passes, other widths and layer counts, no CP features;
 plus the wrappers' input checks and launch counts, the backward kernels'
-run-to-run determinism, K6's agreement with K3 and K7's with K1.
+run-to-run determinism, K6's agreement with K3 and K7's with K1, and K8's
+two designs on both sides of the rule that picks one (bitwise equal over
+two launches; no CUDA tensor through the plain forward; a refused launch
+raises).
 
 Needs a CUDA device (the kernels have no CPU mode); skips without one.  On
 the card, where JAX (which tests/conftest.py imports) is not installed:
@@ -321,33 +324,159 @@ def _mlp_ws(dev, g, nin, hidden, n_layers, skip, out):
     return ws
 
 
-@pytest.mark.parametrize("B,deg,hidden,n_layers,skip,out", [
-    (1077, 6, 64, 3, -1, 1),    # proposal MLP, ragged last CTA
-    (4099, 10, 256, 4, 2, 16),  # the trunk at cp_rank 0, ragged
-    (300, 4, 32, 5, 1, 7),      # five layers, skip at 1, odd output
-    (200, 3, 32, 2, 1, 4),      # skip at the last layer
-    (129, 2, 16, 1, -1, 3),     # one layer
-    (5, 6, 64, 3, -1, 1),       # fewer points than a CTA holds
+@pytest.mark.parametrize("B,deg,hidden,n_layers,skip,out,design", [
+    (1077, 6, 64, 3, -1, 1, "narrow"),   # proposal MLP, ragged last tile
+    (4099, 10, 256, 4, 2, 16, "wide"),   # the trunk at cp_rank 0, ragged
+    (300, 4, 32, 5, 1, 7, "narrow"),     # five layers, skip at 1, odd output
+    (200, 3, 32, 2, 1, 4, "narrow"),     # skip at the last layer
+    (129, 2, 16, 1, -1, 3, "narrow"),    # one layer
+    (5, 6, 64, 3, -1, 1, "narrow"),      # fewer points than a warp tile
+    (33, 6, 64, 3, -1, 1, "narrow"),     # one point past a warp tile
+    (1000, 1, 16, 2, -1, 1, "narrow"),   # the narrowest: 9 inputs, 16 wide
+    (777, 23, 64, 3, -1, 1, "narrow"),   # the widest input at 64 x 3
+    (777, 24, 64, 3, -1, 1, "wide"),     # the next: past two CTAs an SM
+    (640, 6, 64, 8, 4, 40, "narrow"),    # eight layers, output over 16
+    (555, 6, 80, 3, -1, 1, "wide"),      # past the registers' 64
+    (100, 10, 256, 4, 2, 16, "wide"),    # fewer points than a GEMM tile
+    (129, 10, 256, 4, 2, 16, "wide"),    # one point past a GEMM tile
+    (300, 4, 128, 3, 2, 20, "wide"),     # wide, skip at the last layer
+    (260, 5, 96, 5, 1, 7, "wide"),       # wide, both scratch buffers
+    (257, 6, 16, 1, -1, 256, "narrow"),  # one layer, 256 outputs
 ])
 def test_freq_mlp_kernel_matches_twin(dev, B, deg, hidden, n_layers, skip,
-                                      out):
+                                      out, design):
+    """K8 against its plain version on both sides of the design rule, and
+    two launches on the same inputs bitwise equal."""
     from sanerf_hq_tpu_torch.ops.fused_mlp import (_reference_forward,
-                                                   fused_freq_mlp)
+                                                   fused_freq_mlp,
+                                                   mlp_design)
 
     g = torch.Generator().manual_seed(9)
     x = (torch.rand(B, 3, generator=g) * 2 - 1).to(dev)
-    ws = _mlp_ws(dev, g, 3 * (1 + 2 * deg), hidden, n_layers, skip, out)
+    nin = 3 * (1 + 2 * deg)
+    ws = _mlp_ws(dev, g, nin, hidden, n_layers, skip, out)
+    assert mlp_design(n_layers, hidden, nin, rl._round16(nin), out,
+                      skip) == design
     before = fused_freq_mlp.launches
     got = fused_freq_mlp(x, ws, deg, skip)
+    again = fused_freq_mlp(x, ws, deg, skip)
     want = _reference_forward(x, ws, deg, skip)
     torch.cuda.synchronize()
-    assert fused_freq_mlp.launches == before + 1
+    assert fused_freq_mlp.launches == before + 2
     assert got.shape == (B, out) and torch.isfinite(got).all()
     assert _rel(got, want) < 2e-2, _rel(got, want)
+    assert torch.equal(got, again)
+
+
+def test_freq_mlp_narrow_smem_matches_the_rule(dev):
+    """The shared memory the narrow kernel asks for is the sum the
+    wrapper's design rule reads."""
+    import ctypes
+
+    from sanerf_hq_tpu_torch.ops import cuda_lib
+    from sanerf_hq_tpu_torch.ops.fused_mlp import narrow_smem_bytes
+
+    fn = cuda_lib.load("fused_mlp").sanerf_fused_freq_mlp_narrow_smem
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
+    for L, deg, H, out, skip in ((3, 6, 64, 1, -1), (5, 4, 32, 7, 1),
+                                 (1, 6, 16, 256, -1), (8, 23, 64, 16, 4)):
+        nin = 3 * (1 + 2 * deg)
+        kin = rl._round16(nin)
+        assert fn(L, 3, deg, H, kin, out, skip) == narrow_smem_bytes(
+            L, H, nin, kin, out, skip)
+
+
+@pytest.mark.parametrize("deg,hidden,n_layers,skip,out", [
+    (6, 64, 3, -1, 1), (10, 256, 4, 2, 16), (4, 32, 5, 1, 7)])
+def test_freq_mlp_wide_parts_match_plain(dev, deg, hidden, n_layers, skip,
+                                         out):
+    """The wide design's first two launches alone: the weight pack bitwise
+    equal to its plain version, the freq rows within a bf16 ulp of 1 of
+    theirs with zero padding."""
+    from sanerf_hq_tpu_torch.ops import fused_mlp as fm
+
+    g = torch.Generator().manual_seed(12)
+    nin = 3 * (1 + 2 * deg)
+    ws = _mlp_ws(dev, g, nin, hidden, n_layers, skip, out)
+    got = fm.pack_weights(ws, deg, skip)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fm.pack_weights_ref(ws, nin, rl._round16(nin),
+                                                skip))
+    x = (torch.rand(1031, 3, generator=g) * 2 - 1).to(dev)
+    h = fm.freq_input(x, deg, c0=hidden if skip > 0 else 0)
+    want = fm.trunk_input(x, deg)
+    torch.cuda.synchronize()
+    assert h.shape == (1031, rl._round16(nin))
+    assert (h[:, :nin].float() - want).abs().max().item() <= 2.0 ** -8
+    assert torch.equal(h[:, nin:], torch.zeros_like(h[:, nin:]))
 
 
 @pytest.mark.parametrize("deg,hidden,n_layers,skip,out", [
     (6, 64, 3, -1, 1), (10, 256, 4, 2, 16)])
+def test_freq_mlp_forward_never_runs_the_plain_version(dev, monkeypatch, deg,
+                                                       hidden, n_layers, skip,
+                                                       out):
+    """During the forward no CUDA tensor reaches `_reference_forward`: the
+    kernel alone computes it; only the backward runs the plain version."""
+    from sanerf_hq_tpu_torch.ops import fused_mlp as fm
+
+    seen = []
+    plain = fm._reference_forward
+
+    def spy(x, *a, **k):
+        seen.append(x.device.type)
+        return plain(x, *a, **k)
+
+    monkeypatch.setattr(fm, "_reference_forward", spy)
+    g = torch.Generator().manual_seed(13)
+    x = (torch.rand(517, 3, generator=g) * 2 - 1).to(dev)
+    ws = [w.requires_grad_() for w in _mlp_ws(dev, g, 3 * (1 + 2 * deg),
+                                              hidden, n_layers, skip, out)]
+    y = fm.fused_freq_mlp(x, ws, deg, skip)
+    torch.cuda.synchronize()
+    assert seen == []
+    y.sum().backward()
+    assert seen == ["cuda"]
+
+
+def test_freq_mlp_launch_failure_raises(dev, monkeypatch):
+    """A launch the library refuses raises and counts nothing: the narrow
+    entry refuses a hidden width past 64, and an error code from either
+    design's entry reaches the caller as a RuntimeError."""
+    import ctypes
+
+    from sanerf_hq_tpu_torch.ops import cuda_lib
+    from sanerf_hq_tpu_torch.ops import fused_mlp as fm
+
+    g = torch.Generator().manual_seed(14)
+    x = (torch.rand(64, 3, generator=g) * 2 - 1).to(dev)
+    out = torch.empty(64, 1, device=dev)
+    ws = _mlp_ws(dev, g, 39, 80, 3, -1, 1)
+    lib = cuda_lib.load("fused_mlp")
+    fn = lib.sanerf_fused_freq_mlp_narrow
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    ptrs = (ctypes.c_void_p * 3)(*(w.data_ptr() for w in ws))
+    rc = fn(x.data_ptr(), out.data_ptr(), ptrs, 3, 64, 3, 6, 80, 48, 1, -1,
+            None)
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_lib.check(lib, rc, "fused_freq_mlp")
+    real = fm._c_fn
+    for hidden in (64, 256):
+        ws = _mlp_ws(dev, g, 39, hidden, 3, -1, 1)
+        monkeypatch.setattr(fm, "_c_fn", lambda name, argtypes: (
+            real(name, argtypes)[0], lambda *a: 1))
+        before = fm.fused_freq_mlp.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fm.fused_freq_mlp(x, ws, 6)
+        assert fm.fused_freq_mlp.launches == before
+        monkeypatch.setattr(fm, "_c_fn", real)
+
+
+@pytest.mark.parametrize("deg,hidden,n_layers,skip,out", [
+    (6, 64, 3, -1, 1), (10, 256, 4, 2, 16), (4, 32, 5, 1, 20)])
 def test_freq_mlp_grads_match_twin_autograd(dev, deg, hidden, n_layers, skip,
                                             out):
     """K8's autograd Function: grads of x and of every weight against
