@@ -126,15 +126,56 @@ last line:
      20 steps with --cp_rank 0, where K8 also runs the trunk through its
      wide design: three launches a step, and its trace (K8 narrow, the wide
      design's pack and input kernels, its layer products);
- 10. the device-only torch.profiler traces of phases 5, 7, 8 and 9, taken
-     after every rate, since a trace slows the host's later steps; one
-     JSON line with every kernel's numbers, the device line again, and
-     the last line {"ok": true, "device": {...}}.
+ 11. the scripts' path (run before 10's traces): a COLMAP scene in the
+     Mip-NeRF 360 layout (write_colmap_scene: 15 training views and 2
+     held out, images_4/ at 512x512, images/ and the PINHOLE camera at
+     2048x2048, sparse points on the sphere) and sphere masks at
+     2048x2048; the flags of scripts/train_rgb_nerf.sh, train_obj_nerf.sh
+     and test_obj_nerf.sh read out of the scripts (script_argv), the
+     relative --test_view_path replaced by the absolute path of the file
+     written here; counts set to 0 just before and read just after each
+     CLI run:
+     1. stage 1 (--enable_cam_center --downscale 4 --data_type mip
+        --contract --random_image_batch), --iters 20 (cut from 5000): K10
+        twice a step and an eval chunk, K1-K9 never; a finite loss,
+        checkpoints, the per-view near/far of the sparse points;
+     2. stage 3 of the hash-grid object field (m_grid 16 x 8 at 2^19)
+        over step 1's workspace, 200 steps of 6256 rays: K10 twice a step,
+        an error-map chunk and an eval chunk (2048x2048), K1-K9 never; the
+        backbone bitwise equal to step 1's checkpoint, m_grid and mask_mlp
+        moved; the CE at the first and last step, the error-map rebuild,
+        [EVAL] MeanIoU, the peak device memory; then the step rate (host
+        clock around synchronised steps) and its parts (CUDA events: the
+        sampler, the backbone's forward, K10, the m_grid encode forward and
+        backward, the mask MLP forward and backward, the losses with TV /
+        WD off and with --lambda_tv 1e-4, Adam; one device-only
+        torch.profiler trace, taken in 10);
+     3. the stage-3 --test: K10 twice a chunk, {stem}_mask.npy and
+        _mask_vis.png of both held-out views;
+     4. 20 stage-3 steps with --mask_mlp_type lightweight_mask (m_grid 16 x
+        2 at 2^10, unpacked) and 5. with --field_type hashgrid_packed over
+        a 5-step packed stage 1, their evals at --downscale 4;
+     6. 20 steps of --field_type mlp --feat_rep hashgrid --with_mask
+        --init_ckpt <phase-5 workspace> on the phase-4 scene: K5 twice and
+        K6 once a step and an eval chunk, K1-K4, K7, K8, K10 never, the
+        backbone bitwise kept;
+     7. the card against the CPU on 1024 global rays of a stage-3 batch
+        with the same weights, the CPU handed the card's resampled bins:
+        the loss and instance_mask_logits max abs <= 1e-3, the m_grid and
+        mask_mlp grads rel-max <= 1e-3.
+ 10. the device-only torch.profiler traces of phases 5, 7, 8, 9 and 11,
+     taken after every rate, since a trace slows the host's later steps;
+     one JSON line with every kernel's numbers (K10's launches those of
+     phases 8 and 11's stage 3) and the phases' summaries (11's under
+     "scripts_path"), the device line again, and the last line {"ok":
+     true, "device": {...}}.
 """
 import dataclasses
 import hashlib
 import json
 import os
+import re
+import shlex
 import shutil
 import subprocess
 import sys
@@ -146,14 +187,18 @@ import torch.nn.functional as F
 
 from sanerf_hq_tpu_torch import cli
 from sanerf_hq_tpu_torch.data.png import read_png
-from sanerf_hq_tpu_torch.data.provider import load_scene, split_indices
+from sanerf_hq_tpu_torch.data.provider import (load_scene, resize_nearest,
+                                               split_indices)
 from sanerf_hq_tpu_torch.data.rays import full_frame_rays
 from sanerf_hq_tpu_torch.data.sampler import (fixed_fovy_intrinsics,
                                               sample_mask_batch,
                                               sample_rgb_batch)
-from sanerf_hq_tpu_torch.data.synthetic import (look_at_pose, write_llff_scene,
+from sanerf_hq_tpu_torch.data.synthetic import (look_at_pose,
+                                                write_colmap_scene,
+                                                write_llff_scene,
                                                 write_sphere_masks)
 from sanerf_hq_tpu_torch.models import SANeRFField, make_field, mlp_field
+from sanerf_hq_tpu_torch.models.fields import lightweight_mask_grid_spec
 from sanerf_hq_tpu_torch.ops import cuda_lib, fused_mlp
 from sanerf_hq_tpu_torch.ops import ray as ray_ops
 from sanerf_hq_tpu_torch.ops import render_level as rl
@@ -169,7 +214,8 @@ from sanerf_hq_tpu_torch.ops.sample_pdf import (sample_pdf_lookup,
 from sanerf_hq_tpu_torch.ops.sh import sh_encode
 from sanerf_hq_tpu_torch.render.renderer import RenderSettings, render_rays
 from sanerf_hq_tpu_torch.train.checkpoints import CheckpointManager
-from sanerf_hq_tpu_torch.train.steps import (make_mask_train_step,
+from sanerf_hq_tpu_torch.train.steps import (_grid_regularizers,
+                                             make_mask_train_step,
                                              make_rgb_train_step, mask_losses)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -207,6 +253,20 @@ COUNTERS = {"K5": rl.fused_prop_level_sample, "K3": rl.fused_final_level,
             "K4.gemm": rl.weight_grads}
 PARTS = {"K2": ("K2.partials", "K2.reduce"), "K4": ("K4.stash", "K4.gemm")}
 LEVEL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+
+def script_argv(name, env):
+    """The arguments that `scripts/<name>` passes to `python main.py`, read
+    out of the script, its ${VARIABLES} taken from env (a KeyError names
+    one env lacks) and its trailing "$@" dropped: the flag sets the port's
+    CLI runs as the scripts give them."""
+    with open(os.path.join(ROOT, "scripts", name)) as f:
+        text = f.read().replace("\\\n", " ")
+    line = next(l for l in text.splitlines()
+                if l.strip().startswith("python main.py"))
+    words = shlex.split(line)[2:]
+    return [re.sub(r"\$\{(\w+)\}", lambda m: env[m.group(1)], w)
+            for w in words if w != "$@"]
 
 
 def device_line() -> str:
@@ -2382,6 +2442,501 @@ def trainable_step_parts(trainer, draw, gen, em):
     return parts
 
 
+# the hash-grid stage-3 step's device kernels by kind: the encodes'
+# index_select gathers (forward, the backbone's three and m_grid), their
+# index_add_ (m_grid's backward), the elementwise kernels (the encodes'
+# index and weight arithmetic, most of the rest), K10, the products, Adam
+SCRIPTS_GROUPS = (("K10", ("sample_pdf_lookup",)),
+                  ("gathers (index_select)", ("gather_kernel",)),
+                  ("scatter-add (index_add_)", ("indexfunc",)),
+                  ("matrix products", ("gemm", "cutlass")),
+                  ("Adam", ("multi_tensor",)),
+                  ("elementwise", ("elementwise",)))
+SCRIPTS_DS = 4  # scripts/train_rgb_nerf.sh --downscale 4: images_4/ at VIEW
+SCRIPTS_S1_STEPS = 20  # stage-1 --iters, cut from the script's 5000
+VARIANT_STEPS = 20  # stage-3 steps: lightweight, packed and feat_rep runs
+MASK_CPU_RAYS = 1024  # the stage-3 card-vs-CPU batch
+
+
+def run_cli(argv):
+    """One CLI run with the launch counts set to 0 just before and read
+    just after: (trainer, seconds, launches)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    return trainer, time.perf_counter() - t0, read_counts()
+
+
+def latest_model(ws):
+    return torch.load(CheckpointManager(ws).latest_path(), map_location="cpu",
+                      weights_only=True)["model"]
+
+
+def rebuild_chunks(cfg, n_train=15):
+    """Render chunks of the error-map rebuilds in a CLI run of cfg.iters
+    stage-3 steps: every ray_pair_rgb_iter steps, one view of
+    error_map_size^2 rays a training view."""
+    n = sum(1 for s_ in range(1, cfg.iters + 1)
+            if cfg.ray_pair_rgb_iter > 0 and s_ % cfg.ray_pair_rgb_iter == 0)
+    return n * n_train * -(-cfg.error_map_size ** 2 // CHUNK)
+
+
+def mask_branch_moved(trainer, init):
+    """Names of the parameters that stage 3 moved from the seeded weights
+    the EMA (never updated in stage 3) still holds: none of `init`'s (the
+    stage-1 tensors), each of the mask branch."""
+    ema = dict(trainer.state.ema_model.named_parameters())
+    moved = sorted(n_ for n_, p in trainer.model.named_parameters()
+                   if not torch.equal(p, ema[n_]))
+    assert moved and all(n_ not in init for n_ in moved), moved
+    return moved
+
+
+def scripts_path(work):
+    """Phase 11: the three scripts without SAM on a COLMAP scene, through
+    the CLI with the flags read out of scripts/*.sh, then the stage-3
+    step's rate and parts, the lightweight, packed and feat_rep variants
+    and the card against the CPU."""
+    root = os.path.join(work, "scripts")
+    env = {"SANERFHQ_DATA_PATH": os.path.join(root, "scene"),
+           "SANERFHQ_WORKSPACE_ROOT": os.path.join(root, "ws"),
+           "SANERFHQ_SCENE": "sphere",
+           "SANERFHQ_MASK_PATH": os.path.join(root, "masks"),
+           "SANERFHQ_INIT_CKPT": os.path.join(root, "ws", "rgb_nerf",
+                                              "sphere")}
+    scene, masks_dir = env["SANERFHQ_DATA_PATH"], env["SANERFHQ_MASK_PATH"]
+    n_views, full = 17, VIEW * SCRIPTS_DS
+    t0 = time.perf_counter()
+    write_colmap_scene(scene, n_views=n_views, H=VIEW, W=VIEW,
+                       downscale=SCRIPTS_DS)
+    write_sphere_masks(masks_dir, n_views=n_views, H=full, W=full)
+    # the scripts' relative --test_view_path, written here and passed by
+    # its absolute path
+    test_views = os.path.join(root, "example_test_views.json")
+    with open(test_views, "w") as f:
+        json.dump(["v00", "v16"], f)
+    print(f"[scripts] COLMAP scene (Mip-NeRF 360 layout: images/ {full}x"
+          f"{full}, images_{SCRIPTS_DS}/ {VIEW}x{VIEW}, sparse/0 binary "
+          f"model, {n_views} views, held out v00 and v16) and sphere masks "
+          f"at {full}x{full} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    out = {"launches": {}}
+
+    # 1. stage 1: scripts/train_rgb_nerf.sh
+    argv1 = script_argv("train_rgb_nerf.sh", env)
+    trainer1, dt, launches = run_cli(argv1 + ["--iters",
+                                              str(SCRIPTS_S1_STEPS)])
+    model, cfg, n = trainer1.model, trainer1.cfg, trainer1.state.step
+    assert isinstance(model, SANeRFField) and not model.packed
+    assert not model.with_mask and n == SCRIPTS_S1_STEPS
+    assert (cfg.data_type, cfg.downscale, cfg.enable_cam_center,
+            cfg.random_image_batch, cfg.contract) == ("mip", SCRIPTS_DS,
+                                                      True, True, True)
+    assert cfg.num_rays == BATCH
+    per_view = -(-VIEW * VIEW // CHUNK)
+    eval_k10 = launches["K10"] - 2 * n
+    views = eval_k10 // (2 * per_view)
+    assert views > 0 and eval_k10 == 2 * per_view * views, launches
+    for k in LEVEL_KERNELS + ("K8",):
+        assert launches[k] == 0, launches
+    losses = trainer1.stats["loss"]
+    assert losses and all(np.isfinite(losses)), losses
+    ws1 = env["SANERFHQ_INIT_CKPT"]
+    ckpts = sorted(os.listdir(os.path.join(ws1, "checkpoints")))
+    assert f"step_{n:08d}.pt" in ckpts, ckpts
+    s1 = load_scene(scene, "mip", SCRIPTS_DS, enable_cam_center=True,
+                    load_images=False)
+    nf = s1.cam_near_far
+    assert nf.shape == (n_views, 2) and np.isfinite(nf).all()
+    assert (0 < nf[:, 0]).all() and (nf[:, 0] < nf[:, 1]).all()
+    print(f"[scripts] 1. scripts/train_rgb_nerf.sh {' '.join(argv1[1:])} "
+          f"--iters {SCRIPTS_S1_STEPS} (cut from 5000): {n} steps of "
+          f"{cfg.num_rays} rays, {views} eval views of {VIEW}x{VIEW} in "
+          f"{dt:.2f} s; launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items())
+          + f"; losses by epoch {losses}; checkpoints {ckpts}; per-view "
+          f"near {nf[:, 0].min():.4f}..{nf[:, 0].max():.4f}, far "
+          f"{nf[:, 1].min():.4f}..{nf[:, 1].max():.4f} (sparse points, "
+          f"scale {s1.scale:.5f})", flush=True)
+    out["launches"]["stage1"] = launches
+    out.update(stage1_steps=n, stage1_losses=losses,
+               near_range=[float(nf[:, 0].min()), float(nf[:, 0].max())],
+               far_range=[float(nf[:, 1].min()), float(nf[:, 1].max())])
+
+    # 2. stage 3: scripts/train_obj_nerf.sh over step 1's workspace
+    argv2 = script_argv("train_obj_nerf.sh", env)
+    argv2[argv2.index("--test_view_path") + 1] = test_views
+    torch.cuda.reset_peak_memory_stats()
+    trainer3, dt, launches = run_cli(argv2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model, cfg = trainer3.model, trainer3.cfg
+    assert isinstance(model, SANeRFField) and model.with_mask
+    assert model.mask_mlp_type == "default" and not model.m_spec.packed
+    assert model.m_grid.shape == (5_258_512, 8)
+    assert trainer3.backbone_frozen and trainer3.state.step == MASK_STEPS
+    n_train = n_views - 2
+    n_rays = (cfg.num_rays
+              + cfg.num_local_sample * cfg.local_sample_patch_size ** 2)
+    rebuilds = [s_ for s_ in range(1, MASK_STEPS + 1)
+                if s_ % cfg.ray_pair_rgb_iter == 0]
+    em_chunks = len(rebuilds) * n_train * -(-cfg.error_map_size ** 2
+                                             // CHUNK)
+    val_chunks = 2 * -(-full * full // CHUNK)
+    assert launches["K10"] == 2 * (MASK_STEPS + em_chunks + val_chunks), (
+        launches, em_chunks, val_chunks)
+    for k in LEVEL_KERNELS + ("K8",):
+        assert launches[k] == 0, launches
+    init = latest_model(ws1)
+    for name, p in init.items():
+        assert torch.equal(model.state_dict()[name].cpu(), p), name
+    moved = mask_branch_moved(trainer3, init)
+    assert set(moved) == {"m_grid", "mask_mlp.layers.0.weight",
+                          "mask_mlp.layers.1.weight",
+                          "mask_mlp.layers.2.weight"}, moved
+    ws3 = cfg.workspace
+    with open(os.path.join(ws3, "log_ngp.txt")) as f:
+        log = f.read()
+    for s_ in rebuilds:
+        assert f"[INFO] error map rebuilt at step {s_}\n" in log, log[-2000:]
+    miou = float(log.split("[EVAL] MeanIoU = ")[-1].split()[0])
+    hist = trainer3.stats["mask"]
+    assert all(np.isfinite(v["loss"]) for _, v in hist), hist
+    (s_first, m_first), (s_last, m_last) = hist[0], hist[-1]
+    print(f"[scripts] 2. scripts/train_obj_nerf.sh (the hash-grid object "
+          f"field, m_grid {tuple(model.m_grid.shape)}): {MASK_STEPS} steps "
+          f"of {n_rays} rays, error-map rebuilds at {rebuilds}, mIoU eval "
+          f"({val_chunks} chunks of {full}x{full}) in {dt:.2f} s; peak "
+          f"device memory {peak:.3f} GiB; launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items())
+          + f"; backbone: all {len(init)} tensors bitwise equal to step 1's "
+          f"checkpoint, moved: {moved}; CE step {s_first} "
+          f"{m_first['ce']:.5f}, step {s_last} {m_last['ce']:.5f} (loss "
+          f"{m_last['loss']:.5f}, ray_pair {m_last['ray_pair']:.5f}, acc "
+          f"{m_last['acc']:.4f}); [EVAL] MeanIoU {miou:.6f}", flush=True)
+    out["launches"]["stage3"] = launches
+    out.update(stage3_seconds=dt, peak_memory_gib=peak, miou=miou,
+               ce_first=m_first["ce"], ce_last=m_last["ce"],
+               rays_per_step=n_rays)
+
+    # the step rate: host clock around synchronised steps, on batches
+    # drawn as train_mask draws them
+    dev = trainer3.device
+    res = cfg.online_resolution
+    s_full = load_scene(scene, "mip", 1, enable_cam_center=True,
+                        load_images=False)
+    idx = split_indices(n_views, "train", "val_split", ["v00", "v16"],
+                        s_full.img_names)
+    masks_t = torch.as_tensor(np.stack([resize_nearest(np.load(
+        os.path.join(masks_dir, f"v{i:02d}_obj_mask.npy"))[0], res, res)
+        for i in idx]), dtype=torch.long, device=dev)
+    poses_t = torch.as_tensor(s_full.poses[idx], device=dev)
+    intr_t = torch.as_tensor(fixed_fovy_intrinsics(res, 60.0), device=dev)
+    S = cfg.error_map_size
+    gen = torch.Generator(dev).manual_seed(11)
+    em = torch.rand((len(idx), S * S), device=dev) + 0.05
+
+    def draw():
+        return sample_mask_batch(gen, masks_t, poses_t, intr_t, em,
+                                 cfg.num_rays, cfg.num_local_sample,
+                                 cfg.local_sample_patch_size, res, res, S)
+
+    mask_step = make_mask_train_step(model, cfg, frozen_backbone=True)
+
+    def step():
+        return mask_step(trainer3.state, draw(), gen, em)[0]
+
+    sps = steps_per_s(step)
+    print(f"[scripts] stage 3: {sps:.3f} steps/s at {n_rays} rays a step "
+          f"({1e3 / sps:.2f} ms a step, mean of 20 after 3 warm-up) on "
+          f"{device_line()}", flush=True)
+    parts = hashgrid_mask_step_parts(trainer3, draw, gen, em)
+    print("[scripts] stage 3, parts of a step, each timed alone (CUDA "
+          "events, ms; alone each also waits on its own launches): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+          + f"; whole step {1e3 / sps:.4f} ({device_line()})", flush=True)
+    out.update(steps_per_s=sps, parts_alone_ms=parts,
+               trace=(step, SCRIPTS_GROUPS))
+
+    # 3. stage-3 --test: scripts/test_obj_nerf.sh
+    argv3 = script_argv("test_obj_nerf.sh", env)
+    argv3[argv3.index("--test_view_path") + 1] = test_views
+    tested, dt, launches = run_cli(argv3)
+    assert tested.resumed and tested.state.step == MASK_STEPS
+    assert isinstance(tested.model, SANeRFField) and tested.model.with_mask
+    assert launches["K10"] == 2 * val_chunks, launches
+    for k in LEVEL_KERNELS + ("K8",):
+        assert launches[k] == 0, launches
+    for stem in ("v00", "v16"):
+        probs = np.load(os.path.join(ws3, "results", f"{stem}_mask.npy"))
+        assert probs.shape == (full, full, 2) and np.isfinite(probs).all()
+        vis = read_png(os.path.join(ws3, "results", f"{stem}_mask_vis.png"))
+        assert vis.shape == (full, full, 3)
+    print(f"[scripts] 3. scripts/test_obj_nerf.sh: resumed at step "
+          f"{tested.state.step}, {val_chunks} chunks in {dt:.2f} s, "
+          f"launches K10 {launches['K10']}; results/v00_mask.npy "
+          f"({full}x{full}x2), v16_mask_vis.png written", flush=True)
+    out["launches"]["test"] = launches
+    out["test_seconds"] = dt
+    del tested
+
+    # 4, 5. twenty stage-3 steps of the lightweight mask MLP and of the
+    # packed field (over a 5-step packed stage 1), their evals at
+    # --downscale SCRIPTS_DS
+    small_val = 2 * per_view
+    cut = ["--iters", str(VARIANT_STEPS), "--downscale", str(SCRIPTS_DS)]
+    ws_root = env["SANERFHQ_WORKSPACE_ROOT"]
+    ws_p1 = os.path.join(ws_root, "rgb_packed")
+    t_p1, dt_p1, l_p1 = run_cli(argv1 + [
+        "--field_type", "hashgrid_packed", "--iters", str(PACKED_STEPS),
+        "--workspace", ws_p1])
+    assert t_p1.model.packed and t_p1.state.step == PACKED_STEPS
+    assert all(np.isfinite(t_p1.stats["loss"]))
+    del t_p1
+    variants = {}
+    for tag, extra, init_ws in (
+            ("lightweight", ["--mask_mlp_type", "lightweight_mask"], ws1),
+            ("packed", ["--field_type", "hashgrid_packed", "--init_ckpt",
+                        ws_p1], ws_p1)):
+        ws_v = os.path.join(ws_root, f"obj_{tag}")
+        tv, dt, launches = run_cli(argv2 + cut + extra + ["--workspace",
+                                                         ws_v])
+        m = tv.model
+        if tag == "lightweight":
+            assert m.m_spec == lightweight_mask_grid_spec()
+            assert m.m_grid.shape == (16 * 1024, 2) and not m.m_spec.packed
+            assert m.mask_mlp.layers[0].weight.shape == (64, 32 + 31)
+        else:
+            assert m.packed and m.m_spec.packed
+            assert m.m_grid.shape == (5_258_512, 64)
+        assert tv.backbone_frozen and tv.state.step == VARIANT_STEPS
+        assert launches["K10"] == 2 * (VARIANT_STEPS + small_val
+                                       + rebuild_chunks(tv.cfg)), launches
+        for k in LEVEL_KERNELS + ("K8",):
+            assert launches[k] == 0, launches
+        init_v = latest_model(init_ws)
+        for name, p in init_v.items():
+            assert torch.equal(m.state_dict()[name].cpu(), p), (tag, name)
+        moved_v = mask_branch_moved(tv, init_v)
+        h = tv.stats["mask"]
+        assert all(np.isfinite(v["loss"]) for _, v in h), h
+        mb = m.m_grid.numel() * 4 / 2 ** 20
+        print(f"[scripts] {4 if tag == 'lightweight' else 5}. {tag}: "
+              f"{VARIANT_STEPS} stage-3 steps and the eval at "
+              f"{VIEW}x{VIEW} in {dt:.2f} s, m_grid "
+              f"{tuple(m.m_grid.shape)} ({mb:.1f} MiB); launches " + ", ".join(
+                  f"{k} {v}" for k, v in launches.items())
+              + f"; backbone bitwise kept, {len(moved_v)} mask tensors "
+              f"moved; CE step {h[0][0]} {h[0][1]['ce']:.5f}, step "
+              f"{h[-1][0]} {h[-1][1]['ce']:.5f}", flush=True)
+        out["launches"][tag] = launches
+        variants[tag] = {"seconds": dt, "ce_first": h[0][1]["ce"],
+                         "ce_last": h[-1][1]["ce"],
+                         "m_grid_shape": list(m.m_grid.shape)}
+        del tv
+    variants["packed"]["stage1_seconds"] = dt_p1
+
+    # 6. the MLP field's m_grid (--feat_rep hashgrid) over the phase-5
+    # field, on the phase-4 scene with the phase-7 masks: K5 and K6 render
+    # the frozen backbone
+    env6 = dict(env, SANERFHQ_DATA_PATH=os.path.join(work, "scene"),
+                SANERFHQ_MASK_PATH=os.path.join(work, "masks"),
+                SANERFHQ_INIT_CKPT=os.path.join(work, "train_ws"))
+    argv6 = script_argv("train_obj_nerf.sh", env6)
+    argv6[argv6.index("--test_view_path") + 1] = test_views
+    ws6 = os.path.join(ws_root, "obj_featrep")
+    t6, dt, launches = run_cli(argv6 + [
+        "--data_type", "llff", "--field_type", "mlp", "--feat_rep",
+        "hashgrid", "--iters", str(VARIANT_STEPS), "--workspace", ws6])
+    m = t6.model
+    assert m.feat_rep == "hashgrid" and m.m_grid.shape == (5_258_512, 8)
+    assert t6.backbone_frozen and t6.state.step == VARIANT_STEPS
+    assert launches["K6"] == (VARIANT_STEPS + small_val
+                              + rebuild_chunks(t6.cfg)), launches
+    assert launches["K5"] == 2 * launches["K6"], launches
+    for k in ("K1", "K2", "K3", "K4", "K7", "K8", "K10"):
+        assert launches[k] == 0, launches
+    init6 = latest_model(env6["SANERFHQ_INIT_CKPT"])
+    for name, p in init6.items():
+        assert torch.equal(m.state_dict()[name].cpu(), p), name
+    moved6 = mask_branch_moved(t6, init6)
+    h = t6.stats["mask"]
+    assert all(np.isfinite(v["loss"]) for _, v in h), h
+    print(f"[scripts] 6. --field_type mlp --feat_rep hashgrid --with_mask "
+          f"--init_ckpt <phase-5 workspace>: {VARIANT_STEPS} steps and the "
+          f"eval in {dt:.2f} s; launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items())
+          + f"; backbone bitwise kept, moved {moved6}; CE step {h[0][0]} "
+          f"{h[0][1]['ce']:.5f}, step {h[-1][0]} {h[-1][1]['ce']:.5f}",
+          flush=True)
+    out["launches"]["feat_rep"] = launches
+    variants["feat_rep"] = {"seconds": dt, "ce_first": h[0][1]["ce"],
+                            "ce_last": h[-1][1]["ce"]}
+    out["variants"] = variants
+    del t6
+
+    # 7. the card against the CPU on one batch of global rays
+    out["card_vs_cpu"] = mask_card_vs_cpu(trainer3, draw())
+    return out
+
+
+def hashgrid_mask_step_parts(trainer, draw, gen, em):
+    """CUDA-event times of a hash-grid stage-3 step's parts, each alone on
+    one batch's own inputs: the sampler, the backbone's forward (three
+    hash encodes and MLPs, no grad: it is frozen), K10 at both levels, the
+    m_grid encode forward and backward, the mask MLP forward and backward,
+    the losses forward and backward with TV / WD off and with --lambda_tv
+    1e-4 (TV on m_grid), and Adam over the mask branch."""
+    model, cfg = trainer.model, trainer.cfg
+    batch = draw()
+    settings = RenderSettings(
+        num_steps=tuple(cfg.num_steps), use_contract=cfg.contract,
+        min_near=cfg.min_near, background=cfg.background, bound=cfg.bound,
+        training=True, return_mask=True, frozen_backbone=True)
+    lookups = []
+
+    def spy_lookup(*a):
+        lookups.append(a)
+        return sample_pdf_lookup(*a)
+
+    ray_ops.sample_pdf_lookup = spy_lookup
+    try:
+        out, calls = capture_render(model, settings, batch, (
+            "density", "forward_color", "mask_features"))
+    finally:
+        ray_ops.sample_pdf_lookup = sample_pdf_lookup
+    assert len(lookups) == 2 and len(calls["density"]) == 2
+    parts = {"sampler": cuda_ms(draw)}
+    x0, x1 = (c[0][0].detach() for c in calls["density"])
+    (x2, d2), _, fc = calls["forward_color"][0]
+    with torch.no_grad():
+        parts["backbone forward (3 hash encodes, MLPs)"] = cuda_ms(
+            lambda: (model.density(x0, proposal=0),
+                     model.density(x1, proposal=1),
+                     model.forward_color(x2, d2)))
+    parts["K10, both levels (device time, CUDA graph)"] = graph_ms(
+        lambda: [sample_pdf_lookup(*a) for a in lookups])
+    xm = calls["mask_features"][0][0][0].detach()
+
+    def encode():
+        f = hash_encode(model.m_grid, xm, model.m_spec,
+                        bound=model.grid_bound)
+        torch.autograd.grad(f.square().sum(), model.m_grid)
+
+    parts[f"m_grid encode fwd+bwd ({xm.shape[0]}x{xm.shape[1]} points)"] = \
+        cuda_ms(encode)
+    with torch.no_grad():
+        feats = model.mask_features(xm)
+    feats.requires_grad_()
+    geo, w = fc[1].detach(), out["weights"].detach()
+    mlp_params = list(model.mask_mlp.parameters())
+
+    def mask_mlp():
+        m_in = torch.cat([feats, geo], dim=-1)
+        logits = (w[..., None] * model.apply_mask_mlp(m_in)).sum(dim=-2)
+        torch.autograd.grad(logits.square().sum(), mlp_params + [feats])
+
+    parts["mask MLP fwd+bwd"] = cuda_ms(mask_mlp)
+    logits = out["instance_mask_logits"].detach().requires_grad_()
+    loss_in = dict(out, instance_mask_logits=logits)
+    reg = _grid_regularizers(model, cfg.replace(lambda_tv=1e-4), "mask")
+
+    def losses(tv=False):
+        loss, _, _ = mask_losses(loss_in, batch, MASK_STEPS, em, cfg, gen)
+        if tv:
+            loss = loss + reg(gen)
+            torch.autograd.grad(loss, [logits, model.m_grid])
+        else:
+            torch.autograd.grad(loss, logits)
+
+    parts["losses fwd+bwd, TV / WD off"] = cuda_ms(losses)
+    parts["losses fwd+bwd, --lambda_tv 1e-4"] = cuda_ms(
+        lambda: losses(tv=True))
+    step = make_mask_train_step(model, cfg, frozen_backbone=True)
+    step.loss_fn(batch, trainer.state.step, em, gen)[0].backward()
+    # repeated updates move the weights: timing only, after the step rate
+    parts["Adam (m_grid and mask_mlp)"] = cuda_ms(
+        trainer.state.optimizer.step)
+    trainer.state.optimizer.zero_grad(set_to_none=True)
+    return parts
+
+
+def mask_card_vs_cpu(trainer, batch):
+    """Phase 11: the hash-grid object field's loss, logits and m_grid /
+    mask_mlp grads on MASK_CPU_RAYS global rays of a stage-3 batch, on the
+    card and on the CPU with the same weights; the CPU's render is handed
+    the card's resampled bins (K10's outputs), as phase 8's check does.
+    Bars: loss and logits max abs <= 1e-3, grads rel-max <= 1e-3."""
+    model, dev = trainer.model, trainer.device
+    n = MASK_CPU_RAYS
+    cfg = trainer.cfg.replace(num_rays=n, num_local_sample=0)
+    cpu = SANeRFField(with_mask=True, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    settings = RenderSettings(
+        num_steps=tuple(cfg.num_steps), use_contract=cfg.contract,
+        min_near=cfg.min_near, background=cfg.background, bound=cfg.bound,
+        training=True, return_mask=True, frozen_backbone=True)
+    b = {k: batch[k][:n] for k in ("rays_o", "rays_d", "gt_masks",
+                                   "img_inds", "inds_coarse")}
+    S = cfg.error_map_size
+    em = torch.rand((int(b["img_inds"].max()) + 1, S * S),
+                    generator=torch.Generator().manual_seed(12))
+    names = ["m_grid"] + [f"mask_mlp.layers.{i}.weight" for i in range(3)]
+
+    def run(m, d, lookup):
+        ray_ops.sample_pdf_lookup = lookup
+        try:
+            bd = {k: v.to(d) for k, v in b.items()}
+            out = render_rays(m, bd["rays_o"], bd["rays_d"], settings)
+        finally:
+            ray_ops.sample_pdf_lookup = sample_pdf_lookup
+        loss, _, _ = mask_losses(out, bd, MASK_STEPS, em.to(d), cfg)
+        params = dict(m.named_parameters())
+        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        return (loss.item(), out["instance_mask_logits"].detach().cpu(),
+                [g_.cpu() for g_ in grads])
+
+    recorded = []
+
+    def record(*a):
+        o = sample_pdf_lookup(*a)
+        recorded.append((a, o))
+        return o
+
+    cdf_err = []
+
+    def replay(cdf, bins, u):
+        (c, _, _), o = recorded[len(cdf_err)]
+        cdf_err.append((cdf - c.cpu()).abs().max().item())
+        return o.cpu()
+
+    card = run(model, dev, record)
+    lookup_equal = all(torch.equal(sample_pdf_lookup_ref(*(x.cpu() for x in
+                                                           a)), o.cpu())
+                       for a, o in recorded)
+    handed = run(cpu, "cpu", replay)
+    loss_err = abs(card[0] - handed[0])
+    logit_err = (card[1] - handed[1]).abs().max().item()
+    g_rel = {k: rel_max(a, b_) for k, a, b_ in zip(names, card[2],
+                                                   handed[2])}
+    print(f"[scripts] 7. card vs CPU, {n} global rays of a stage-3 batch: "
+          f"K10's outputs bitwise equal to the CPU's plain lookup "
+          f"{lookup_equal}, the two cdfs max abs {max(cdf_err):.2e}; CPU "
+          f"handed the card's bins: loss {card[0]:.6f} vs {handed[0]:.6f} "
+          f"(diff {loss_err:.2e} <= 1e-3), instance_mask_logits max abs "
+          f"{logit_err:.2e} (<= 1e-3); grads rel-max " + ", ".join(
+              f"{k} {v:.2e}" for k, v in g_rel.items()) + " (<= 1e-3)",
+          flush=True)
+    assert lookup_equal or all(
+        (sample_pdf_lookup_ref(*(x.cpu() for x in a)) - o.cpu()).abs().max()
+        <= 1e-6 for a, o in recorded)
+    assert loss_err <= 1e-3 and logit_err <= 1e-3, (loss_err, logit_err)
+    assert max(g_rel.values()) <= 1e-3, g_rel
+    return {"lookup_bitwise_equal": lookup_equal, "cdf_max_abs":
+            max(cdf_err), "loss_diff": loss_err, "logits_max_abs": logit_err,
+            "grad_rel_max": g_rel}
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
@@ -2438,6 +2993,7 @@ def main(argv):
     hg["card_vs_cpu"] = card_vs_cpu(hg_trainer, os.path.join(work, "scene"))
     hg["packed"] = packed_path(work)
     tr_launches, trainable = stage3_trainable_path(work)
+    scripts = scripts_path(work)
     # the device-time breakdowns of phases 5, 7, 8 and 9, traced after
     # every rate: a torch.profiler trace slows the host's later steps
     print("[train] the stage-1 step's device time by kernel (phase 5's "
@@ -2456,7 +3012,8 @@ def main(argv):
           flush=True)
     for tag, res in (("stage3", s3), ("hashgrid", hg),
                      ("trainable", trainable),
-                     ("trainable cp_rank 0", trainable["cp0"])):
+                     ("trainable cp_rank 0", trainable["cp0"]),
+                     ("scripts stage 3", scripts)):
         step, groups = res.pop("trace")
         print(f"[{tag}] the step's device time by kernel:", flush=True)
         res["profile"] = profile_steps(step, groups)
@@ -2484,10 +3041,13 @@ def main(argv):
             part["launches"] = (row["launches"] if row["name"] ==
                                 "fused_final_level"
                                 else train_launches[counter[name]])
+    # K10: the hash-grid field's stage-1 run (phase 8) and its stage-3 run
+    # through scripts/train_obj_nerf.sh (phase 11)
     report.append({"name": "sample_pdf_lookup", "route": "cuda",
                    "source": SOURCE_PDF, "replaces": f"{TPU_FILE_PDF}:69",
-                   "launches": hg_launches["K10"], "library_ms": None,
-                   **kernels["K10"]})
+                   "launches": hg_launches["K10"]
+                   + scripts["launches"]["stage3"]["K10"],
+                   "library_ms": None, **kernels["K10"]})
     # K7: no route of the renderer calls it (as in JAX), so its count on
     # the phase-9 path is 0; K8's launches are phase 9's (2 a step), its
     # headline numbers the sums over both proposal shapes, the trunk's in
@@ -2515,7 +3075,8 @@ def main(argv):
                       "grad_parity_worst_rel_l2": max(parity.values()),
                       "stage3_launches": s3_launches, "stage3": s3,
                       "hashgrid": hg, "stage3_trainable_launches":
-                      tr_launches, "stage3_trainable": trainable}))
+                      tr_launches, "stage3_trainable": trainable,
+                      "scripts_path": scripts}))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

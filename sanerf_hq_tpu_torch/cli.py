@@ -3,20 +3,26 @@ stage 1 of the hash-grid field (`--field_type hashgrid`, the default, or
 `hashgrid_packed`) or of the flagship MLP field (`--field_type mlp`), then
 evaluates PSNR and SSIM into `<workspace>/validation/`; with `--test` it
 renders the held-out views into `<workspace>/results/{stem}_rgb.png` and
-`{stem}_depth.npy`.
+`{stem}_depth.npy`.  Scenes: `--data_type mip` (the default) and `lerf`
+read a COLMAP model (`--downscale k` takes `images_k/`), `others`,
+`llff` and `3dfront` (data/provider.py).
 
-Stage 3 (MLP field only): `--with_mask --mask_root <masks>` trains the
+Stage 3, either field: `--with_mask --mask_root <masks>` trains the
 object field, then evaluates mean IoU on the held-out views.  With
 `--init_ckpt <stage-1 workspace>` the backbone is loaded from it and
-frozen, and the mask step renders it through the level kernels (K5, K6);
-without it the backbone is trainable (initialised from `--seed`) and the
-step renders through the composable route (K8, K10), as in JAX.  `--test
---with_mask` resumes it and writes
-`results/{stem}_mask.npy` and `{stem}_mask_vis.png`.  The mask directory
-holds the decode output: `{stem}_obj_mask.npy` ([1, H, W] uint8 labels)
-and `valid_dict.json`.
+frozen; the MLP field's mask step then renders it through the level
+kernels (K5, K6), and the hash-grid field's (`m_grid`, mask_mlp) through
+the composable route (K10), as in JAX.  Without it the backbone is
+trainable (initialised from `--seed`) and the step renders through the
+composable route (K8 on the MLP field, K10).  `--test --with_mask`
+resumes it and writes `results/{stem}_mask.npy` and `{stem}_mask_vis.png`.
+The mask directory holds the decode output: `{stem}_obj_mask.npy` ([1, H,
+W] uint8 labels) and `valid_dict.json`.
 
-The flags are the JAX CLI's that these paths read, plus `--device`.
+The flags are the JAX CLI's that these paths read, plus `--device`;
+`--fp16`, `--preload`, `--return_extra` and `--mixed_sampling` are parsed
+only (the reference forces fp16 off and preload on after parsing, and
+overrides --bound to 128 and --contract on).
 `--ckpt latest` (the default) resumes the newest checkpoint in
 `<workspace>/checkpoints`; `--ckpt` also takes an `.npz` of JAX parameters
 (models/convert.py).  Otherwise the field is initialised from `--seed`
@@ -44,6 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt", type=str, default="latest",
                    help="latest (resume the workspace) or an .npz of JAX "
                         "field parameters")
+    p.add_argument("--fp16", action="store_true",
+                   help="parsed only: forced off, as in the reference")
     p.add_argument("--init_ckpt", type=str, default="",
                    help="stage hand-off: a port workspace (its newest "
                         "checkpoint) or an .npz of JAX parameters; what it "
@@ -56,15 +64,25 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["train", "trainval", "all"])
     p.add_argument("--test_split", type=str, default="val",
                    choices=["train", "val", "test"])
+    p.add_argument("--preload", action="store_true",
+                   help="parsed only: scenes are always loaded whole")
     p.add_argument("--random_image_batch", action="store_true")
+    p.add_argument("--downscale", type=int, default=1)
+    p.add_argument("--bound", type=float, default=2,
+                   help="parsed, then forced to 128 as in the reference")
+    p.add_argument("--scale", type=float, default=-1)
+    p.add_argument("--offset", type=float, nargs="*", default=[0, 0, 0])
     p.add_argument("--val_type", type=str, default="default",
                    choices=["default", "val_all", "val_split"])
     p.add_argument("--test_view_path", type=str, default=None)
     p.add_argument("--enable_cam_near_far", action="store_true")
+    p.add_argument("--enable_cam_center", action="store_true")
     p.add_argument("--min_near", type=float, default=0.2)
     p.add_argument("--iters", type=int, default=20000)
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--num_steps", type=int, nargs="*", default=[128, 64, 32])
+    p.add_argument("--contract", action="store_true",
+                   help="parsed, then forced on as in the reference")
     p.add_argument("--background", type=str, default="last_sample",
                    choices=["white", "random", "last_sample"])
     p.add_argument("--max_ray_batch", type=int, default=4096 * 4)
@@ -116,6 +134,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--render_mask_type", type=str, default="heatmap",
                    choices=["mask", "composition", "heatmap"])
     p.add_argument("--render_mask_instance_id", type=int, default=0)
+    p.add_argument("--return_extra", action="store_true",
+                   help="parsed only: acts with --with_sam (stage 2, not "
+                        "ported); --test --with_mask always writes the mask "
+                        "probabilities")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default cuda (cpu must be asked for)")
     return p
@@ -125,9 +147,10 @@ def config_from_args(args) -> Config:
     kw = {k: v for k, v in vars(args).items()
           if k in Config.__dataclass_fields__}
     kw["num_steps"] = tuple(args.num_steps)
+    kw["offset"] = tuple(args.offset)
     # post-parse hard overrides of the reference CLI
-    return Config(**kw).replace(bound=128.0, contract=True,
-                                adaptive_num_rays=True)
+    return Config(**kw).replace(fp16=False, bound=128.0, preload=True,
+                                contract=True, adaptive_num_rays=True)
 
 
 def _subset(scene, idx):

@@ -3,7 +3,8 @@ read.
 
 A copy of the matching fields of the JAX package's `Config` (defaults
 unchanged, including the post-parse hard overrides bound=128,
-contract=True and adaptive_num_rays=True), plus `device`.
+contract=True and adaptive_num_rays=True, which `cli.config_from_args`
+applies with fp16=False and preload=True), plus `device`.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ class Config:
     # stage-3 camera: fovy 60 at this square resolution, unless
     # use_default_intrinsics
     online_resolution: int = 512
+    # parsed only: the reference forces fp16 off after parsing
+    fp16: bool = False
 
     # testing
     save_cnt: int = 20
@@ -35,6 +38,8 @@ class Config:
     # dataset
     train_split: str = "train"
     test_split: str = "val"
+    # parsed only: scenes are always loaded whole (forced on after parsing)
+    preload: bool = False
     random_image_batch: bool = False
     val_type: str = "default"  # default | val_all | val_split
     test_view_path: Optional[str] = None
@@ -73,7 +78,7 @@ class Config:
     cp_rank: int = 64
     cp_res: int = 256
     density_bias: float = 0.0
-    # mask-field feature volume (CP; the hash-grid form is not ported)
+    # the MLP field's mask feature volume: "cp" or "hashgrid" (m_grid)
     feat_rep: str = "cp"
     feat_rank: int = 128
     feat_res: int = 256
@@ -101,6 +106,9 @@ class Config:
     use_default_intrinsics: bool = False
     render_mask_type: str = "heatmap"  # mask | composition | heatmap
     render_mask_instance_id: int = 0
+    # parsed only: in JAX it acts with --with_sam alone (stage 2, not
+    # ported); --test --with_mask always writes the mask probabilities
+    return_extra: bool = False
 
     # port: where tensors live ("cuda" unless the caller asks for "cpu")
     device: Optional[str] = None

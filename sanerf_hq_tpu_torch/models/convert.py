@@ -19,8 +19,9 @@ _RULES = (
     # (flax path, port key template, transpose)
     (re.compile(r"(trunk|prop_mlp_[01])/(w\d+)"), r"\1.\2", True),
     (re.compile(r"(cp_[xyz])"), r"\1", False),
-    # the hash-grid field's tables [rows, row_dim] keep their layout
-    (re.compile(r"(grid|prop_grid_[01])"), r"\1", False),
+    # the hash tables [rows, row_dim] keep their layout: the hash-grid
+    # field's, and the object field's m_grid (either field)
+    (re.compile(r"(grid|prop_grid_[01]|m_grid)"), r"\1", False),
     (re.compile(r"(view_mlp|mask_mlp|grid_mlp|prop_mlp_[01])/Dense_(\d+)"
                 r"/kernel"), r"\1.layers.\2.weight", True),
     (re.compile(r"mask_mlp/Dense_(\d+)/bias"), r"mask_mlp.layers.\1.bias",
@@ -55,8 +56,9 @@ def params_from_jax(tree: Mapping) -> dict:
     the hash-grid field's params/grid|prop_grid_0|prop_grid_1 and
     params/grid_mlp|prop_mlp_{0,1}/Dense_i/kernel (patterns match whole
     keys, so the two fields' `prop_mlp_*` forms never meet);
-    and the stage-3 mask branch: params/cp_m_x|cp_m_y|cp_m_z|cp_m_proj,
-    params/mask_mlp/Dense_i/kernel (and bias where it exists).  Leaves of
+    and the stage-3 mask branch: params/cp_m_x|cp_m_y|cp_m_z|cp_m_proj or
+    params/m_grid, params/mask_mlp/Dense_i/kernel (and bias where it
+    exists), of either mask MLP of either field.  Leaves of
     the stage-2 heads (cp_s_*, samvit_*) are not carried; a strict
     `load_state_dict` reports anything the field still lacks."""
     flat = flatten(tree) if any(isinstance(v, Mapping) for v in tree.values()) \

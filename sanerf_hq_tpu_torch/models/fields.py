@@ -1,6 +1,6 @@
 """The reference-parity field: Instant-NGP hash-grid radiance field with two
 hash-grid proposal networks (`--field_type hashgrid`, the CLI default, and
-`hashgrid_packed`), stage 1.
+`hashgrid_packed`), and its stage-3 object field (`with_mask`).
 
 Published widths (nerf/network.py of the reference):
   - main grid: 16 levels x 2 channels, 2^19 table, base 16, desired
@@ -10,13 +10,22 @@ Published widths (nerf/network.py of the reference):
     applied after compositing (deferred colour);
   - proposal nets: 5 levels x 2 channels, 2^17 table, desired resolution
     128 and 256, each with an MLP 10 -> 16 -> 1, bias-free.
+  - object field (stage 3): the mask table `m_grid` at
+    `feature_grid_spec()` (16 levels x 8 channels, 2^19, resolution 512;
+    `feat_spec` overrides it) with mask_mlp a bias-free SkipConnMLP 128 +
+    15 -> 256 x 3 -> n_inst on [features | geo_feat]; or, with
+    mask_mlp_type 'lightweight_mask', at `lightweight_mask_grid_spec()`
+    (16 x 2, 2^10, resolution 256, never packed) with a bias-free MLP 32 +
+    15 + 16 -> 64 x 3 -> n_inst on [features | colour].  They are drawn
+    after the backbone, so a seed gives the same backbone with or without
+    them.
 The field has no level kernels, so the renderer takes its composable route
 (whose `sample_pdf` runs K10 on the card).  `packed` stores each grid
 cell's 8 corner rows in one table row (8x the memory).
 
 Parameter names follow the JAX field's flax tree: `grid`, `prop_grid_0`,
-`prop_grid_1` (tables [rows, row_dim]), `grid_mlp`, `view_mlp`,
-`prop_mlp_0`, `prop_mlp_1` (`MLP`s with [out, in] weights).
+`prop_grid_1`, `m_grid` (tables [rows, row_dim]), `grid_mlp`, `view_mlp`,
+`prop_mlp_0`, `prop_mlp_1`, `mask_mlp` (`MLP`s with [out, in] weights).
 """
 from __future__ import annotations
 
@@ -30,7 +39,7 @@ from ..device import resolve_device
 from ..ops.hashgrid import HashGridSpec, hash_encode, init_hash_table
 from ..ops.sh import sh_encode
 from ..ops.trunc_exp import trunc_exp
-from .mlp import MLP
+from .mlp import MLP, SkipConnMLP
 
 GEOM_FEAT_DIM = 15
 SH_DEGREE = 4
@@ -66,20 +75,39 @@ def prop_grid_spec(desired_resolution: int) -> HashGridSpec:
     )
 
 
+def mask_grid_spec(mask_mlp_type: str = "default",
+                   feat_spec: Optional[HashGridSpec] = None,
+                   packed: bool = False) -> HashGridSpec:
+    """The spec of the object field's table `m_grid`: feat_spec or
+    feature_grid_spec() with the default mask MLP, corner-packed when the
+    field is; lightweight_mask_grid_spec() with the lightweight one, never
+    packed."""
+    if mask_mlp_type == "default":
+        spec = feat_spec or feature_grid_spec()
+        return dataclasses.replace(spec, packed=True) if packed else spec
+    if mask_mlp_type == "lightweight_mask":
+        return lightweight_mask_grid_spec()
+    raise ValueError(f"unknown mask_mlp_type {mask_mlp_type}")
+
+
 def active_reg_grid(model, stage: str):
     """The hash table that --lambda_tv / --lambda_wd regularise in a stage
     ('rgb' | 'sam' | 'mask'): (parameter name, spec), or None when the
-    model has none (the MLP field; the stage-2 and stage-3 tables of the
-    hash-grid field are not ported)."""
-    if not isinstance(model, SANeRFField) or stage != "rgb":
+    model has none for it (the MLP field; a field without the stage's
+    table; stage 2, not ported)."""
+    if not isinstance(model, SANeRFField) or stage == "sam":
         return None
+    if stage == "mask":
+        return ("m_grid", model.m_spec) if model.with_mask else None
     return "grid", model.grid_spec
 
 
 class SANeRFField(nn.Module):
     def __init__(self, grid_bound: float = 2.0, with_sam: bool = False,
-                 with_mask: bool = False,
+                 with_mask: bool = False, mask_mlp_type: str = "default",
+                 n_inst: int = 2,
                  main_spec: Optional[HashGridSpec] = None,
+                 feat_spec: Optional[HashGridSpec] = None,
                  prop_spec_0: Optional[HashGridSpec] = None,
                  prop_spec_1: Optional[HashGridSpec] = None,
                  packed: bool = False, device=None, seed: int = 0):
@@ -88,10 +116,6 @@ class SANeRFField(nn.Module):
             raise NotImplementedError(
                 "with_sam (stage 2) is not ported yet (ROADMAP.md, queue 1, "
                 "M8)")
-        if with_mask:
-            raise NotImplementedError(
-                "the hash-grid field's stage 3 (m_grid) is not ported yet "
-                "(ROADMAP.md, queue 1, M12); use --field_type mlp")
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.grid_bound = grid_bound
@@ -116,6 +140,20 @@ class SANeRFField(nn.Module):
                               device=device, generator=g)
         self.prop_mlp_1 = MLP(self.prop_specs[1].output_dim, 1, 16, 2,
                               device=device, generator=g)
+        self.with_mask = with_mask
+        self.mask_mlp_type = mask_mlp_type
+        self.n_inst = n_inst
+        if with_mask:  # drawn last: the backbone's init does not depend on it
+            self.m_spec = mask_grid_spec(mask_mlp_type, feat_spec, packed)
+            self.m_grid = nn.Parameter(init_hash_table(g, self.m_spec, device))
+            C = self.m_spec.output_dim
+            if mask_mlp_type == "default":
+                self.mask_mlp = SkipConnMLP(C + GEOM_FEAT_DIM, n_inst, 256, 3,
+                                            use_bias=False, device=device,
+                                            generator=g)
+            else:
+                self.mask_mlp = MLP(C + GEOM_FEAT_DIM + SH_DIM, n_inst, 64, 3,
+                                    device=device, generator=g)
 
     def common_forward(self, x):
         """x [..., 3] contracted coords in [-grid_bound, grid_bound] ->
@@ -146,3 +184,10 @@ class SANeRFField(nn.Module):
 
     def apply_view_mlp(self, f_image):
         return self.view_mlp(f_image)
+
+    def mask_features(self, x):
+        """Contracted coords [..., 3] -> the m_grid encoding [..., C]."""
+        return hash_encode(self.m_grid, x, self.m_spec, bound=self.grid_bound)
+
+    def apply_mask_mlp(self, m):
+        return self.mask_mlp(m)

@@ -15,12 +15,18 @@ with CP features stays plain, as in JAX.  `fused_prop_weights` (K7) and
 `fused_prop_weights_train` (K7, backward K2) return a proposal level's
 weights; no route of the renderer calls them, as in JAX.
 
-The mask branch (`with_mask`): a rank-`feat_rank` CP feature volume
-`cp_m_{x,y,z}` [feat_res, feat_rank] with a projection `cp_m_proj`
-[feat_rank, C] (C 128 for the default mask MLP, 32 for the lightweight
-one), read by `mask_features`, and the mask MLP on [features | trunk
-features] (default, a bias-free SkipConnMLP 256 x 3) or [features |
-colour] (lightweight, a bias-free MLP 64 x 3) giving n_inst logits.
+The mask branch (`with_mask`): with feat_rep 'cp' a rank-`feat_rank` CP
+feature volume `cp_m_{x,y,z}` [feat_res, feat_rank] with a projection
+`cp_m_proj` [feat_rank, C]; with feat_rep 'hashgrid' the hash table
+`m_grid` of the hash-grid field's object field (never packed here).  C is
+the width of that table's spec: `feat_spec` or feature_grid_spec() (128)
+for the default mask MLP, lightweight_mask_grid_spec() (32) for the
+lightweight one.  `mask_features` reads it, and the mask MLP on
+[features | trunk features] (default, a bias-free SkipConnMLP 256 x 3) or
+[features | colour] (lightweight, a bias-free MLP 64 x 3) gives n_inst
+logits.  Over a frozen backbone the level kernels (K5, K6) still render
+the backbone; only the mask features come from the CP volume or the
+table.
 """
 from __future__ import annotations
 
@@ -31,13 +37,14 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.fused_mlp import _reference_forward_with_extra, fused_freq_mlp
+from ..ops.hashgrid import HashGridSpec, hash_encode, init_hash_table
 from ..ops.render_level import (cp_features, final_level_train,
                                 fused_final_level, fused_final_level_frozen,
                                 fused_prop_level, fused_prop_level_sample,
                                 prop_level_train, prop_level_train_sample)
 from ..ops.sh import sh_encode
 from ..ops.trunc_exp import safe_trunc_exp
-from .fields import SANeRFField
+from .fields import SANeRFField, mask_grid_spec
 from .mlp import MLP, SkipConnMLP, uniform_fan_in_
 
 GEOM_FEAT_DIM = 15
@@ -91,17 +98,14 @@ class MLPField(nn.Module):
                  cp_rank: int = 0, cp_res: int = 256, with_mask: bool = False,
                  n_inst: int = 2, mask_mlp_type: str = "default",
                  feat_rep: str = "cp", feat_rank: int = 128,
-                 feat_res: int = 256, with_sam: bool = False, device=None,
-                 seed: int = 0):
+                 feat_res: int = 256,
+                 feat_spec: Optional[HashGridSpec] = None,
+                 with_sam: bool = False, device=None, seed: int = 0):
         super().__init__()
         if with_sam:
             raise NotImplementedError(
                 "with_sam (stage 2) is not ported yet (ROADMAP.md, queue 1, "
                 "M8)")
-        if with_mask and feat_rep != "cp":
-            raise NotImplementedError(
-                f"feat_rep '{feat_rep}' is not ported yet (ROADMAP.md, queue "
-                "1, M12); use feat_rep 'cp'")
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.grid_bound = grid_bound
@@ -129,16 +133,21 @@ class MLPField(nn.Module):
         self.mask_mlp_type = mask_mlp_type
         self.n_inst = n_inst
         self.feat_res = feat_res
+        self.feat_rep = feat_rep
         if with_mask:  # drawn last: the backbone's init does not depend on it
-            # the widths of the reference's m_grid hash encodings (16
-            # levels x 8, lightweight 16 x 2), which the projection gives
-            channels = 128 if mask_mlp_type == "default" else 32
-            for a in "xyz":
-                basis = torch.randn((feat_res, feat_rank), generator=g) * 0.3
-                self.register_parameter(
-                    f"cp_m_{a}", nn.Parameter(basis.to(device)))
-            proj = torch.randn((feat_rank, channels), generator=g) * 0.1
-            self.cp_m_proj = nn.Parameter(proj.to(device))
+            self.m_spec = mask_grid_spec(mask_mlp_type, feat_spec)
+            channels = self.m_spec.output_dim
+            if feat_rep == "cp":
+                for a in "xyz":
+                    basis = torch.randn((feat_res, feat_rank),
+                                        generator=g) * 0.3
+                    self.register_parameter(
+                        f"cp_m_{a}", nn.Parameter(basis.to(device)))
+                proj = torch.randn((feat_rank, channels), generator=g) * 0.1
+                self.cp_m_proj = nn.Parameter(proj.to(device))
+            else:
+                self.m_grid = nn.Parameter(
+                    init_hash_table(g, self.m_spec, device))
             if mask_mlp_type == "default":
                 self.mask_mlp = SkipConnMLP(channels + GEOM_FEAT_DIM, n_inst,
                                             256, 3, use_bias=False,
@@ -184,13 +193,17 @@ class MLPField(nn.Module):
         return self.view_mlp(f_image)
 
     def mask_features(self, x):
-        """Contracted world coords [..., 3] -> [..., C] CP mask features:
-        per axis a two-hot linear-interpolation row over feat_res times the
-        basis, the product over axes, then the projection.  Written as the
+        """Contracted world coords [..., 3] -> [..., C] mask features: the
+        m_grid encoding (feat_rep 'hashgrid'), or the CP features: per axis
+        a two-hot linear-interpolation row over feat_res times the basis,
+        the product over axes, then the projection.  Written as the
         JAX field writes it (mlp_field.py:194-213), one-hot matmuls: on the
         H100 their backward beats a gather's, whose index_put adds every
         point's grads into the same 3 x feat_res rows (chip_smoke.py times
         both)."""
+        if self.feat_rep == "hashgrid":
+            return hash_encode(self.m_grid, x, self.m_spec,
+                               bound=self.grid_bound)
         S = self.feat_res
         p = ((self._norm(x) + 1.0) * 0.5).clamp(0.0, 1.0) * (S - 1)
         i0 = torch.floor(p).clamp(0.0, S - 2.0)
@@ -307,8 +320,9 @@ def make_field(field_type: str = "hashgrid", device=None, seed: int = 0,
     packed tables) | 'mlp' (flagship); keyword arguments the chosen field
     does not take are dropped, as the JAX factory does."""
     if field_type in ("hashgrid", "hashgrid_packed"):
-        allowed = {"grid_bound", "with_sam", "with_mask", "main_spec",
-                   "prop_spec_0", "prop_spec_1", "packed"}
+        allowed = {"grid_bound", "with_sam", "with_mask", "mask_mlp_type",
+                   "n_inst", "main_spec", "feat_spec", "prop_spec_0",
+                   "prop_spec_1", "packed"}
         kw = {k: v for k, v in kw.items() if k in allowed}
         if field_type == "hashgrid_packed":
             kw["packed"] = True
@@ -318,7 +332,7 @@ def make_field(field_type: str = "hashgrid", device=None, seed: int = 0,
                    "prop_hidden", "prop_layers", "prop_freq_degree",
                    "density_bias", "cp_rank", "cp_res", "with_mask",
                    "n_inst", "mask_mlp_type", "feat_rep", "feat_rank",
-                   "feat_res", "with_sam"}
+                   "feat_res", "feat_spec", "with_sam"}
         return MLPField(**{k: v for k, v in kw.items() if k in allowed},
                         device=device, seed=seed)
     raise ValueError(f"unknown field_type {field_type}")

@@ -21,7 +21,8 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..models.fields import active_reg_grid
-from ..ops.hashgrid import total_variation_loss, weight_decay_loss
+from ..ops.hashgrid import (total_variation_loss, total_variation_loss_at,
+                            weight_decay_loss)
 from ..render.renderer import RenderSettings, render_rays, render_staged
 
 
@@ -54,9 +55,10 @@ def make_eval_render(model, cfg: Config, perturb: bool = False,
 
 def _grid_regularizers(model, cfg: Config, stage: str):
     """The --lambda_tv / --lambda_wd term of a stage's loss on its hash
-    table, a function of a generator (TV draws its points from it); None
-    when both lambdas are 0 or the model has no table for the stage (the
-    MLP field)."""
+    table ('rgb': grid, 'mask': m_grid), a function of a generator (TV
+    draws its points from it) or of the TV points themselves (unit-cube
+    [n, 3]); None when both lambdas are 0 or the model has no table for
+    the stage (the MLP field)."""
     if cfg.lambda_tv <= 0 and cfg.lambda_wd <= 0:
         return None
     reg = active_reg_grid(model, stage)
@@ -64,12 +66,14 @@ def _grid_regularizers(model, cfg: Config, stage: str):
         return None
     name, spec = reg
 
-    def reg_loss(generator=None):
+    def reg_loss(generator=None, tv_points=None):
         table = getattr(model, name)
         loss = 0.0
         if cfg.lambda_tv > 0:
-            loss = loss + cfg.lambda_tv * total_variation_loss(
-                table, spec, generator)
+            tv = (total_variation_loss(table, spec, generator)
+                  if tv_points is None
+                  else total_variation_loss_at(table, spec, tv_points))
+            loss = loss + cfg.lambda_tv * tv
         if cfg.lambda_wd > 0:
             loss = loss + cfg.lambda_wd * weight_decay_loss(table, spec)
         return loss
@@ -272,10 +276,12 @@ def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False):
     and error-map cell of each global ray), local_error [Nl]} renders the
     batch, computes `mask_losses` at state.step, backpropagates, applies
     one Adam update and returns (detached metrics, the updated error map
-    [V, S*S]).  `generator` draws the ray-pair anchors.  frozen_backbone
-    renders the backbone through K5 and K6 (the trainer freezes every
-    backbone parameter).  `mask_step.loss_fn(batch, step, error_map,
-    generator)` returns (loss, metrics, error map)."""
+    [V, S*S]).  `generator` draws the ray-pair anchors and the TV points
+    of --lambda_tv.  frozen_backbone renders the backbone through K5 and
+    K6 on the MLP field (the trainer freezes every backbone parameter).
+    `mask_step.loss_fn(batch, step, error_map, generator, tv_points)`
+    returns (loss, metrics, error map); tv_points [n, 3] in the unit cube
+    replace the drawn TV points."""
     settings = RenderSettings(
         num_steps=tuple(cfg.num_steps),
         use_contract=cfg.contract,
@@ -288,12 +294,18 @@ def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False):
         return_mask=True,
         frozen_backbone=frozen_backbone,
     )
+    reg_loss = _grid_regularizers(model, cfg, "mask")
 
-    def loss_fn(batch, step: int, error_map, generator=None):
+    def loss_fn(batch, step: int, error_map, generator=None, tv_points=None):
         out = render_rays(model, batch["rays_o"], batch["rays_d"], settings,
                           cam_near_far=batch.get("cam_near_far"),
                           update_proposal=False)
-        return mask_losses(out, batch, step, error_map, cfg, generator)
+        loss, metrics, new_map = mask_losses(out, batch, step, error_map, cfg,
+                                             generator)
+        if reg_loss is not None:
+            loss = loss + reg_loss(generator, tv_points)
+            metrics["loss"] = loss
+        return loss, metrics, new_map
 
     def mask_step(state, batch, generator, error_map):
         loss, metrics, new_map = loss_fn(batch, state.step, error_map,

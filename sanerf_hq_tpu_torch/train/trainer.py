@@ -3,8 +3,10 @@ full-frame render, evaluation and test artifacts.  The eval renders use the
 EMA weights, as the JAX trainer does.  The stage-3 loops (stages.py) use
 the same Trainer, usually with an init checkpoint: its parameters are
 loaded and frozen, and `backbone_frozen` tells the mask step it may render
-the backbone through the gradient-free level kernels.  Without one
-nothing is frozen and the mask step renders through the composable route.
+the backbone without gradient (through the level kernels on the MLP
+field; the hash-grid field has none and renders through the composable
+route).  Without one nothing is frozen and the mask step renders through
+the composable route.
 
 Epoch math as the reference's: steps_per_epoch = number of training views,
 max_epoch = ceil(iters / steps_per_epoch), eval and save intervals from

@@ -303,3 +303,105 @@ def test_port_and_chip_smoke_import_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.split()[-1]) >= 37  # every module was imported
+
+
+_SCRIPTS = r"""
+import importlib.abc, json, os, sys
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "sanerf_hq_tpu", "cv2"}
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+from chip_smoke import script_argv
+from sanerf_hq_tpu_torch import cli
+from sanerf_hq_tpu_torch.data.synthetic import (write_colmap_scene,
+                                                write_sphere_masks)
+
+root = os.getcwd()
+env = {"SANERFHQ_DATA_PATH": os.path.join(root, "scene"),
+       "SANERFHQ_WORKSPACE_ROOT": os.path.join(root, "ws"),
+       "SANERFHQ_SCENE": "sphere",
+       "SANERFHQ_MASK_PATH": os.path.join(root, "masks"),
+       "SANERFHQ_INIT_CKPT": os.path.join(root, "ws", "rgb_nerf", "sphere")}
+# 17 views (val: v00, v16), images_4/ at 16x16 and images/ at 64x64
+write_colmap_scene(env["SANERFHQ_DATA_PATH"], n_views=17, H=16, W=16,
+                   downscale=4, n_points=400)
+write_sphere_masks(env["SANERFHQ_MASK_PATH"], n_views=17, H=64, W=64)
+with open("example_test_views.json", "w") as f:
+    json.dump(["v00", "v16"], f)
+small = ["--device", "cpu", "--num_steps", "16", "8", "8"]
+cuts = {"train_rgb_nerf.sh": ["--iters", "3", "--num_points", "512"],
+        "train_obj_nerf.sh": ["--iters", "4", "--num_rays", "64",
+                              "--online_resolution", "32",
+                              "--error_map_size", "8",
+                              "--ray_pair_rgb_iter", "2"],
+        "test_obj_nerf.sh": []}
+out = {}
+for name, cut in cuts.items():
+    argv = script_argv(name, env)
+    cli.build_parser().parse_args(argv)  # the script's own flag set parses
+    trainer = cli.main(argv + small + cut)
+    out[name] = {"argv": argv, "step": trainer.state.step,
+                 "field": type(trainer.model).__name__,
+                 "with_mask": trainer.model.with_mask,
+                 "frozen": trainer.backbone_frozen,
+                 "workspace": trainer.workspace}
+print("RESULT " + json.dumps(out))
+"""
+
+
+def test_scripts_flag_sets_run_without_jax_or_opencv(tmp_path):
+    """The flag sets of scripts/train_rgb_nerf.sh, train_obj_nerf.sh and
+    test_obj_nerf.sh, read out of the scripts, parse and run in a row
+    through the CLI on a COLMAP scene (--data_type mip, --downscale 4),
+    with --device cpu and small sizes appended, in a process where JAX,
+    the JAX package and OpenCV cannot be imported: stage 1 of the
+    hash-grid field, stage 3 of its object field over the frozen backbone,
+    and the stage-3 --test."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", _SCRIPTS], cwd=str(tmp_path),
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    import json
+
+    res = json.loads(r.stdout.split("RESULT ")[-1])
+    rgb, obj, test = (res[n] for n in ("train_rgb_nerf.sh",
+                                       "train_obj_nerf.sh",
+                                       "test_obj_nerf.sh"))
+    for flag in ("--enable_cam_center", "--downscale", "--contract",
+                 "--random_image_batch"):
+        assert flag in rgb["argv"]
+    assert "--return_extra" in test["argv"] and "--test" in test["argv"]
+    assert rgb["field"] == obj["field"] == test["field"] == "SANeRFField"
+    assert (rgb["step"], obj["step"], test["step"]) == (3, 4, 4)
+    assert obj["with_mask"] and obj["frozen"] and not rgb["with_mask"]
+    out = r.stdout
+    assert "[INFO] error map rebuilt at step 2" in out
+    assert out.count("[EVAL] MeanIoU = ") == 2, out[-3000:]
+    # the stage-3 run left the stage-1 backbone bitwise as it was
+    ws = os.path.join(str(tmp_path), "ws")
+    stage1 = torch.load(os.path.join(ws, "rgb_nerf", "sphere", "checkpoints",
+                                     "step_00000003.pt"),
+                        weights_only=True)["model"]
+    stage3 = torch.load(os.path.join(ws, "obj_nerf", "sphere", "checkpoints",
+                                     "step_00000004.pt"),
+                        weights_only=True)["model"]
+    assert set(stage3) - set(stage1) == {
+        "m_grid", "mask_mlp.layers.0.weight", "mask_mlp.layers.1.weight",
+        "mask_mlp.layers.2.weight"}
+    assert stage3["m_grid"].shape == (5_258_512, 8)
+    for name, v in stage1.items():
+        assert torch.equal(stage3[name], v), name
+    results = os.path.join(ws, "obj_nerf", "sphere", "results")
+    for stem in ("v00", "v16"):
+        probs = np.load(os.path.join(results, f"{stem}_mask.npy"))
+        assert probs.shape == (64, 64, 2) and np.isfinite(probs).all()
+        assert read_png(os.path.join(results, f"{stem}_mask_vis.png")
+                        ).shape == (64, 64, 3)

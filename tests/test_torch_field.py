@@ -115,9 +115,17 @@ def test_seeded_init_is_deterministic():
 def test_hashgrid_fields_not_ported(field_type):
     """Both hash-grid field types build through make_field (dropping the
     MLP field's keywords, as the CLI passes them) and render one training
-    batch with its losses and grads; stage 3 of this field still raises."""
+    batch with its losses and grads.  With with_mask (stage 3) the object
+    field's table m_grid is built at feature_grid_spec() (16 levels x 8),
+    corner-packed when the field is: the plain table at its published size,
+    the packed one (8x that, 1.35 GB) by its spec and, built, at a small
+    feat_spec."""
+    import dataclasses
+
     from sanerf_hq_tpu_torch.models import SANeRFField
-    from sanerf_hq_tpu_torch.models.fields import prop_grid_spec
+    from sanerf_hq_tpu_torch.models.fields import (feature_grid_spec,
+                                                   mask_grid_spec,
+                                                   prop_grid_spec)
     from sanerf_hq_tpu_torch.ops.hashgrid import HashGridSpec
     from sanerf_hq_tpu_torch.render import renderer as tr
 
@@ -140,5 +148,19 @@ def test_hashgrid_fields_not_ported(field_type):
     assert out["image"].shape == (32, 3) and out["weights"].shape == (32, 8)
     assert torch.isfinite(out["image"]).all()
     assert f.grid.grad.abs().sum() > 0 and f.prop_grid_1.grad.abs().sum() > 0
-    with pytest.raises(NotImplementedError, match="M12"):
-        make_field(field_type, device="cpu", with_mask=True, **small)
+    packed = field_type == "hashgrid_packed"
+    want = dataclasses.replace(feature_grid_spec(), packed=packed)
+    assert mask_grid_spec("default", None, packed) == want
+    if packed:
+        feat = HashGridSpec(num_levels=3, level_dim=8, base_resolution=8,
+                            log2_hashmap_size=10, desired_resolution=32)
+        m = make_field(field_type, device="cpu", with_mask=True,
+                       feat_spec=feat, **small)
+        assert m.m_spec == dataclasses.replace(feat, packed=True)
+        assert m.m_grid.shape == (feat.total_params, 64)
+    else:
+        m = make_field(field_type, device="cpu", with_mask=True, **small)
+        assert m.m_spec == want
+        assert m.m_grid.shape == (want.total_params, 8) == (5_258_512, 8)
+    assert m.mask_mlp.layers[0].weight.shape == (256, m.m_spec.output_dim
+                                                  + 15)

@@ -104,7 +104,10 @@ def test_mask_branch_params_and_init():
 
 
 @pytest.mark.parametrize("kw,item", [(dict(with_sam=True), "M8"),
-                                     (dict(feat_rep="hashgrid"), "M12")])
+                                     (dict(field_type="hashgrid",
+                                           with_sam=True), "M8")])
 def test_unported_field_options_raise(kw, item):
+    """Stage 2 (with_sam) is not ported in either field."""
+    kw = dict(KW, **kw)
     with pytest.raises(NotImplementedError, match=item):
-        make_field("mlp", device="cpu", **dict(KW, **kw))
+        make_field(kw.pop("field_type", "mlp"), device="cpu", **kw)
