@@ -163,6 +163,31 @@ last line:
         with the same weights, the CPU handed the card's resampled bins:
         the loss and instance_mask_logits max abs <= 1e-3, the m_grid and
         mask_mlp grads rel-max <= 1e-3.
+ 12. SAM, stage 2 and the decode (run after 11, before 10's traces): a
+     point file with, for each view, the sparse point nearest its camera
+     (on the sphere's front surface; write_sphere_points); the flags of
+     scripts/train_sam_nerf.sh and decode.sh read out of the scripts, over
+     phase 11's stage-1 workspace and scene, with --downscale 4 appended
+     (512x512 views; the scripts' 2048x2048 would render each view for
+     about 30 s), the decode's relative --point_file replaced by the file
+     written here; SAM vit_h at 1024^2 with random weights from --seed;
+     counts set to 0 just before and read just after each CLI run:
+     1. stage 2 (--with_sam --feature_container cache): K10 twice a chunk
+        of every view, K1-K9 never; sam_cache/ with one [64, 64, 256]
+        float32 file a view; the seconds a view, the peak device memory;
+     2. the decode (--test --decode --use_point): K10 the same;
+        {stem}_obj_mask.npy [1, 512, 512] uint8 and {stem}_rgb.png a view,
+        valid_dict.json over every view, at least one view valid at the
+        CLI's depth_tol 0.05 (each view's depth-gate line printed);
+     3. vit_h's times (CUDA events, median of 10 after 2 warm-up calls):
+        set_image on a 512x512 view, the encoder alone, predict with 1 and
+        5 points for sam and sam_hq (sam_hq's features from set_image),
+        the memory set_image adds over the weights;
+     4. the card against the CPU at vit_b with the same weights: the
+        encoder on one 1024^2 image (features and the four global blocks'
+        outputs) and the low-res logits and IoU of a 5-point decode on
+        those features, rel-max < SAM_CPU_TOL (1e-3);
+     then one JSON line {"sam_path": {...}} with these numbers.
  10. the device-only torch.profiler traces of phases 5, 7, 8, 9 and 11,
      taken after every rate, since a trace slows the host's later steps;
      one JSON line with every kernel's numbers (K10's launches those of
@@ -196,7 +221,8 @@ from sanerf_hq_tpu_torch.data.sampler import (fixed_fovy_intrinsics,
 from sanerf_hq_tpu_torch.data.synthetic import (look_at_pose,
                                                 write_colmap_scene,
                                                 write_llff_scene,
-                                                write_sphere_masks)
+                                                write_sphere_masks,
+                                                write_sphere_points)
 from sanerf_hq_tpu_torch.models import SANeRFField, make_field, mlp_field
 from sanerf_hq_tpu_torch.models.fields import lightweight_mask_grid_spec
 from sanerf_hq_tpu_torch.ops import cuda_lib, fused_mlp
@@ -213,6 +239,7 @@ from sanerf_hq_tpu_torch.ops.sample_pdf import (sample_pdf_lookup,
                                                 sample_pdf_lookup_ref)
 from sanerf_hq_tpu_torch.ops.sh import sh_encode
 from sanerf_hq_tpu_torch.render.renderer import RenderSettings, render_rays
+from sanerf_hq_tpu_torch.sam import SamPredictor, build_sam
 from sanerf_hq_tpu_torch.train.checkpoints import CheckpointManager
 from sanerf_hq_tpu_torch.train.steps import (_grid_regularizers,
                                              make_mask_train_step,
@@ -2780,6 +2807,186 @@ def scripts_path(work):
     return out
 
 
+SAM_CPU_TOL = 1e-3  # card against CPU at vit_b: rel-max, fp32, TF32 off
+
+
+def sam_path(work):
+    """Phase 12: stage 2 (the SAM feature cache) and the decode through the
+    CLI with the flags of scripts/train_sam_nerf.sh and decode.sh at vit_h
+    (1024^2 input, random weights from --seed) over phase 11's stage-1
+    workspace and COLMAP scene, --downscale 4 appended (512x512 views);
+    then SAM's own times at vit_h and the card against the CPU at vit_b."""
+    root = os.path.join(work, "scripts")
+    env = {"SANERFHQ_DATA_PATH": os.path.join(root, "scene"),
+           "SANERFHQ_WORKSPACE_ROOT": os.path.join(root, "ws"),
+           "SANERFHQ_SCENE": "sphere",
+           "SANERFHQ_INIT_CKPT": os.path.join(root, "ws", "rgb_nerf",
+                                              "sphere")}
+    scene = env["SANERFHQ_DATA_PATH"]
+    cut = ["--downscale", str(SCRIPTS_DS)]
+    s = load_scene(scene, "mip", SCRIPTS_DS, enable_cam_center=True,
+                   load_images=False)
+    n_views = s.poses.shape[0]
+    point_file = os.path.join(root, "example_points.json")
+    pts = write_sphere_points(point_file, s.pts3d, s.poses)
+    per_view = -(-VIEW * VIEW // CHUNK)
+    out = {"views": n_views, "view": [VIEW, VIEW], "prompts": len(pts),
+           "launches": {}}
+
+    # 1. stage 2: scripts/train_sam_nerf.sh, the feature cache
+    argv2 = script_argv("train_sam_nerf.sh", env) + cut
+    torch.cuda.reset_peak_memory_stats()
+    t2, dt2, launches = run_cli(argv2)
+    peak2 = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert t2.backbone_frozen and t2.state.optimizer is None
+    assert t2.cfg.sam_model_type == "vit_h" and t2.cfg.with_sam
+    assert launches["K10"] == 2 * per_view * n_views, launches
+    for k in LEVEL_KERNELS + ("K8",):
+        assert launches[k] == 0, launches
+    ws = t2.cfg.workspace
+    cache = os.path.join(ws, "sam_cache")
+    names = sorted(os.listdir(cache))
+    assert names == [f"v{i:02d}.npy" for i in range(n_views)], names
+    for n_ in names:
+        f = np.load(os.path.join(cache, n_))
+        assert f.shape == (64, 64, 256) and f.dtype == np.float32, f.shape
+        assert np.isfinite(f).all(), n_
+    print(f"[sam] 1. scripts/train_sam_nerf.sh {' '.join(argv2[1:])}: "
+          f"{n_views} views of {VIEW}x{VIEW} rendered and encoded at vit_h "
+          f"(1024^2) in {dt2:.2f} s ({dt2 / n_views:.3f} s a view, the "
+          f"SAM build and the scene load included); launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items())
+          + f"; sam_cache/ {len(names)} x [64, 64, 256] float32; peak "
+          f"device memory {peak2:.3f} GiB", flush=True)
+    out["launches"]["stage2"] = launches
+    out.update(stage2_seconds=dt2, stage2_s_a_view=dt2 / n_views,
+               stage2_peak_gib=peak2)
+    del t2
+
+    # 2. the decode: scripts/decode.sh
+    argv3 = script_argv("decode.sh", env) + cut
+    argv3[argv3.index("--point_file") + 1] = point_file
+    torch.cuda.reset_peak_memory_stats()
+    t3, dt3, launches = run_cli(argv3)
+    peak3 = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert t3.cfg.decode and t3.cfg.use_point and t3.backbone_frozen
+    assert launches["K10"] == 2 * per_view * n_views, launches
+    for k in LEVEL_KERNELS + ("K8",):
+        assert launches[k] == 0, launches
+    dec = os.path.join(ws, "object_masks")
+    with open(os.path.join(dec, "valid_dict.json")) as f:
+        valid = json.load(f)
+    stems = [f"v{i:02d}" for i in range(n_views)]
+    assert sorted(valid) == stems, valid
+    fg = {}
+    for stem in stems:
+        m = np.load(os.path.join(dec, f"{stem}_obj_mask.npy"))
+        assert m.shape == (1, VIEW, VIEW) and m.dtype == np.uint8, m.shape
+        assert read_png(os.path.join(dec, f"{stem}_rgb.png")).shape == (
+            VIEW, VIEW, 3)
+        fg[stem] = float(m.mean())
+    with open(os.path.join(ws, "log_ngp.txt")) as f:
+        gate = [l_.strip() for l_ in f if l_.startswith("[decode] v")]
+    n_valid = sum(valid.values())
+    print(f"[sam] 2. scripts/decode.sh {' '.join(argv3[1:])}: {n_views} "
+          f"views decoded from the cache with {len(pts)} prompts in "
+          f"{dt3:.2f} s ({dt3 / n_views:.3f} s a view); launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; valid {n_valid}/{n_views} at depth_tol 0.05; mask "
+          f"foreground share by view {fg}; peak device memory "
+          f"{peak3:.3f} GiB", flush=True)
+    for line in gate:
+        print(f"[sam]    {line}", flush=True)
+    assert n_valid >= 1, gate
+    out["launches"]["decode"] = launches
+    out.update(decode_seconds=dt3, decode_s_a_view=dt3 / n_views,
+               decode_peak_gib=peak3, valid_views=n_valid,
+               mask_foreground=fg)
+    view = (np.clip(t3.render_view(s.poses[0], s.intrinsics[0], VIEW,
+                                   VIEW)["image"].reshape(VIEW, VIEW, 3),
+                    0, 1) * 255).astype(np.uint8)
+    del t3
+
+    # 3. SAM's own times at vit_h (CUDA events, median of 10 after 2
+    # warm-up calls): set_image on a 512x512 view, the encoder alone,
+    # predict with 1 and 5 points for sam and sam_hq (sam_hq's features
+    # from set_image)
+    torch.cuda.empty_cache()
+    times, peaks = {}, {}
+    coords = np.array([[256, 256], [200, 300], [320, 180], [150, 150],
+                       [400, 420]])
+    for hq in (False, True):
+        tag = "sam_hq" if hq else "sam"
+        t0 = time.perf_counter()
+        sam = build_sam("vit_h", hq=hq, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        times[f"{tag} build s"] = time.perf_counter() - t0
+        pred = SamPredictor(sam)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times[f"{tag} set_image ms"] = cuda_ms(lambda: pred.set_image(view))
+        peaks[tag] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        if not hq:
+            x, _ = pred.preprocess(view)
+            times["encoder ms"] = cuda_ms(lambda: pred.encode(x))
+        for k in (1, 5):
+            times[f"{tag} predict {k} pt ms"] = cuda_ms(
+                lambda: pred.predict(point_coords=coords[:k],
+                                     point_labels=np.ones(k)))
+        m, iou, low = pred.predict(point_coords=coords[:5],
+                                   point_labels=np.ones(5))
+        assert m.shape == ((4 if hq else 3), VIEW, VIEW), m.shape
+        assert np.isfinite(iou).all() and np.isfinite(low).all()
+        weights_gib = sum(p.numel() for p in sam.parameters()) * 4 / 2 ** 30
+        out[f"{tag}_weights_gib"] = weights_gib
+        del sam, pred
+        torch.cuda.empty_cache()
+    print("[sam] 3. vit_h at 1024^2, fp32, TF32 off (CUDA events, median of "
+          "10 after 2 warm-up): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in times.items())
+          + "; peak device memory set_image adds over the weights: "
+          + ", ".join(f"{k} {v:.3f} GiB" for k, v in peaks.items())
+          + f" (weights sam {out['sam_weights_gib']:.3f} GiB, sam_hq "
+          f"{out['sam_hq_weights_gib']:.3f} GiB) on {device_line()}",
+          flush=True)
+    out.update(times=times, set_image_peak_gib=peaks)
+
+    # 4. the card against the CPU at vit_b: one 1024^2 image through the
+    # encoder (features and the four global blocks' outputs) and the
+    # low-res logits of a 5-point decode on those features
+    sam = build_sam("vit_b", seed=0, device="cuda")
+    cpu = build_sam("vit_b", device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in sam.state_dict().items()},
+                        assign=True)
+    gp, cp_ = SamPredictor(sam), SamPredictor(cpu)
+    img = np.clip(read_png(os.path.join(scene, "images", "v03.png"))
+                  [:, :, :3], 0, 255).astype(np.uint8)
+    x, _ = gp.preprocess(img)
+    feats, interm = gp.encode(x)
+    t0 = time.perf_counter()
+    feats_c, interm_c = cp_.encode(x.cpu())
+    cpu_s = time.perf_counter() - t0
+    errs = {"features": rel_max(feats.cpu(), feats_c)}
+    for i, (a, b) in enumerate(zip(interm, interm_c)):
+        errs[f"interm {i}"] = rel_max(a.cpu(), b)
+    c = torch.as_tensor(coords.astype(np.float32) * 2)[None]
+    lbl = torch.ones(1, 5, dtype=torch.int32)
+    low, iou = gp.decode(feats, c.cuda(), lbl.cuda())
+    low_c, iou_c = cp_.decode(feats_c, c, lbl)
+    errs["low-res logits"] = rel_max(low.cpu(), low_c)
+    errs["iou"] = rel_max(iou.cpu(), iou_c)
+    worst = max(errs.values())
+    print(f"[sam] 4. the card against the CPU at vit_b, one 1024^2 image "
+          f"(the CPU encoder {cpu_s:.2f} s): rel-max " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bar {SAM_CPU_TOL})", flush=True)
+    assert worst < SAM_CPU_TOL, errs
+    out["card_vs_cpu_rel_max"] = errs
+    del sam, cpu, gp, cp_
+    torch.cuda.empty_cache()
+    return out
+
+
 def hashgrid_mask_step_parts(trainer, draw, gen, em):
     """CUDA-event times of a hash-grid stage-3 step's parts, each alone on
     one batch's own inputs: the sampler, the backbone's forward (three
@@ -2994,6 +3201,8 @@ def main(argv):
     hg["packed"] = packed_path(work)
     tr_launches, trainable = stage3_trainable_path(work)
     scripts = scripts_path(work)
+    sam = sam_path(work)
+    print(json.dumps({"sam_path": sam}), flush=True)
     # the device-time breakdowns of phases 5, 7, 8 and 9, traced after
     # every rate: a torch.profiler trace slows the host's later steps
     print("[train] the stage-1 step's device time by kernel (phase 5's "

@@ -19,6 +19,18 @@ resumes it and writes `results/{stem}_mask.npy` and `{stem}_mask_vis.png`.
 The mask directory holds the decode output: `{stem}_obj_mask.npy` ([1, H,
 W] uint8 labels) and `valid_dict.json`.
 
+Stage 2 and decode (SAM, `--sam_type sam|sam_hq`, `--sam_model_type
+vit_h|vit_l|vit_b`, `--sam_ckpt <released .pth>`; without the file SAM
+gets random weights from `--seed`): `--with_sam --feature_container cache`
+renders every view of the scene (val_all), encodes it with SAM's image
+encoder and saves `<workspace>/sam_cache/{stem}.npy`; `--test --decode
+--use_point --point_file <json>` renders each held-out view, projects the
+3-D prompts with the depth gate, decodes them from the cached features and
+writes `<workspace>/object_masks/` (`{stem}_rgb.png`, `_depth.npy`,
+`_obj_mask.npy`, `valid_dict.json`), which `--mask_root` reads in stage 3.
+`--init_ckpt` hands the stage-1 field to both.  `--feature_container
+distill` is not ported yet and exits with an error.
+
 The flags are the JAX CLI's that these paths read, plus `--device`;
 `--fp16`, `--preload`, `--return_extra` and `--mixed_sampling` are parsed
 only (the reference forces fp16 off and preload on after parsing, and
@@ -110,6 +122,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feat_rank", type=int, default=128)
     p.add_argument("--feat_res", type=int, default=256)
 
+    # stage 2 and decode: SAM
+    p.add_argument("--with_sam", action="store_true")
+    p.add_argument("--sam_type", type=str, default="sam",
+                   choices=["sam", "sam_hq"])
+    p.add_argument("--sam_model_type", type=str, default="vit_h",
+                   choices=["vit_h", "vit_l", "vit_b"])
+    p.add_argument("--sam_ckpt", type=str,
+                   default="./pretrained/sam_vit_h_4b8939.pth",
+                   help="a released SAM / HQ-SAM checkpoint; without the "
+                        "file SAM gets random weights from --seed")
+    p.add_argument("--feature_container", type=str, default="cache",
+                   choices=["cache", "distill"],
+                   help="cache (distill is not ported yet)")
+    p.add_argument("--sam_use_view_direction", action="store_true",
+                   help="parsed only: acts in the distill container, not "
+                        "ported yet")
+    p.add_argument("--cache_size", type=int, default=256,
+                   help="parsed only: acts in the distill container")
+    p.add_argument("--cache_interval", type=int, default=4,
+                   help="parsed only: acts in the distill container")
+    p.add_argument("--decode", action="store_true")
+    p.add_argument("--point_file", type=str, default=None)
+    p.add_argument("--use_point", action="store_true")
+
     # stage 3: object field
     p.add_argument("--with_mask", action="store_true")
     p.add_argument("--mask_mlp_type", type=str, default="default",
@@ -135,9 +171,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["mask", "composition", "heatmap"])
     p.add_argument("--render_mask_instance_id", type=int, default=0)
     p.add_argument("--return_extra", action="store_true",
-                   help="parsed only: acts with --with_sam (stage 2, not "
-                        "ported); --test --with_mask always writes the mask "
-                        "probabilities")
+                   help="parsed only: acts with --with_sam on the distill "
+                        "container's features (not ported yet); --test "
+                        "--with_mask always writes the mask probabilities")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default cuda (cpu must be asked for)")
     return p
@@ -191,9 +227,18 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     # fail fast, before any model or data is built
+    if cfg.decode and cfg.use_point and not cfg.point_file:
+        raise SystemExit("error: --decode --use_point requires --point_file "
+                         "(3-D prompt json, see example_points.json)")
+    if cfg.decode and not cfg.with_sam:
+        raise SystemExit("error: --decode requires --with_sam")
     if cfg.with_mask and not cfg.mask_root and not cfg.test:
         raise SystemExit("error: --with_mask training requires --mask_root "
                          "(decode outputs directory)")
+    if cfg.with_sam and cfg.feature_container == "distill":
+        from .train.stages import DISTILL_NOT_PORTED
+
+        raise SystemExit("error: " + DISTILL_NOT_PORTED)
     device = resolve_device(cfg.device)
     # the view MLP, SSIM and any plain twin stay true fp32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -227,7 +272,8 @@ def main(argv=None):
             cfg.mask_root, scene.img_names, scene.H, scene.W, seed=cfg.seed)
 
     init_params = (load_init_params(cfg.init_ckpt)
-                   if cfg.with_mask and cfg.init_ckpt else None)
+                   if (cfg.with_sam or cfg.with_mask) and cfg.init_ckpt
+                   else None)
     npz = cfg.ckpt.endswith(".npz")
     trainer = Trainer("ngp", cfg, model, cfg.workspace,
                       resume=cfg.ckpt == "latest", init_params=init_params)
@@ -239,11 +285,33 @@ def main(argv=None):
         trainer.log(f"[INFO] no checkpoint: field initialised from --seed "
                     f"{cfg.seed}")
 
+    sam_predictor = None
+    if cfg.with_sam:  # --decode requires it
+        from .sam import SamPredictor, build_sam
+
+        ckpt = cfg.sam_ckpt if os.path.exists(cfg.sam_ckpt) else None
+        sam = build_sam(cfg.sam_model_type, checkpoint=ckpt,
+                        hq=cfg.sam_type == "sam_hq", seed=cfg.seed,
+                        device=device)
+        sam_predictor = SamPredictor(sam)
+        if ckpt is None:
+            trainer.log(f"[WARN] SAM checkpoint {cfg.sam_ckpt} not found; "
+                        f"using random weights from --seed {cfg.seed}")
+
     n = scene.poses.shape[0]
+    # the cache holds every view
+    val_type = ("val_all" if cfg.with_sam and cfg.feature_container ==
+                "cache" else cfg.val_type)
     val_scene = _subset(scene, split_indices(
-        n, cfg.test_split, cfg.val_type, test_view_names, scene.img_names))
+        n, cfg.test_split, val_type, test_view_names, scene.img_names))
     if cfg.test:
-        if cfg.with_mask:
+        if cfg.decode:
+            from .utils.points import load_point_file
+
+            stages.decode(trainer, val_scene, sam_predictor,
+                          load_point_file(cfg.point_file),
+                          feature_container=cfg.feature_container)
+        elif cfg.with_mask:
             stages.evaluate_masks(
                 trainer, val_scene,
                 save_dir=os.path.join(cfg.workspace, "results"),
@@ -257,6 +325,9 @@ def main(argv=None):
         # stage 3 trains on the views with a valid mask only
         train_idx = train_idx[np.isin(train_idx, mask_valid_idx)]
     train_scene = _subset(scene, train_idx)
+    if cfg.with_sam:
+        stages.store_sam_features(trainer, val_scene, sam_predictor)
+        return trainer
     if cfg.with_mask:
         stages.train_mask(trainer, train_scene)
         stages.evaluate_masks(trainer, val_scene)

@@ -1,5 +1,5 @@
-"""Static configuration: the `Config` fields the stage-1 and stage-3 paths
-read.
+"""Static configuration: the `Config` fields the stage-1, stage-2 (the
+feature cache), decode and stage-3 paths read.
 
 A copy of the matching fields of the JAX package's `Config` (defaults
 unchanged, including the post-parse hard overrides bound=128,
@@ -24,6 +24,22 @@ class Config:
     # stage hand-off: a port workspace (its newest checkpoint) or an .npz of
     # JAX parameters; the parameters it holds are loaded and frozen
     init_ckpt: str = ""
+    # stage 2 and decode: SAM (main.py:26-43 of the reference)
+    with_sam: bool = False
+    sam_type: str = "sam"  # sam | sam_hq
+    sam_model_type: str = "vit_h"  # vit_h | vit_l | vit_b
+    # a released checkpoint; without the file SAM gets random weights from
+    # --seed
+    sam_ckpt: str = "./pretrained/sam_vit_h_4b8939.pth"
+    feature_container: str = "cache"  # cache | distill (not ported yet)
+    # parsed only: they act in the distill container alone
+    sam_use_view_direction: bool = False
+    cache_size: int = 256
+    cache_interval: int = 4
+    # decode: --test --decode --use_point --point_file <json>
+    decode: bool = False
+    use_point: bool = False
+    point_file: Optional[str] = None
     # stage-3 camera: fovy 60 at this square resolution, unless
     # use_default_intrinsics
     online_resolution: int = 512
@@ -106,8 +122,9 @@ class Config:
     use_default_intrinsics: bool = False
     render_mask_type: str = "heatmap"  # mask | composition | heatmap
     render_mask_instance_id: int = 0
-    # parsed only: in JAX it acts with --with_sam alone (stage 2, not
-    # ported); --test --with_mask always writes the mask probabilities
+    # parsed only: in JAX it acts with --with_sam alone, on the distill
+    # container's rendered features (not ported yet); --test --with_mask
+    # always writes the mask probabilities
     return_extra: bool = False
 
     # port: where tensors live ("cuda" unless the caller asks for "cpu")

@@ -1,8 +1,9 @@
 """Tiny analytic synthetic scene: a matte colour-by-normal sphere at the
 origin rendered by exact ray-sphere intersection (numpy, no data needed),
 written as an llff scene (`write_llff_scene`) or in the Mip-NeRF 360
-COLMAP layout (`write_colmap_scene`), and its object masks in the decode
-output format (`write_sphere_masks`)."""
+COLMAP layout (`write_colmap_scene`), its object masks in the decode
+output format (`write_sphere_masks`), and the decode's 3-D point prompts
+on its surface (`write_sphere_points`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -212,3 +213,23 @@ def write_sphere_masks(root: str, n_views: int = 8, H: int = 64,
         valid[f"v{i:02d}"] = 1.0
     with open(os.path.join(root, "valid_dict.json"), "w") as f:
         json.dump(valid, f)
+
+
+def write_sphere_points(path: str, pts3d: np.ndarray, poses: np.ndarray):
+    """The decode's point prompts for a scene whose sparse points pts3d
+    [P, 3] lie on the sphere (write_colmap_scene's, in the loaded scene's
+    frame): for each view of poses [V, 4, 4] (cam2world), the sparse point
+    nearest its camera, i.e. on the front surface at the middle of the
+    view.  Written in the schema of example_points.json that
+    utils/points.load_point_file reads: every point positive, none
+    crucial, and a view valid when one point passes the depth gate.
+    Returns the points [K, 3] (K <= V, repeats dropped)."""
+    import json
+
+    d = np.linalg.norm(pts3d[None] - poses[:, None, :3, 3], axis=-1)
+    idx = sorted(set(int(i) for i in d.argmin(1)))
+    pts = np.asarray(pts3d, np.float64)[idx]
+    with open(path, "w") as f:
+        json.dump({"points": pts.tolist(), "negative_labels": [],
+                   "crucial_point_index": [], "valid_threshold": 1}, f)
+    return pts.astype(np.float32)

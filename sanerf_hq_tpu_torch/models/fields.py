@@ -94,7 +94,7 @@ def active_reg_grid(model, stage: str):
     """The hash table that --lambda_tv / --lambda_wd regularise in a stage
     ('rgb' | 'sam' | 'mask'): (parameter name, spec), or None when the
     model has none for it (the MLP field; a field without the stage's
-    table; stage 2, not ported)."""
+    table; stage 2's s_grid, not ported)."""
     if not isinstance(model, SANeRFField) or stage == "sam":
         return None
     if stage == "mask":
@@ -114,8 +114,9 @@ class SANeRFField(nn.Module):
         super().__init__()
         if with_sam:
             raise NotImplementedError(
-                "with_sam (stage 2) is not ported yet (ROADMAP.md, queue 1, "
-                "M8)")
+                "with_sam (the feature containers of stage 2's distill "
+                "container) is not ported yet (ROADMAP.md, queue 1, M8); the "
+                "cache container needs none")
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.grid_bound = grid_bound

@@ -104,8 +104,9 @@ class MLPField(nn.Module):
         super().__init__()
         if with_sam:
             raise NotImplementedError(
-                "with_sam (stage 2) is not ported yet (ROADMAP.md, queue 1, "
-                "M8)")
+                "with_sam (the feature containers of stage 2's distill "
+                "container) is not ported yet (ROADMAP.md, queue 1, M8); the "
+                "cache container needs none")
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.grid_bound = grid_bound

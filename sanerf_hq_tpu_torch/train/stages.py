@@ -1,7 +1,8 @@
-"""Stage-3 loops: object-field training with the error map, the mask
-renders and the mIoU evaluation (the JAX package's train/stages.py).
-Stage 2 (the SAM feature container) and decode are not ported yet
-(ROADMAP.md, queue 1, M8-M10).
+"""The stage loops over a stage-1 Trainer (the JAX package's
+train/stages.py): stage 2's feature cache (`store_sam_features`), the
+point-prompt decode (`decode`), and stage 3: object-field training with
+the error map, the mask renders and the mIoU evaluation.  The distill
+container of stage 2 is not ported yet (ROADMAP.md, queue 1, M8).
 
 The stage-3 renders use the live parameters (`trainer.model`), as the JAX
 stage functions render `trainer.state.params`: the mask step never updates
@@ -19,11 +20,113 @@ import torch
 from ..data.provider import Scene, resize_linear, resize_nearest
 from ..data.rays import full_frame_rays
 from ..data.sampler import fixed_fovy_intrinsics, sample_mask_batch
-from ..utils.overlays import overlay_mask
+from ..utils.overlays import overlay_mask, overlay_point
+from ..utils.points import PointPrompts, project_points_to_view
 from .metrics import MeanIoUMeter
 from .steps import make_eval_render, make_mask_train_step
 from .trainer import Trainer, _save_image
 
+
+DISTILL_NOT_PORTED = (
+    "--feature_container distill is not ported yet (ROADMAP.md, queue 1, "
+    "M8: the s_grid / cp_s_* feature containers and the distill step); "
+    "use --feature_container cache")
+
+
+def _view_intrinsics(scene: Scene, i: int):
+    return scene.intrinsics[i] if scene.intrinsics.ndim == 2 \
+        else scene.intrinsics
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: the SAM feature cache
+# ---------------------------------------------------------------------------
+
+def store_sam_features(trainer: Trainer, scene: Scene, sam_predictor,
+                       out_dir: Optional[str] = None):
+    """Render each of scene's views, encode the rendering with SAM's
+    image encoder and save the features [g, g, 256] (g = img_size / 16)
+    to sam_cache/{stem}.npy."""
+    out_dir = out_dir or os.path.join(trainer.workspace, "sam_cache")
+    os.makedirs(out_dir, exist_ok=True)
+    for i in range(scene.poses.shape[0]):
+        out = trainer.render_view(scene.poses[i], _view_intrinsics(scene, i),
+                                  scene.H, scene.W)
+        rgb = (np.clip(out["image"].reshape(scene.H, scene.W, 3), 0, 1)
+               * 255).astype(np.uint8)
+        feats = sam_predictor.set_image(rgb)  # [1, g, g, 256]
+        stem = os.path.splitext(str(scene.img_names[i]))[0]
+        np.save(os.path.join(out_dir, stem + ".npy"),
+                feats[0].cpu().numpy())
+        trainer.log(f"[SAM-cache] {stem} saved")
+    trainer.log(f"[INFO] stored SAM features to {out_dir}")
+
+
+# ---------------------------------------------------------------------------
+# Decode: 3-D point prompts -> per-view masks
+# ---------------------------------------------------------------------------
+
+def decode(trainer: Trainer, scene: Scene, sam_predictor,
+           prompts: PointPrompts, out_dir: Optional[str] = None,
+           feature_container: str = "cache", depth_tol: float = 0.05):
+    """Per view: render RGB and depth, read the cached features, project
+    the 3-D prompts with the depth gate, decode them with SAM and keep the
+    mask of the best IoU score.  Writes {stem}_rgb.png (the rendering with
+    the mask and points overlaid), {stem}_depth.npy, {stem}_obj_mask.npy
+    ([1, H, W] uint8) and valid_dict.json ({stem: 0 or 1}) to out_dir
+    (default <workspace>/object_masks)."""
+    import json
+
+    if feature_container != "cache":
+        raise NotImplementedError(DISTILL_NOT_PORTED)
+    out_dir = out_dir or os.path.join(trainer.workspace, "object_masks")
+    os.makedirs(out_dir, exist_ok=True)
+    valid_dict = {}
+    H, W = scene.H, scene.W
+    for i in range(scene.poses.shape[0]):
+        stem = os.path.splitext(str(scene.img_names[i]))[0]
+        intr = _view_intrinsics(scene, i)
+        out = trainer.render_view(scene.poses[i], intr, H, W)
+        rgb = out["image"].reshape(H, W, 3)
+        depth = out["depth"].reshape(H, W)
+        feats = np.load(os.path.join(trainer.workspace, "sam_cache",
+                                     stem + ".npy"))
+        if feats.ndim == 3 and feats.shape[0] == 256:
+            feats = feats.transpose(1, 2, 0)  # the legacy [256, h, w]
+        gate_info: dict = {}
+        coords, labels, _, is_valid = project_points_to_view(
+            prompts, scene.poses[i], np.asarray(intr), H, W,
+            pred_depth=depth, depth_tol=depth_tol, info=gate_info)
+        if coords is not None:
+            sam_predictor.set_features(feats, original_size=(H, W))
+            masks, scores, _ = sam_predictor.predict(
+                point_coords=sam_predictor.transform_coords(coords),
+                point_labels=labels, multimask_output=True)
+            pred_mask = masks[int(np.argmax(scores))]
+            vis = overlay_point(overlay_mask(rgb, pred_mask), coords,
+                                inputs_point_labels=labels)
+        else:
+            pred_mask = np.zeros((H, W), bool)
+            vis = rgb
+            is_valid = False
+        _save_image(os.path.join(out_dir, f"{stem}_rgb.png"), vis)
+        np.save(os.path.join(out_dir, f"{stem}_depth.npy"), depth)
+        np.save(os.path.join(out_dir, f"{stem}_obj_mask.npy"),
+                pred_mask.astype(np.uint8)[None])
+        valid_dict[stem] = int(bool(is_valid))
+        err = gate_info.get("depth_err")
+        err_s = (f" gate|z-depth| min={err.min():.3f} max={err.max():.3f}"
+                 f" tol={depth_tol}" if err is not None and err.size else "")
+        trainer.log(f"[decode] {stem} valid={is_valid}{err_s}")
+    with open(os.path.join(out_dir, "valid_dict.json"), "w") as f:
+        json.dump(valid_dict, f, indent=2)
+    trainer.log(f"[INFO] decode outputs saved to {out_dir}")
+    return out_dir
+
+
+# ---------------------------------------------------------------------------
+# Stage 3: the object field
+# ---------------------------------------------------------------------------
 
 def train_mask(trainer: Trainer, scene: Scene, iters: Optional[int] = None):
     """Object-field training: `iters` mask steps (default cfg.iters) on

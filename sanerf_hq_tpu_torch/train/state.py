@@ -59,7 +59,9 @@ def partial_load(model, loaded: Dict[str, torch.Tensor]) -> Set[str]:
 class TrainState:
     """The field being trained, its optimizer, the step count and the EMA
     copy of the field (`ema_model`, which the stage-1 eval renders use).
-    `frozen` names parameters that are not trained."""
+    `frozen` names parameters that are not trained; with every parameter
+    frozen (stage 2's cache and the decode, over a stage-1 field) there is
+    no optimizer."""
 
     def __init__(self, model, base_lr: float, total_iters: int,
                  lr_scales: Optional[Dict[str, float]] = None,
@@ -80,7 +82,7 @@ class TrainState:
             groups.setdefault(scales.get(name, 1.0), []).append(p)
         self.optimizer = torch.optim.Adam(
             [{"params": ps, "scale": sc} for sc, ps in groups.items()],
-            lr=base_lr, betas=(0.9, 0.999), eps=1e-15)
+            lr=base_lr, betas=(0.9, 0.999), eps=1e-15) if groups else None
         self.ema_model = copy.deepcopy(model).requires_grad_(False)
 
     def lr(self, step: Optional[int] = None) -> float:
@@ -106,7 +108,8 @@ class TrainState:
 
     def state_dict(self) -> dict:
         return {"step": self.step, "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+                "optimizer": (self.optimizer.state_dict()
+                              if self.optimizer is not None else {}),
                 "ema": self.ema_model.state_dict(),
                 "ema_updates": self.ema_updates}
 
@@ -114,7 +117,7 @@ class TrainState:
         """weights_only skips Adam's state: a checkpoint written under
         another freeze set (a stage-3 field resumed for --test without its
         init checkpoint), whose optimizer load raises ValueError."""
-        if not weights_only:
+        if not weights_only and self.optimizer is not None:
             self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
         self.model.load_state_dict(state["model"])

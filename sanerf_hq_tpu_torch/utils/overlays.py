@@ -1,4 +1,5 @@
-"""Mask overlay for the stage-3 result images."""
+"""Mask and point overlays for the stage-3 results and the decode's
+{stem}_rgb.png."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,4 +12,19 @@ def overlay_mask(image: np.ndarray, mask: np.ndarray,
     m = np.asarray(mask).astype(bool)
     out = image.copy()
     out[m] = (1 - alpha) * image[m] + alpha * np.asarray(color)
+    return out
+
+
+def overlay_point(image: np.ndarray, coords: np.ndarray, radius: int = 4,
+                  inputs_point_labels=None):
+    """coords [N, 2] (x, y): a (2 radius + 1)-pixel square at each, green
+    for a positive point, red for a negative one."""
+    out = image.copy()
+    H, W = image.shape[:2]
+    for i, (x, y) in enumerate(np.asarray(coords)):
+        pos = inputs_point_labels is None or inputs_point_labels[i] == 1
+        color = (0.0, 1.0, 0.0) if pos else (1.0, 0.0, 0.0)
+        y0, y1 = max(0, y - radius), min(H, y + radius + 1)
+        x0, x1 = max(0, x - radius), min(W, x + radius + 1)
+        out[y0:y1, x0:x1] = color
     return out
