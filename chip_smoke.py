@@ -20,7 +20,8 @@ last line:
        s-bins; K3 (final level, CP-64) rel-max < 2e-2 on f_image, depth,
        weights_sum and weights; K6 (K3 with the per-sample trunk features)
        rel-max < 2e-2 on those four and geo, the four bitwise equal to
-       K3's; K5 and K6 also timed at a 6256-ray stage-3 batch; K3's parts
+       K3's, and K6 with need_geo=False (the distill container's form, no
+       trunk features) the same against its twin and K3; K5 and K6 also timed at a 6256-ray stage-3 batch; K3's parts
        on the chunk, each beside its plain part and its bound: the trunk's
        input (h_in rel-max < 2e-2), the four layer products (rel-max < 2e-2,
        the fp32 last layer < 1e-4; torch's bf16 matmul of the same
@@ -173,7 +174,8 @@ last line:
      written here; SAM vit_h at 1024^2 with random weights from --seed;
      counts set to 0 just before and read just after each CLI run:
      1. stage 2 (--with_sam --feature_container cache): K10 twice a chunk
-        of every view, K1-K9 never; sam_cache/ with one [64, 64, 256]
+        of every view, K1-K9 never; the backbone frozen and only the SAM
+        branch (built with --with_sam) trainable; sam_cache/ with one [64, 64, 256]
         float32 file a view; the seconds a view, the peak device memory;
      2. the decode (--test --decode --use_point): K10 the same;
         {stem}_obj_mask.npy [1, 512, 512] uint8 and {stem}_rgb.png a view,
@@ -188,6 +190,38 @@ last line:
         outputs) and the low-res logits and IoU of a 5-point decode on
         those features, rel-max < SAM_CPU_TOL (1e-3);
      then one JSON line {"sam_path": {...}} with these numbers.
+ 13. stage 2's distill container (run after 12, before 10's traces): SAM
+     vit_h at 1024^2 with random weights from --seed; counts set to 0 just
+     before and read just after each CLI run, each held to the count
+     reckoned from the code (printed beside it):
+     1. the MLP field: --field_type mlp --cp_rank 64 --with_sam
+        --feature_container distill --sam_use_view_direction --init_ckpt
+        <phase-5 workspace> on the phase-4 scene, --online_resolution 512,
+        --iters 24 --cache_size 8 --cache_interval 4 (cut from 5000 steps
+        and a ring of 256: the ring fills in 8 encode steps, then serves
+        16 steps, 4 of which encode): K5 twice and K6 once a step and a
+        64^2 feature render, K5 twice and K3 once a chunk of every 512^2
+        ground-truth and eval render, K1-K4, K7, K8, K10 never;
+     2. the hash-grid field: the flags of scripts/train_sam_nerf.sh, read
+        out of the script, distill in place of cache, over phase 11's
+        stage-1 workspace and COLMAP scene, --downscale 4 and the same
+        cuts: K10 twice a chunk of every render and twice a step, K1-K9
+        never;
+     for each: the backbone bitwise equal to the init checkpoint, only
+     SAM-branch tensors moved, [EVAL stage-2] MSE, the peak device memory;
+     the step rate on a ring batch (host clock around synchronised steps),
+     a ring step and an encode step (CUDA events), the stage-2 eval's
+     seconds a view; the card against the CPU on one distill step over
+     32 x 32 low-res rays with the same weights, the CPU handed the card's
+     K10 bins (hash-grid) or K5 bins and K6 outputs (MLP): loss and samvit
+     max abs <= 1e-3, the SAM branch's grads rel-max <= 1e-3; for the MLP
+     field the frozen route against the composable route (loss 2e-2,
+     samvit 3e-2, grads 6e-2; K8 twice on the composable route);
+     3. the decode for each field: --test --decode --use_point
+        --feature_container distill --val_type val_all with phase 12's
+        point file: {stem}_obj_mask.npy [1, 512, 512] uint8 for each of
+        the 17 views and valid_dict.json, launches as reckoned;
+     then one JSON line {"distill_path": {...}}.
  10. the device-only torch.profiler traces of phases 5, 7, 8, 9 and 11,
      taken after every rate, since a trace slows the host's later steps;
      one JSON line with every kernel's numbers (K10's launches those of
@@ -216,6 +250,7 @@ from sanerf_hq_tpu_torch.data.provider import (load_scene, resize_nearest,
                                                split_indices)
 from sanerf_hq_tpu_torch.data.rays import full_frame_rays
 from sanerf_hq_tpu_torch.data.sampler import (fixed_fovy_intrinsics,
+                                              sam_aug_intrinsics,
                                               sample_mask_batch,
                                               sample_rgb_batch)
 from sanerf_hq_tpu_torch.data.synthetic import (look_at_pose,
@@ -224,7 +259,8 @@ from sanerf_hq_tpu_torch.data.synthetic import (look_at_pose,
                                                 write_sphere_masks,
                                                 write_sphere_points)
 from sanerf_hq_tpu_torch.models import SANeRFField, make_field, mlp_field
-from sanerf_hq_tpu_torch.models.fields import lightweight_mask_grid_spec
+from sanerf_hq_tpu_torch.models.fields import (feature_grid_spec,
+                                               lightweight_mask_grid_spec)
 from sanerf_hq_tpu_torch.ops import cuda_lib, fused_mlp
 from sanerf_hq_tpu_torch.ops import ray as ray_ops
 from sanerf_hq_tpu_torch.ops import render_level as rl
@@ -240,10 +276,13 @@ from sanerf_hq_tpu_torch.ops.sample_pdf import (sample_pdf_lookup,
 from sanerf_hq_tpu_torch.ops.sh import sh_encode
 from sanerf_hq_tpu_torch.render.renderer import RenderSettings, render_rays
 from sanerf_hq_tpu_torch.sam import SamPredictor, build_sam
+from sanerf_hq_tpu_torch.train import stages
 from sanerf_hq_tpu_torch.train.checkpoints import CheckpointManager
 from sanerf_hq_tpu_torch.train.steps import (_grid_regularizers,
                                              make_mask_train_step,
-                                             make_rgb_train_step, mask_losses)
+                                             make_rgb_train_step,
+                                             make_sam_distill_step,
+                                             mask_losses)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "sanerf_hq_tpu_torch/csrc/render_level.cu"
@@ -608,6 +647,28 @@ def check_frozen_kernel(field, call, args3, k3_out):
     ms_b = cuda_ms(lambda: rl.fused_final_level_frozen(*small, ws, **args3,
                                                        need_geo=True))
     bms_b, by_b = bound_at(MASK_BATCH, got_b)
+    # need_geo=False, the distill container's form (phase 13): K3's
+    # outputs, bit for bit, and no trunk features
+    got_n = rl.fused_final_level_frozen(*call, **args3, need_geo=False)
+    want_n = rl.final_level_frozen_ref(*call, **args3, need_geo=False)
+    torch.cuda.synchronize()
+    assert got_n[4] is None and want_n[4] is None
+    rels_n = {}
+    for name, a, b_, k3 in zip(("f_image", "depth", "weights_sum", "weights"),
+                               got_n, want_n, k3_out):
+        assert torch.equal(a, k3), f"K6 need_geo=False {name} differs from K3"
+        rels_n[name] = rel_max(a, b_)
+        assert rels_n[name] < 2e-2, (name, rels_n[name])
+    ms_n = cuda_ms(lambda: rl.fused_final_level_frozen(*call, **args3,
+                                                       need_geo=False))
+    plain_n = cuda_ms(lambda: rl.final_level_frozen_ref(*call, **args3,
+                                                        need_geo=False))
+    bms_n, by_n = bound_at(N, got_n[:4])
+    print("[kernel] K6 need_geo=False: rel-max err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in rels_n.items()) + " (< 2e-2); f_image, "
+          f"depth, weights_sum, weights bitwise equal to K3's; {ms_n:.4f} ms "
+          f"at {N} rays, plain twin {plain_n:.4f} ms, bound {bms_n:.4f} ms "
+          f"({by_n})", flush=True)
     print("[kernel] K6 fused_final_level_frozen need_geo: rel-max err "
           + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
           + " (< 2e-2); f_image, depth, weights_sum, weights bitwise equal "
@@ -618,7 +679,12 @@ def check_frozen_kernel(field, call, args3, k3_out):
             "max_abs_err": abs_err, "rel_max_err": max(rels.values()),
             "equal_to_K3": True,
             "per_shape": {f"N{MASK_BATCH}": {"ms": ms_b, "bound_ms": bms_b,
-                                             "bound_by": by_b}}}
+                                             "bound_by": by_b},
+                          "need_geo_false": {
+                              "ms": ms_n, "plain_ms": plain_n,
+                              "bound_ms": bms_n, "bound_by": by_n,
+                              "rel_max_err": max(rels_n.values()),
+                              "equal_to_K3": True}}}
 
 
 def check_train_kernels(field):
@@ -2838,7 +2904,11 @@ def sam_path(work):
     torch.cuda.reset_peak_memory_stats()
     t2, dt2, launches = run_cli(argv2)
     peak2 = torch.cuda.max_memory_allocated() / 2 ** 30
-    assert t2.backbone_frozen and t2.state.optimizer is None
+    # the field's SAM branch is built with --with_sam (the distill
+    # container trains it) and nothing else is trainable
+    assert t2.backbone_frozen and all(
+        p.requires_grad == n_.startswith(SAM_BRANCH)
+        for n_, p in t2.model.named_parameters())
     assert t2.cfg.sam_model_type == "vit_h" and t2.cfg.with_sam
     assert launches["K10"] == 2 * per_view * n_views, launches
     for k in LEVEL_KERNELS + ("K8",):
@@ -2983,6 +3053,407 @@ def sam_path(work):
     assert worst < SAM_CPU_TOL, errs
     out["card_vs_cpu_rel_max"] = errs
     del sam, cpu, gp, cp_
+    torch.cuda.empty_cache()
+    return out
+
+
+DISTILL_STEPS = 24  # distill --iters, cut from the scripts' 5000
+# the ring cut from 256 to 8 (encoded every 4th step, as the scripts'), and
+# one checkpoint a run, not the 20 of --save_cnt (a step each at 24 steps)
+DISTILL_CUT = ("--cache_size", "8", "--cache_interval", "4", "--save_cnt",
+               "1")
+DISTILL_CPU_HW = 32  # the card-vs-CPU distill step: a 32 x 32 feature map
+SAM_BRANCH = ("cp_s_", "s_grid", "samvit_")
+
+
+def distill_encodes(iters, size, interval):
+    """The steps of a distill run that encode, as train_sam_distill counts
+    them: every step until the ring holds `size` batches, then every
+    `interval`-th."""
+    n = 0
+    for s_ in range(iters):
+        if not (size > 0 and n >= size and s_ % interval != 0):
+            n += 1
+    return n
+
+
+def distill_expected(field_kind, steps, encodes, n_val, R, n_dec, view):
+    """Launches reckoned from the code, for the distill CLI run (steps
+    distill steps, encodes ground-truth renders of an R x R frame, the
+    stage-2 eval of n_val views: an R x R RGB render and a 64^2 feature
+    render each) and for the decode (n_dec views: a view x view RGB
+    render and a 64^2 feature render each): the MLP field's steps and
+    feature renders take the frozen route (K5 twice, K6 once), its RGB
+    renders the inference route (K5 twice a chunk, K3 once); the hash-grid
+    field's every render K10 twice a chunk."""
+    per_r = -(-R * R // CHUNK)
+    per_view = -(-view * view // CHUNK)
+    feat = -(-64 * 64 // CHUNK)
+    run = {k: 0 for k in COUNTERS}
+    dec = dict(run)
+    if field_kind == "mlp":
+        run["K5"] = 2 * steps + 2 * per_r * encodes + 2 * n_val * (
+            per_r + feat)
+        run["K6"] = steps + n_val * feat
+        run["K3"] = per_r * (encodes + n_val)
+        dec.update(K5=2 * n_dec * (per_view + feat), K6=n_dec * feat,
+                   K3=n_dec * per_view)
+    else:
+        run["K10"] = 2 * steps + 2 * per_r * encodes + 2 * n_val * (
+            per_r + feat)
+        dec["K10"] = 2 * n_dec * (per_view + feat)
+    return run, dec
+
+
+def check_counts(tag, got, want):
+    print(f"[distill] {tag} launches read " + ", ".join(
+        f"{k} {got[k]}" for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7",
+                                  "K8", "K10"))
+          + "; reckoned " + ", ".join(
+              f"{k} {v}" for k, v in want.items() if v), flush=True)
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10"):
+        assert got[k] == want[k], (tag, k, got, want)
+
+
+def distill_cli(tag, field_kind, argv, init):
+    """A distill CLI run, its launches held to the reckoned counts, the
+    backbone to the init checkpoint's tensors `init`, and the stage-2 eval
+    line.  Returns (trainer, numbers, the training views, the held-out
+    views)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t, dt, launches = run_cli(argv)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg = t.cfg
+    assert t.backbone_frozen and t.state.step == DISTILL_STEPS
+    assert cfg.feature_container == "distill" and cfg.sam_use_view_direction
+    steps, ring = DISTILL_STEPS, (cfg.cache_size, cfg.cache_interval)
+    encodes = distill_encodes(steps, *ring)
+    scene = load_scene(cfg.path, cfg.data_type, cfg.downscale, cfg.scale,
+                       cfg.offset, cfg.enable_cam_center, cfg.bound)
+    val = cli._subset(scene, split_indices(scene.poses.shape[0],
+                                           cfg.test_split, cfg.val_type))
+    train = cli._subset(scene, split_indices(scene.poses.shape[0], "train"))
+    n_val = val.poses.shape[0]
+    want, _ = distill_expected(field_kind, steps, encodes, n_val,
+                               cfg.online_resolution, 0, scene.H)
+    check_counts(f"{tag} distill run", launches, want)
+    state = t.model.state_dict()
+    for name, p in init.items():
+        assert torch.equal(state[name].cpu(), p), f"backbone {name} moved"
+    ema = t.state.ema_model.state_dict()
+    moved = sorted(n_ for n_, p in t.model.named_parameters()
+                   if not torch.equal(p, ema[n_]))
+    assert moved and all(n_.startswith(SAM_BRANCH) for n_ in moved), moved
+    with open(os.path.join(cfg.workspace, "log_ngp.txt")) as f:
+        log = f.read()
+    assert "[EVAL stage-2] MSE = " in log, log[-2000:]
+    mse = float(log.split("[EVAL stage-2] MSE = ")[-1].split()[0])
+    hist = t.stats["distill"]
+    assert all(np.isfinite(v["loss"]) for _, v in hist), hist
+    print(f"[distill] {tag}: {' '.join(argv[1:])}: {steps} steps ({encodes} "
+          f"encodes of a {cfg.online_resolution}^2 render at vit_h, the "
+          f"rest from the ring), the stage-2 eval of {n_val} views in "
+          f"{dt:.2f} s; backbone: all {len(init)} tensors bitwise equal to "
+          f"the init checkpoint; moved {len(moved)} SAM-branch tensors; loss "
+          f"step {hist[0][0]} {hist[0][1]['loss']:.5f}, step {hist[-1][0]} "
+          f"{hist[-1][1]['loss']:.5f}; [EVAL stage-2] MSE {mse:.6f}; peak "
+          f"device memory {peak:.3f} GiB", flush=True)
+    res = {"cli_seconds": dt, "encodes": encodes, "launches": launches,
+           "eval_mse": mse, "peak_gib": peak, "loss_first": hist[0][1]["loss"],
+           "loss_last": hist[-1][1]["loss"]}
+    return t, res, train, val
+
+
+def distill_run(tag, field_kind, argv, dec_argv, init, sam, n_dec):
+    """One field through phase 13: the distill CLI run and its checks, the
+    rates, the card against the CPU, and the decode from rendered
+    features."""
+    t, res, train, val = distill_cli(tag, field_kind, argv, init)
+    cfg, n_val = t.cfg, val.poses.shape[0]
+    _, want_dec = distill_expected(field_kind, DISTILL_STEPS, res["encodes"],
+                                   n_val, cfg.online_resolution, n_dec,
+                                   val.H)
+
+    # the rates: a ring batch's step (host clock around synchronised
+    # steps, 20 after 3 warm-up), an encode step and a ring step (CUDA
+    # events), the stage-2 eval a view (host clock)
+    pred = SamPredictor(sam)
+    R = cfg.online_resolution
+    step = make_sam_distill_step(t.model, cfg,
+                                 frozen_backbone=t.backbone_frozen)
+    rae = stages.make_render_and_encode(t, sam, R, pred.img_size)
+    host = torch.Generator().manual_seed(5)
+    gen = torch.Generator(t.device).manual_seed(5)
+
+    def draw(feat_hw=64):
+        vi = int(torch.randint(train.poses.shape[0], (), generator=host))
+        return stages.distill_batch(t, train.poses[vi],
+                                    sam_aug_intrinsics(host, R), pred, rae,
+                                    feat_hw=feat_hw)
+
+    batch = draw()
+    for _ in range(3):
+        step(t.state, batch, gen)
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        m = step(t.state, batch, gen)
+    torch.cuda.synchronize()
+    sps = reps / (time.perf_counter() - t0)
+    assert np.isfinite(float(m["loss"]))
+    ring_ms = cuda_ms(lambda: step(t.state, batch, gen))
+    encode_ms = cuda_ms(lambda: step(t.state, draw(), gen), reps=3, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stages.evaluate_sam_features(t, val, pred)
+    torch.cuda.synchronize()
+    eval_s = (time.perf_counter() - t0) / n_val
+    # the uncut run's mix at --cache_interval 4: one encode in four steps
+    mix = 4 / (encode_ms + 3 * ring_ms) * 1e3
+    print(f"[distill] {tag}: {sps:.3f} steps/s on a ring batch ({1e3 / sps:.2f}"
+          f" ms a step, host clock, mean of {reps} after 3 warm-up); CUDA "
+          f"events: a ring step {ring_ms:.3f} ms, an encode step "
+          f"{encode_ms:.3f} ms (render, vit_h, the step); one encode in four "
+          f"steps: {mix:.3f} steps/s; the stage-2 eval {eval_s:.3f} s a view",
+          flush=True)
+    res.update(steps_per_s=sps, ring_step_ms=ring_ms, encode_step_ms=encode_ms,
+               steps_per_s_one_encode_in_four=mix, eval_s_a_view=eval_s)
+
+    res["card_vs_cpu"] = distill_card_vs_cpu(t, field_kind, draw(
+        DISTILL_CPU_HW), tag)
+    if field_kind == "mlp":
+        res["routes"] = distill_routes(t, batch)
+    del step, rae, pred
+    torch.cuda.empty_cache()
+
+    # the decode from the rendered features
+    t_dec, dt_dec, launches = run_cli(dec_argv)
+    assert t_dec.cfg.feature_container == "distill" and t_dec.resumed
+    assert t_dec.state.step == DISTILL_STEPS
+    check_counts(f"{tag} decode", launches, want_dec)
+    dec = os.path.join(t_dec.cfg.workspace, "object_masks")
+    with open(os.path.join(dec, "valid_dict.json")) as f:
+        valid = json.load(f)
+    assert len(valid) == n_dec, valid
+    for stem in valid:
+        m_ = np.load(os.path.join(dec, f"{stem}_obj_mask.npy"))
+        assert m_.shape == (1, VIEW, VIEW) and m_.dtype == np.uint8, m_.shape
+        assert read_png(os.path.join(dec, f"{stem}_rgb.png")).shape == (
+            VIEW, VIEW, 3)
+    print(f"[distill] {tag} decode: {' '.join(dec_argv[1:])}: {n_dec} views "
+          f"decoded from rendered features in {dt_dec:.2f} s "
+          f"({dt_dec / n_dec:.3f} s a view, the SAM build and the scene load "
+          f"included); valid {sum(valid.values())}/{n_dec}; "
+          "{stem}_obj_mask.npy [1, 512, 512] uint8 and valid_dict.json "
+          "written", flush=True)
+    res.update(decode_seconds=dt_dec, decode_s_a_view=dt_dec / n_dec,
+               decode_launches=launches, decode_valid=sum(valid.values()))
+    del t, t_dec
+    torch.cuda.empty_cache()
+    return res
+
+
+def distill_card_vs_cpu(t, field_kind, batch, tag):
+    """One distill step over DISTILL_CPU_HW^2 low-res rays (the map resized
+    to the encoder's 64 x 64 grid) on the card and on the CPU with the same
+    weights, the CPU handed the card's backbone values where the card's
+    kernels made them: K10's resampled bins on the hash-grid field, K5's
+    bins and K6's outputs on the MLP field's frozen route.  Bars: the loss
+    and samvit max abs <= 1e-3, the SAM branch's grads rel-max <= 1e-3."""
+    model, cfg = t.model, t.cfg
+    cpu = make_field(field_kind if field_kind == "mlp" else cfg.field_type,
+                     device="cpu", grid_bound=cfg.grid_bound,
+                     cp_rank=cfg.cp_rank, cp_res=cfg.cp_res,
+                     density_bias=cfg.density_bias, feat_rep=cfg.feat_rep,
+                     feat_rank=cfg.feat_rank, feat_res=cfg.feat_res,
+                     with_sam=True,
+                     sam_use_view_direction=cfg.sam_use_view_direction)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    names = [n_ for n_, _ in model.named_parameters()
+             if n_.startswith(SAM_BRANCH)]
+    recorded = []
+    kernel_methods = ("fused_prop_next_bins", "fused_final_render_frozen")
+
+    def run(m, d, replay):
+        step = make_sam_distill_step(m, cfg, feat_hw=DISTILL_CPU_HW,
+                                     frozen_backbone=t.backbone_frozen)
+        b = {k: v.to(d) for k, v in batch.items()}
+        if field_kind == "mlp":
+            for name in kernel_methods:
+                if replay:
+                    outs = iter([o for n_, o in recorded if n_ == name])
+                    setattr(m, name, lambda *a, outs=outs, **k: to_cpu(
+                        next(outs)))
+                else:
+                    def spy(*a, fn=getattr(m, name), name=name, **k):
+                        o = fn(*a, **k)
+                        recorded.append((name, o))
+                        return o
+                    setattr(m, name, spy)
+        else:
+            if replay:
+                it = iter([o for _, o in recorded])
+                ray_ops.sample_pdf_lookup = lambda *a: next(it).cpu()
+            else:
+                def record(*a):
+                    o = sample_pdf_lookup(*a)
+                    recorded.append(("K10", o))
+                    return o
+                ray_ops.sample_pdf_lookup = record
+        try:
+            loss, _, out = step.loss_fn(b)
+        finally:
+            ray_ops.sample_pdf_lookup = sample_pdf_lookup
+            for name in kernel_methods:
+                m.__dict__.pop(name, None)
+        params = dict(m.named_parameters())
+        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        return (loss.item(), out["samvit"].detach().cpu(),
+                [g_.cpu() for g_ in grads])
+
+    card = run(model, t.device, False)
+    handed = run(cpu, "cpu", True)
+    loss_err = abs(card[0] - handed[0])
+    out_err = (card[1] - handed[1]).abs().max().item()
+    g_rel = {k: rel_max(a, b_) for k, a, b_ in zip(names, card[2],
+                                                   handed[2])}
+    what = ("K5's bins and K6's outputs" if field_kind == "mlp"
+            else "K10's bins")
+    print(f"[distill] {tag} card vs CPU, one step over "
+          f"{DISTILL_CPU_HW}x{DISTILL_CPU_HW} low-res rays, the CPU handed "
+          f"{what}: loss {card[0]:.6f} vs {handed[0]:.6f} (diff "
+          f"{loss_err:.2e} <= 1e-3), samvit max abs {out_err:.2e} (<= 1e-3); "
+          f"grads rel-max worst {max(g_rel.values()):.2e} (<= 1e-3): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in g_rel.items()), flush=True)
+    assert loss_err <= 1e-3 and out_err <= 1e-3, (loss_err, out_err)
+    assert max(g_rel.values()) <= 1e-3, g_rel
+    return {"loss_diff": loss_err, "samvit_max_abs": out_err,
+            "grad_rel_max": g_rel}
+
+
+def to_cpu(o):
+    """A tensor, or a tuple of tensors and None, on the CPU."""
+    if isinstance(o, tuple):
+        return tuple(x.cpu() if torch.is_tensor(x) else x for x in o)
+    return o.cpu()
+
+
+def distill_routes(t, batch):
+    """The MLP field's distill step on the frozen route (K5, K6) against
+    the composable route (K8 twice), at the JAX package's bars for its two
+    routes: loss 2e-2, samvit 3e-2, the SAM branch's grads rel-max
+    6e-2."""
+    names = [n_ for n_, _ in t.model.named_parameters()
+             if n_.startswith(SAM_BRANCH)]
+    params = dict(t.model.named_parameters())
+    res, k8 = {}, {}
+    for frozen in (True, False):
+        reset_counts()
+        loss, _, out = make_sam_distill_step(
+            t.model, t.cfg, frozen_backbone=frozen).loss_fn(batch)
+        k8[frozen] = read_counts()["K8"]
+        res[frozen] = (loss.item(), out["samvit"].detach(),
+                       torch.autograd.grad(loss, [params[k] for k in names]))
+    d_loss = abs(res[True][0] - res[False][0])
+    d_out = (res[True][1] - res[False][1]).abs().max().item()
+    g_rel = max(rel_max(a, b_) for a, b_ in zip(res[True][2],
+                                                res[False][2]))
+    print(f"[distill] mlp frozen vs composable route, one 64x64 step: loss "
+          f"{res[True][0]:.6f} vs {res[False][0]:.6f} (diff {d_loss:.2e} < "
+          f"2e-2), samvit max abs {d_out:.2e} (< 3e-2), SAM-branch grads "
+          f"worst rel-max {g_rel:.2e} (< 6e-2); K8 launches {k8[True]} and "
+          f"{k8[False]}", flush=True)
+    assert d_loss < 2e-2 and d_out < 3e-2 and g_rel < 6e-2
+    assert k8 == {True: 0, False: 2}, k8
+    return {"loss_diff": d_loss, "samvit_max_abs": d_out,
+            "grad_rel_max": g_rel}
+
+
+def distill_path(work):
+    """Phase 13: stage 2's distill container through the CLI for each field
+    (the MLP field over the phase-5 workspace on the phase-4 scene; the
+    hash-grid field with the flags of scripts/train_sam_nerf.sh, distill in
+    place of cache, over phase 11's stage-1 workspace and COLMAP scene),
+    then the decode from rendered features with phase 12's point file."""
+    t0 = time.perf_counter()
+    sam = build_sam("vit_h", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[distill] vit_h built in {time.perf_counter() - t0:.2f} s (for "
+          "the rates and the card-vs-CPU batches; each CLI run builds its "
+          "own)", flush=True)
+    root = os.path.join(work, "scripts")
+    point_file = os.path.join(root, "example_points.json")  # phase 12's
+    out = {"steps": DISTILL_STEPS, "cut": list(DISTILL_CUT),
+           "online_resolution": VIEW}
+
+    # 1. the MLP field over the phase-5 workspace
+    scene = os.path.join(work, "scene")
+    init_ws = os.path.join(work, "train_ws")
+    ws = os.path.join(work, "distill_ws")
+    common = [scene, "--field_type", "mlp", "--data_type", "llff",
+              "--workspace", ws, "--seed", "0", "--cp_rank", "64",
+              "--with_sam", "--feature_container", "distill",
+              "--sam_use_view_direction", "--init_ckpt", init_ws]
+    argv = common + ["--online_resolution", str(VIEW), "--iters",
+                     str(DISTILL_STEPS), *DISTILL_CUT]
+    dec_argv = common + ["--test", "--decode", "--use_point",
+                         "--point_file", point_file, "--val_type",
+                         "val_all"]
+    out["mlp"] = distill_run("mlp", "mlp", argv, dec_argv,
+                             latest_model(init_ws), sam, 17)
+
+    # 2. the hash-grid field: scripts/train_sam_nerf.sh, distill for cache
+    env = {"SANERFHQ_DATA_PATH": os.path.join(root, "scene"),
+           "SANERFHQ_WORKSPACE_ROOT": os.path.join(root, "ws"),
+           "SANERFHQ_SCENE": "sphere",
+           "SANERFHQ_INIT_CKPT": os.path.join(root, "ws", "rgb_nerf",
+                                              "sphere")}
+    ws = os.path.join(root, "ws", "distill_nerf", "sphere")
+
+    def distill_flags(argv_):
+        argv_ = list(argv_)
+        argv_[argv_.index("--feature_container") + 1] = "distill"
+        argv_[argv_.index("--workspace") + 1] = ws
+        return argv_ + ["--downscale", str(SCRIPTS_DS)]
+
+    argv = distill_flags(script_argv("train_sam_nerf.sh", env)) + [
+        "--iters", str(DISTILL_STEPS), *DISTILL_CUT]
+    dec_argv = distill_flags(script_argv("decode.sh", env))
+    dec_argv[dec_argv.index("--point_file") + 1] = point_file
+    out["hashgrid"] = distill_run("hashgrid", "hashgrid", argv, dec_argv,
+                                  latest_model(env["SANERFHQ_INIT_CKPT"]),
+                                  sam, 17)
+    del sam
+
+    # 4. the MLP field's --feat_rep hashgrid (s_grid for the CP volume) and
+    # the packed hash-grid field (over phase 11's 5-step packed stage 1)
+    ws_p1 = os.path.join(root, "ws", "rgb_packed")
+    spec = feature_grid_spec()
+    out["variants"] = {}
+    for tag, kind, extra, init_ws, spec_v in (
+            ("mlp --feat_rep hashgrid", "mlp",
+             common[1:] + ["--feat_rep", "hashgrid", "--online_resolution",
+                           str(VIEW)], os.path.join(work, "train_ws"), spec),
+            ("hashgrid_packed", "hashgrid",
+             argv[1:] + ["--field_type", "hashgrid_packed", "--init_ckpt",
+                         ws_p1], ws_p1,
+             dataclasses.replace(spec, packed=True))):
+        path = scene if kind == "mlp" else env["SANERFHQ_DATA_PATH"]
+        ws_v = os.path.join(work, "distill_" + tag.split()[-1])
+        argv_v = [path] + extra + ["--workspace", ws_v, "--iters",
+                                   str(DISTILL_STEPS), *DISTILL_CUT]
+        t, res, _, _ = distill_cli(tag, kind, argv_v, latest_model(init_ws))
+        # the published s_grid: 5,258,512 rows of 8, packed 64 wide
+        assert t.model.s_spec == spec_v, t.model.s_spec
+        assert tuple(t.model.s_grid.shape) == (spec_v.total_params,
+                                               spec_v.row_dim)
+        print(f"[distill] {tag}: s_grid {tuple(t.model.s_grid.shape)}",
+              flush=True)
+        out["variants"][tag] = res
+        del t
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return out
 
@@ -3203,6 +3674,8 @@ def main(argv):
     scripts = scripts_path(work)
     sam = sam_path(work)
     print(json.dumps({"sam_path": sam}), flush=True)
+    distill = distill_path(work)
+    print(json.dumps({"distill_path": distill}), flush=True)
     # the device-time breakdowns of phases 5, 7, 8 and 9, traced after
     # every rate: a torch.profiler trace slows the host's later steps
     print("[train] the stage-1 step's device time by kernel (phase 5's "

@@ -28,13 +28,20 @@ encoder and saves `<workspace>/sam_cache/{stem}.npy`; `--test --decode
 3-D prompts with the depth gate, decodes them from the cached features and
 writes `<workspace>/object_masks/` (`{stem}_rgb.png`, `_depth.npy`,
 `_obj_mask.npy`, `valid_dict.json`), which `--mask_root` reads in stage 3.
-`--init_ckpt` hands the stage-1 field to both.  `--feature_container
-distill` is not ported yet and exits with an error.
+`--init_ckpt` hands the stage-1 field to both.  `--with_sam
+--feature_container distill` trains the field's SAM branch instead (the
+CP volume `cp_s_*` or the table `s_grid`, then `samvit_mlp`; the backbone
+frozen) for `--iters` steps on random training views at
+`--online_resolution` (a ring of `--cache_size` encoded batches, the
+encoder every `--cache_interval` steps once it is full), then prints the
+rendered features' MSE (`[EVAL stage-2]`); `--test --decode
+--feature_container distill` decodes from the rendered features, and
+`--test --return_extra --with_sam` writes `results/{stem}_sam.npy`.
 
 The flags are the JAX CLI's that these paths read, plus `--device`;
-`--fp16`, `--preload`, `--return_extra` and `--mixed_sampling` are parsed
-only (the reference forces fp16 off and preload on after parsing, and
-overrides --bound to 128 and --contract on).
+`--fp16`, `--preload` and `--mixed_sampling` are parsed only (the
+reference forces fp16 off and preload on after parsing, and overrides
+--bound to 128 and --contract on).
 `--ckpt latest` (the default) resumes the newest checkpoint in
 `<workspace>/checkpoints`; `--ckpt` also takes an `.npz` of JAX parameters
 (models/convert.py).  Otherwise the field is initialised from `--seed`
@@ -133,15 +140,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a released SAM / HQ-SAM checkpoint; without the "
                         "file SAM gets random weights from --seed")
     p.add_argument("--feature_container", type=str, default="cache",
-                   choices=["cache", "distill"],
-                   help="cache (distill is not ported yet)")
+                   choices=["cache", "distill"])
     p.add_argument("--sam_use_view_direction", action="store_true",
-                   help="parsed only: acts in the distill container, not "
-                        "ported yet")
+                   help="the SAM MLP reads the composited view-dependent "
+                        "features (the distill container)")
     p.add_argument("--cache_size", type=int, default=256,
-                   help="parsed only: acts in the distill container")
+                   help="the distill container's ring of encoded batches "
+                        "(0: encode every step)")
     p.add_argument("--cache_interval", type=int, default=4,
-                   help="parsed only: acts in the distill container")
+                   help="once the ring is full, encode every this many "
+                        "steps")
+    p.add_argument("--on_device_sam", action="store_true", default=None,
+                   dest="on_device_sam",
+                   help="the distill container's ground truth rendered and "
+                        "encoded on the device, the frame rounded to uint8 "
+                        "levels and resized in float.  Default: on when "
+                        "the device is CUDA (JAX: on its accelerator), off "
+                        "on the CPU")
+    p.add_argument("--no_on_device_sam", action="store_false",
+                   dest="on_device_sam",
+                   help="the ground truth through the host's uint8 image "
+                        "(truncated) and OpenCV's uint8 resize, as the "
+                        "reference")
     p.add_argument("--decode", action="store_true")
     p.add_argument("--point_file", type=str, default=None)
     p.add_argument("--use_point", action="store_true")
@@ -167,12 +187,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--error_map", action="store_true")
     p.add_argument("--error_map_size", type=int, default=128)
     p.add_argument("--use_default_intrinsics", action="store_true")
+    p.add_argument("--use_default_focal_length", action="store_true",
+                   help="stage-2 eval: the view's focal length at "
+                        "online_resolution instead of fovy 60")
     p.add_argument("--render_mask_type", type=str, default="heatmap",
                    choices=["mask", "composition", "heatmap"])
     p.add_argument("--render_mask_instance_id", type=int, default=0)
     p.add_argument("--return_extra", action="store_true",
-                   help="parsed only: acts with --with_sam on the distill "
-                        "container's features (not ported yet); --test "
+                   help="--test --with_sam: also write each view's rendered "
+                        "SAM features (results/{stem}_sam.npy); --test "
                         "--with_mask always writes the mask probabilities")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default cuda (cpu must be asked for)")
@@ -235,10 +258,6 @@ def main(argv=None):
     if cfg.with_mask and not cfg.mask_root and not cfg.test:
         raise SystemExit("error: --with_mask training requires --mask_root "
                          "(decode outputs directory)")
-    if cfg.with_sam and cfg.feature_container == "distill":
-        from .train.stages import DISTILL_NOT_PORTED
-
-        raise SystemExit("error: " + DISTILL_NOT_PORTED)
     device = resolve_device(cfg.device)
     # the view MLP, SSIM and any plain twin stay true fp32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -256,7 +275,8 @@ def main(argv=None):
                        with_mask=cfg.with_mask, n_inst=cfg.n_inst,
                        mask_mlp_type=cfg.mask_mlp_type,
                        feat_rep=cfg.feat_rep, feat_rank=cfg.feat_rank,
-                       feat_res=cfg.feat_res)
+                       feat_res=cfg.feat_res, with_sam=cfg.with_sam,
+                       sam_use_view_direction=cfg.sam_use_view_direction)
     scene = load_scene(cfg.path, cfg.data_type, cfg.downscale, cfg.scale,
                        cfg.offset, cfg.enable_cam_center, cfg.bound)
     test_view_names = None
@@ -317,7 +337,8 @@ def main(argv=None):
                 save_dir=os.path.join(cfg.workspace, "results"),
                 render_mask_type=cfg.render_mask_type)
         else:
-            trainer.test(val_scene)
+            trainer.test(val_scene, extra="sam" if cfg.return_extra
+                         and cfg.with_sam else None)
         return trainer
     train_idx = split_indices(n, cfg.train_split, cfg.val_type,
                               test_view_names, scene.img_names)
@@ -325,8 +346,15 @@ def main(argv=None):
         # stage 3 trains on the views with a valid mask only
         train_idx = train_idx[np.isin(train_idx, mask_valid_idx)]
     train_scene = _subset(scene, train_idx)
-    if cfg.with_sam:
+    if cfg.with_sam and cfg.feature_container == "cache":
         stages.store_sam_features(trainer, val_scene, sam_predictor)
+        return trainer
+    if cfg.with_sam:
+        on_device = (device.type == "cuda" if cfg.on_device_sam is None
+                     else cfg.on_device_sam)
+        stages.train_sam_distill(trainer, train_scene, sam_predictor,
+                                 on_device=on_device)
+        stages.evaluate_sam_features(trainer, val_scene, sam_predictor)
         return trainer
     if cfg.with_mask:
         stages.train_mask(trainer, train_scene)

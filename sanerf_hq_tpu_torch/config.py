@@ -1,10 +1,11 @@
 """Static configuration: the `Config` fields the stage-1, stage-2 (the
-feature cache), decode and stage-3 paths read.
+feature cache and the distill container), decode and stage-3 paths read.
 
 A copy of the matching fields of the JAX package's `Config` (defaults
 unchanged, including the post-parse hard overrides bound=128,
 contract=True and adaptive_num_rays=True, which `cli.config_from_args`
-applies with fp16=False and preload=True), plus `device`.
+applies with fp16=False and preload=True), plus `device` and
+`on_device_sam` (a CLI flag the JAX package keeps outside its Config).
 """
 from __future__ import annotations
 
@@ -31,11 +32,18 @@ class Config:
     # a released checkpoint; without the file SAM gets random weights from
     # --seed
     sam_ckpt: str = "./pretrained/sam_vit_h_4b8939.pth"
-    feature_container: str = "cache"  # cache | distill (not ported yet)
-    # parsed only: they act in the distill container alone
+    feature_container: str = "cache"  # cache | distill
+    # the distill container: the SAM MLP reads the composited view-
+    # dependent features; a ring of cache_size encoded batches, the encoder
+    # run every cache_interval steps once it is full (0: every step)
     sam_use_view_direction: bool = False
     cache_size: int = 256
     cache_interval: int = 4
+    # the distill container's ground truth: render and encode in one
+    # device program (round(rgb * 255), the float bilinear resize) or
+    # through the host's uint8 image (truncation, OpenCV's uint8 resize);
+    # None: on when the device is CUDA
+    on_device_sam: Optional[bool] = None
     # decode: --test --decode --use_point --point_file <json>
     decode: bool = False
     use_point: bool = False
@@ -120,11 +128,14 @@ class Config:
     error_map: bool = False
     error_map_size: int = 128
     use_default_intrinsics: bool = False
+    # stage-2 eval camera: the view's own focal length at
+    # online_resolution instead of fovy 60
+    use_default_focal_length: bool = False
     render_mask_type: str = "heatmap"  # mask | composition | heatmap
     render_mask_instance_id: int = 0
-    # parsed only: in JAX it acts with --with_sam alone, on the distill
-    # container's rendered features (not ported yet); --test --with_mask
-    # always writes the mask probabilities
+    # with --with_sam, --test also writes each view's rendered SAM features
+    # ({stem}_sam.npy); --test --with_mask always writes the mask
+    # probabilities
     return_extra: bool = False
 
     # port: where tensors live ("cuda" unless the caller asks for "cpu")

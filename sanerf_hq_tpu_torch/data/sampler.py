@@ -1,7 +1,8 @@
 """Ray batches, drawn on the device from the preloaded views with an
 explicit torch.Generator (on the tensors' device): the stage-1 RGB batch
 and the stage-3 mask batch (error-map-guided global rays plus local
-patches)."""
+patches); and the cameras: stage 2's distill camera of random field of
+view and the fixed fovy-60 camera of stages 2 and 3."""
 from __future__ import annotations
 
 from typing import Optional
@@ -138,3 +139,22 @@ def fixed_fovy_intrinsics(resolution: int, fovy_deg: float = 60.0):
     focal = resolution / (2.0 * np.tan(0.5 * np.deg2rad(fovy_deg)))
     return np.array([focal, focal, resolution / 2, resolution / 2],
                     np.float32)
+
+
+def fovy_intrinsics(fovy, resolution: int) -> torch.Tensor:
+    """[fx, fy, cx, cy] float32 of a square resolution x resolution camera
+    of vertical field of view fovy (degrees; a float or a 0-d tensor),
+    computed in float32 as the JAX sampler computes it."""
+    fovy = torch.as_tensor(fovy, dtype=torch.float32)
+    focal = resolution / (2.0 * torch.tan(0.5 * fovy * (np.pi / 180.0)))
+    half = torch.full((), resolution / 2.0)
+    return torch.stack([focal, focal, half, half])
+
+
+def sam_aug_intrinsics(generator: Optional[torch.Generator],
+                       online_resolution: int) -> torch.Tensor:
+    """Stage 2's distill camera: fovy drawn uniformly in [50, 70) degrees
+    (JAX data/sampler.py:140-146) from a CPU generator, at
+    online_resolution.  Returns [fx, fy, cx, cy] on the CPU."""
+    fovy = 50.0 + 20.0 * torch.rand((), generator=generator)
+    return fovy_intrinsics(fovy, online_resolution)

@@ -20,13 +20,16 @@ _RULES = (
     (re.compile(r"(trunk|prop_mlp_[01])/(w\d+)"), r"\1.\2", True),
     (re.compile(r"(cp_[xyz])"), r"\1", False),
     # the hash tables [rows, row_dim] keep their layout: the hash-grid
-    # field's, and the object field's m_grid (either field)
-    (re.compile(r"(grid|prop_grid_[01]|m_grid)"), r"\1", False),
-    (re.compile(r"(view_mlp|mask_mlp|grid_mlp|prop_mlp_[01])/Dense_(\d+)"
-                r"/kernel"), r"\1.layers.\2.weight", True),
-    (re.compile(r"mask_mlp/Dense_(\d+)/bias"), r"mask_mlp.layers.\1.bias",
-     False),
-    (re.compile(r"(cp_m_[xyz]|cp_m_proj)"), r"\1", False),
+    # field's, and the feature containers m_grid / s_grid (either field)
+    (re.compile(r"(grid|prop_grid_[01]|m_grid|s_grid)"), r"\1", False),
+    (re.compile(r"(view_mlp|mask_mlp|grid_mlp|prop_mlp_[01]|samvit_mlp)"
+                r"/Dense_(\d+)/kernel"), r"\1.layers.\2.weight", True),
+    (re.compile(r"(mask_mlp|samvit_mlp)/Dense_(\d+)/bias"),
+     r"\1.layers.\2.bias", False),
+    (re.compile(r"(cp_[ms]_[xyz]|cp_[ms]_proj)"), r"\1", False),
+    # flax LayerNorm's scale is torch's weight
+    (re.compile(r"samvit_norm/scale"), "samvit_norm.weight", False),
+    (re.compile(r"samvit_norm/bias"), "samvit_norm.bias", False),
 )
 
 
@@ -56,11 +59,13 @@ def params_from_jax(tree: Mapping) -> dict:
     the hash-grid field's params/grid|prop_grid_0|prop_grid_1 and
     params/grid_mlp|prop_mlp_{0,1}/Dense_i/kernel (patterns match whole
     keys, so the two fields' `prop_mlp_*` forms never meet);
-    and the stage-3 mask branch: params/cp_m_x|cp_m_y|cp_m_z|cp_m_proj or
+    the stage-3 mask branch: params/cp_m_x|cp_m_y|cp_m_z|cp_m_proj or
     params/m_grid, params/mask_mlp/Dense_i/kernel (and bias where it
-    exists), of either mask MLP of either field.  Leaves of
-    the stage-2 heads (cp_s_*, samvit_*) are not carried; a strict
-    `load_state_dict` reports anything the field still lacks."""
+    exists), of either mask MLP of either field; and the stage-2 SAM
+    branch: params/cp_s_x|cp_s_y|cp_s_z|cp_s_proj or params/s_grid,
+    params/samvit_mlp/Dense_i/kernel and bias, params/samvit_norm/scale
+    and bias.  A strict `load_state_dict` reports anything the field
+    lacks."""
     flat = flatten(tree) if any(isinstance(v, Mapping) for v in tree.values()) \
         else dict(tree)
     state = {}

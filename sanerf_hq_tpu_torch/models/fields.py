@@ -19,13 +19,21 @@ Published widths (nerf/network.py of the reference):
     15 + 16 -> 64 x 3 -> n_inst on [features | colour].  They are drawn
     after the backbone, so a seed gives the same backbone with or without
     them.
+  - SAM feature field (stage 2's distill container, `with_sam`; drawn
+    after the object field): the table `s_grid` at `feature_grid_spec()`
+    (or `feat_spec`, packed when the field is) with samvit_mlp a
+    SkipConnMLP with biases, 256 x 5, skip at layer 2, on the composited
+    [features | geo_feat (| SH) | image | depth] (128 + 15 + 4 = 147
+    wide, 163 with `sam_use_view_direction`), then LayerNorm(256, eps
+    1e-5).
 The field has no level kernels, so the renderer takes its composable route
 (whose `sample_pdf` runs K10 on the card).  `packed` stores each grid
 cell's 8 corner rows in one table row (8x the memory).
 
 Parameter names follow the JAX field's flax tree: `grid`, `prop_grid_0`,
-`prop_grid_1`, `m_grid` (tables [rows, row_dim]), `grid_mlp`, `view_mlp`,
-`prop_mlp_0`, `prop_mlp_1`, `mask_mlp` (`MLP`s with [out, in] weights).
+`prop_grid_1`, `m_grid`, `s_grid` (tables [rows, row_dim]), `grid_mlp`,
+`view_mlp`, `prop_mlp_0`, `prop_mlp_1`, `mask_mlp` (`MLP`s with [out, in]
+weights), `samvit_mlp`, `samvit_norm`.
 """
 from __future__ import annotations
 
@@ -44,6 +52,20 @@ from .mlp import MLP, SkipConnMLP
 GEOM_FEAT_DIM = 15
 SH_DEGREE = 4
 SH_DIM = SH_DEGREE * SH_DEGREE
+SAM_OUTPUT_DIM = 256
+
+
+def make_samvit_head(channels: int, sam_use_view_direction: bool, device,
+                     generator):
+    """samvit_mlp and samvit_norm of either field.  The MLP reads the
+    composited [features (channels) | trunk features (15) (| SH (16)) |
+    image (3) | depth (1)]."""
+    in_dim = (channels + GEOM_FEAT_DIM
+              + (SH_DIM if sam_use_view_direction else 0) + 4)
+    mlp = SkipConnMLP(in_dim, SAM_OUTPUT_DIM, SAM_OUTPUT_DIM, 5,
+                      skip_layers=(2,), use_bias=True, device=device,
+                      generator=generator)
+    return mlp, nn.LayerNorm(SAM_OUTPUT_DIM, eps=1e-5, device=device)
 
 
 def main_grid_spec(grid_bound: float) -> HashGridSpec:
@@ -93,10 +115,12 @@ def mask_grid_spec(mask_mlp_type: str = "default",
 def active_reg_grid(model, stage: str):
     """The hash table that --lambda_tv / --lambda_wd regularise in a stage
     ('rgb' | 'sam' | 'mask'): (parameter name, spec), or None when the
-    model has none for it (the MLP field; a field without the stage's
-    table; stage 2's s_grid, not ported)."""
-    if not isinstance(model, SANeRFField) or stage == "sam":
+    model has none for it (the MLP field, whose m_grid / s_grid the JAX
+    dispatch leaves out too; a field without the stage's table)."""
+    if not isinstance(model, SANeRFField):
         return None
+    if stage == "sam":
+        return ("s_grid", model.s_spec) if model.with_sam else None
     if stage == "mask":
         return ("m_grid", model.m_spec) if model.with_mask else None
     return "grid", model.grid_spec
@@ -105,18 +129,13 @@ def active_reg_grid(model, stage: str):
 class SANeRFField(nn.Module):
     def __init__(self, grid_bound: float = 2.0, with_sam: bool = False,
                  with_mask: bool = False, mask_mlp_type: str = "default",
-                 n_inst: int = 2,
+                 n_inst: int = 2, sam_use_view_direction: bool = False,
                  main_spec: Optional[HashGridSpec] = None,
                  feat_spec: Optional[HashGridSpec] = None,
                  prop_spec_0: Optional[HashGridSpec] = None,
                  prop_spec_1: Optional[HashGridSpec] = None,
                  packed: bool = False, device=None, seed: int = 0):
         super().__init__()
-        if with_sam:
-            raise NotImplementedError(
-                "with_sam (the feature containers of stage 2's distill "
-                "container) is not ported yet (ROADMAP.md, queue 1, M8); the "
-                "cache container needs none")
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.grid_bound = grid_bound
@@ -155,6 +174,13 @@ class SANeRFField(nn.Module):
             else:
                 self.mask_mlp = MLP(C + GEOM_FEAT_DIM + SH_DIM, n_inst, 64, 3,
                                     device=device, generator=g)
+        self.with_sam = with_sam
+        self.sam_use_view_direction = sam_use_view_direction
+        if with_sam:
+            self.s_spec = pack(feat_spec or feature_grid_spec())
+            self.s_grid = nn.Parameter(init_hash_table(g, self.s_spec, device))
+            self.samvit_mlp, self.samvit_norm = make_samvit_head(
+                self.s_spec.output_dim, sam_use_view_direction, device, g)
 
     def common_forward(self, x):
         """x [..., 3] contracted coords in [-grid_bound, grid_bound] ->
@@ -189,6 +215,13 @@ class SANeRFField(nn.Module):
     def mask_features(self, x):
         """Contracted coords [..., 3] -> the m_grid encoding [..., C]."""
         return hash_encode(self.m_grid, x, self.m_spec, bound=self.grid_bound)
+
+    def sam_features(self, x):
+        """Contracted coords [..., 3] -> the s_grid encoding [..., C]."""
+        return hash_encode(self.s_grid, x, self.s_spec, bound=self.grid_bound)
+
+    def apply_samvit_mlp(self, f):
+        return self.samvit_norm(self.samvit_mlp(f))
 
     def apply_mask_mlp(self, m):
         return self.mask_mlp(m)

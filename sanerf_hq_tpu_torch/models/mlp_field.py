@@ -27,6 +27,18 @@ lightweight one.  `mask_features` reads it, and the mask MLP on
 logits.  Over a frozen backbone the level kernels (K5, K6) still render
 the backbone; only the mask features come from the CP volume or the
 table.
+
+The SAM feature branch (`with_sam`, stage 2's distill container): with
+feat_rep 'cp' the CP volume `cp_s_{x,y,z}` [feat_res, feat_rank] with
+`cp_s_proj` [feat_rank, C], with 'hashgrid' the table `s_grid`; C is the
+width of `feat_spec` or feature_grid_spec() (128).  `sam_features` reads
+it; `samvit_mlp` (a SkipConnMLP with biases, 256 x 5, the input
+concatenated back in at layer 2) and `samvit_norm` (LayerNorm, eps 1e-5)
+map the renderer's composited [features | trunk features | image | depth]
+(with `sam_use_view_direction`, [features | f_image | image | depth]) to
+SAM's 256 channels.  The MLP's input width is that composition's: C + 15
++ 4, or C + 31 + 4 with the view direction (the reference builds it at
+C + 35 either way, which crashes without the view direction).
 """
 from __future__ import annotations
 
@@ -44,7 +56,8 @@ from ..ops.render_level import (cp_features, final_level_train,
                                 prop_level_train, prop_level_train_sample)
 from ..ops.sh import sh_encode
 from ..ops.trunc_exp import safe_trunc_exp
-from .fields import SANeRFField, mask_grid_spec
+from .fields import (SANeRFField, feature_grid_spec, make_samvit_head,
+                     mask_grid_spec)
 from .mlp import MLP, SkipConnMLP, uniform_fan_in_
 
 GEOM_FEAT_DIM = 15
@@ -100,13 +113,10 @@ class MLPField(nn.Module):
                  feat_rep: str = "cp", feat_rank: int = 128,
                  feat_res: int = 256,
                  feat_spec: Optional[HashGridSpec] = None,
-                 with_sam: bool = False, device=None, seed: int = 0):
+                 with_sam: bool = False,
+                 sam_use_view_direction: bool = False, device=None,
+                 seed: int = 0):
         super().__init__()
-        if with_sam:
-            raise NotImplementedError(
-                "with_sam (the feature containers of stage 2's distill "
-                "container) is not ported yet (ROADMAP.md, queue 1, M8); the "
-                "cache container needs none")
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.grid_bound = grid_bound
@@ -134,21 +144,14 @@ class MLPField(nn.Module):
         self.mask_mlp_type = mask_mlp_type
         self.n_inst = n_inst
         self.feat_res = feat_res
+        self.feat_rank = feat_rank
         self.feat_rep = feat_rep
-        if with_mask:  # drawn last: the backbone's init does not depend on it
+        # the feature containers are drawn last, the mask branch's first:
+        # the backbone's init does not depend on them
+        if with_mask:
             self.m_spec = mask_grid_spec(mask_mlp_type, feat_spec)
             channels = self.m_spec.output_dim
-            if feat_rep == "cp":
-                for a in "xyz":
-                    basis = torch.randn((feat_res, feat_rank),
-                                        generator=g) * 0.3
-                    self.register_parameter(
-                        f"cp_m_{a}", nn.Parameter(basis.to(device)))
-                proj = torch.randn((feat_rank, channels), generator=g) * 0.1
-                self.cp_m_proj = nn.Parameter(proj.to(device))
-            else:
-                self.m_grid = nn.Parameter(
-                    init_hash_table(g, self.m_spec, device))
+            self._make_container("m", self.m_spec, device, g)
             if mask_mlp_type == "default":
                 self.mask_mlp = SkipConnMLP(channels + GEOM_FEAT_DIM, n_inst,
                                             256, 3, use_bias=False,
@@ -156,6 +159,32 @@ class MLPField(nn.Module):
             else:
                 self.mask_mlp = MLP(channels + GEOM_FEAT_DIM + SH_DIM, n_inst,
                                     64, 3, device=device, generator=g)
+        self.with_sam = with_sam
+        self.sam_use_view_direction = sam_use_view_direction
+        if with_sam:
+            self.s_spec = feat_spec or feature_grid_spec()
+            self._make_container("s", self.s_spec, device, g)
+            self.samvit_mlp, self.samvit_norm = make_samvit_head(
+                self.s_spec.output_dim, sam_use_view_direction, device, g)
+
+    def _make_container(self, tag: str, spec: HashGridSpec, device, g):
+        """The feature volume of a branch (tag 'm' or 's'): CP bases
+        cp_{tag}_{x,y,z} [feat_res, feat_rank] ~ N(0, 0.3^2) and the
+        projection cp_{tag}_proj [feat_rank, C] ~ N(0, 0.1^2), or the hash
+        table {tag}_grid at spec."""
+        if self.feat_rep == "cp":
+            for a in "xyz":
+                basis = torch.randn((self.feat_res, self.feat_rank),
+                                    generator=g) * 0.3
+                self.register_parameter(f"cp_{tag}_{a}",
+                                        nn.Parameter(basis.to(device)))
+            proj = torch.randn((self.feat_rank, spec.output_dim),
+                               generator=g) * 0.1
+            self.register_parameter(f"cp_{tag}_proj",
+                                    nn.Parameter(proj.to(device)))
+        else:
+            self.register_parameter(
+                f"{tag}_grid", nn.Parameter(init_hash_table(g, spec, device)))
 
     @property
     def cp_basis(self):
@@ -193,17 +222,17 @@ class MLPField(nn.Module):
     def apply_view_mlp(self, f_image):
         return self.view_mlp(f_image)
 
-    def mask_features(self, x):
-        """Contracted world coords [..., 3] -> [..., C] mask features: the
-        m_grid encoding (feat_rep 'hashgrid'), or the CP features: per axis
-        a two-hot linear-interpolation row over feat_res times the basis,
-        the product over axes, then the projection.  Written as the
-        JAX field writes it (mlp_field.py:194-213), one-hot matmuls: on the
-        H100 their backward beats a gather's, whose index_put adds every
-        point's grads into the same 3 x feat_res rows (chip_smoke.py times
-        both)."""
+    def _container_features(self, x, tag: str, spec: HashGridSpec):
+        """Contracted world coords [..., 3] -> [..., C] features of a
+        branch's volume: the {tag}_grid encoding (feat_rep 'hashgrid'), or
+        the CP features: per axis a two-hot linear-interpolation row over
+        feat_res times the basis cp_{tag}_{axis}, the product over axes,
+        then the projection.  Written as the JAX field writes it
+        (mlp_field.py:194-213), one-hot matmuls: on the H100 their backward
+        beats a gather's, whose index_put adds every point's grads into the
+        same 3 x feat_res rows (chip_smoke.py times both)."""
         if self.feat_rep == "hashgrid":
-            return hash_encode(self.m_grid, x, self.m_spec,
+            return hash_encode(getattr(self, f"{tag}_grid"), x, spec,
                                bound=self.grid_bound)
         S = self.feat_res
         p = ((self._norm(x) + 1.0) * 0.5).clamp(0.0, 1.0) * (S - 1)
@@ -212,13 +241,24 @@ class MLPField(nn.Module):
         i0 = i0.long()
         iota = torch.arange(S, device=x.device)
         g = None
-        for a, basis in enumerate((self.cp_m_x, self.cp_m_y, self.cp_m_z)):
+        for a, axis in enumerate("xyz"):
             ia, fa = i0[..., a, None], f[..., a, None]
             w = (torch.where(iota == ia, 1.0 - fa, 0.0)
                  + torch.where(iota == ia + 1, fa, 0.0))
-            la = w @ basis
+            la = w @ getattr(self, f"cp_{tag}_{axis}")
             g = la if g is None else g * la
-        return g @ self.cp_m_proj
+        return g @ getattr(self, f"cp_{tag}_proj")
+
+    def mask_features(self, x):
+        """[..., 3] -> [..., C] mask features (`_container_features`)."""
+        return self._container_features(x, "m", self.m_spec)
+
+    def sam_features(self, x):
+        """[..., 3] -> [..., C] SAM-branch features."""
+        return self._container_features(x, "s", self.s_spec)
+
+    def apply_samvit_mlp(self, f):
+        return self.samvit_norm(self.samvit_mlp(f))
 
     def apply_mask_mlp(self, m):
         return self.mask_mlp(m)
@@ -322,8 +362,8 @@ def make_field(field_type: str = "hashgrid", device=None, seed: int = 0,
     does not take are dropped, as the JAX factory does."""
     if field_type in ("hashgrid", "hashgrid_packed"):
         allowed = {"grid_bound", "with_sam", "with_mask", "mask_mlp_type",
-                   "n_inst", "main_spec", "feat_spec", "prop_spec_0",
-                   "prop_spec_1", "packed"}
+                   "n_inst", "sam_use_view_direction", "main_spec",
+                   "feat_spec", "prop_spec_0", "prop_spec_1", "packed"}
         kw = {k: v for k, v in kw.items() if k in allowed}
         if field_type == "hashgrid_packed":
             kw["packed"] = True
@@ -333,7 +373,8 @@ def make_field(field_type: str = "hashgrid", device=None, seed: int = 0,
                    "prop_hidden", "prop_layers", "prop_freq_degree",
                    "density_bias", "cp_rank", "cp_res", "with_mask",
                    "n_inst", "mask_mlp_type", "feat_rep", "feat_rank",
-                   "feat_res", "feat_spec", "with_sam"}
+                   "feat_res", "feat_spec", "with_sam",
+                   "sam_use_view_direction"}
         return MLPField(**{k: v for k, v in kw.items() if k in allowed},
                         device=device, seed=seed)
     raise ValueError(f"unknown field_type {field_type}")

@@ -16,9 +16,9 @@ Fixed per-ray sample counts (default 128, 64, 32).  Two routes:
     proposal MLPs and, without CP features, the trunk run K8 (freq encode
     + MLP forward, backward through the plain version); the rest is plain
     PyTorch.  It is the oracle for the level kernels, the route of fields
-    without level kernels, and, as in JAX, the route of a stage-3
-    training render whose backbone is not frozen (`return_mask` without
-    `frozen_backbone`).
+    without level kernels, and, as in JAX, the route of a stage-2 or -3
+    training render whose backbone is not frozen (`return_feats` or
+    `return_mask` without `frozen_backbone`).
 `update_proposal` is a Python bool: when False the proposal weights are
 detached and the proposal loss is 0 (the reference's cadence, step <= 3000
 or step % 5 == 0, picks it per step).
@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..models.mlp_field import SH_DEGREE
+from ..models.fields import GEOM_FEAT_DIM, SH_DEGREE
 from ..ops.composite import compute_weights, distort_loss, proposal_loss
 from ..ops.contraction import contract
 from ..ops.ray import (near_far_from_aabb, sample_pdf, spacing_fn,
@@ -51,10 +51,15 @@ class RenderSettings:
     max_ray_batch: int = 16384
     # False forces the composable route (the oracle the kernels are held to)
     level_kernels: bool = True
+    # stage-2 SAM features ('samvit' [N, 256]); with the view direction the
+    # SAM MLP reads the whole composited f_image, else its trunk features
+    return_feats: bool = False
+    sam_use_view_direction: bool = False
     # stage-3 object-field logits ('instance_mask_logits' [N, n_inst])
     return_mask: bool = False
-    # the optimizer freezes the backbone (stage 3), so a training render
-    # with return_mask may run it through the gradient-free K5 and K6
+    # the optimizer freezes the backbone (stages 2 and 3), so a training
+    # render with a side output may run it through the gradient-free K5
+    # and K6
     frozen_backbone: bool = False
 
 
@@ -66,7 +71,8 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
     when settings.perturb.  Returns {'image' [N, 3], 'depth' [N],
     'weights_sum' [N]}; training adds 'weights' [N, T] (final level) and
     'num_points', and with compute_losses 'proposal_loss' and
-    'distort_loss'; return_mask adds 'instance_mask_logits'."""
+    'distort_loss'; return_feats adds 'samvit', return_mask
+    'instance_mask_logits'."""
     if not isinstance(update_proposal, bool):
         raise TypeError("update_proposal must be a Python bool (the JAX "
                         "renderer's traced form is not ported)")
@@ -92,9 +98,10 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
     kernels = settings.level_kernels and getattr(
         field, "supports_fused_final", False)
     # the JAX renderer's routing (renderer.py:130-147): the stage-1 kernels
-    # without side outputs, the frozen-backbone kernels with the mask output
-    fused = kernels and not settings.return_mask
-    frozen = (kernels and settings.return_mask
+    # without side outputs, the frozen-backbone kernels with one
+    side_outputs = settings.return_feats or settings.return_mask
+    fused = kernels and not side_outputs
+    frozen = (kernels and side_outputs
               and not settings.compute_losses
               and (not training or settings.frozen_backbone))
     bins = weights = rays_t = colors = fused_out = folded = None
@@ -115,7 +122,8 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
         real_bins = spacing_fn_inv(s_nears * (1.0 - bins) + s_fars * bins)
         if frozen and level == n_levels - 1:
             *fused_out, weights, geo_feat = field.fused_final_render_frozen(
-                rays_o, rays_d, real_bins, opaque_last=opaque, need_geo=True)
+                rays_o, rays_d, real_bins, opaque_last=opaque,
+                need_geo=settings.return_mask)
             rays_t = (real_bins[..., 1:] + real_bins[..., :-1]) / 2.0
             xyzs_final = (rays_o[:, None, :]
                           + rays_d[:, None, :] * rays_t[..., None])
@@ -185,6 +193,20 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
             results["distort_loss"] = distort_loss(bins, weights)
     image = image + (1.0 - weights_sum)[..., None] * bg_color
     results.update(weights_sum=weights_sum, depth=depth, image=image)
+
+    if settings.return_feats:
+        # SAM feature branch (JAX renderer.py:290-306)
+        features = field.sam_features(xyzs_final)  # [N, T, C]
+        f_sam = (weights[..., None] * features).sum(dim=-2)
+        if settings.sam_use_view_direction:
+            f = torch.cat([f_sam, f_image, image, depth[..., None]], dim=-1)
+        else:
+            # on the frozen route without the trunk features the kernel
+            # has composited them: f_image[:, :15] is sum_s w_s geo_s
+            geo_sum = (f_image[..., :GEOM_FEAT_DIM] if geo_feat is None
+                       else (weights[..., None] * geo_feat).sum(dim=-2))
+            f = torch.cat([f_sam, geo_sum, image, depth[..., None]], dim=-1)
+        results["samvit"] = field.apply_samvit_mlp(f)  # [N, 256]
 
     if settings.return_mask:
         # object-field branch: the mask MLP on per-sample features,

@@ -1,12 +1,16 @@
 """The stage loops over a stage-1 Trainer (the JAX package's
-train/stages.py): stage 2's feature cache (`store_sam_features`), the
-point-prompt decode (`decode`), and stage 3: object-field training with
-the error map, the mask renders and the mIoU evaluation.  The distill
-container of stage 2 is not ported yet (ROADMAP.md, queue 1, M8).
+train/stages.py): stage 2's two SAM feature containers, the cache
+(`store_sam_features`) and the distill container (`train_sam_distill`,
+with its rendered-feature MSE `evaluate_sam_features`), the point-prompt
+decode (`decode`, from cached or rendered features), and stage 3:
+object-field training with the error map, the mask renders and the mIoU
+evaluation.
 
-The stage-3 renders use the live parameters (`trainer.model`), as the JAX
-stage functions render `trainer.state.params`: the mask step never updates
-the EMA, so the EMA copy would still hold the mask heads' initial weights.
+The feature and mask renders use the live parameters (`trainer.model`),
+as the JAX stage functions render `trainer.state.params`: the distill and
+mask steps never update the EMA, so the EMA copy would still hold the
+heads' initial weights.  The RGB renders (`trainer.render_view`) use the
+EMA weights, as in JAX; over a frozen backbone the two agree.
 """
 from __future__ import annotations
 
@@ -19,23 +23,60 @@ import torch
 
 from ..data.provider import Scene, resize_linear, resize_nearest
 from ..data.rays import full_frame_rays
-from ..data.sampler import fixed_fovy_intrinsics, sample_mask_batch
+from ..data.sampler import (fixed_fovy_intrinsics, sam_aug_intrinsics,
+                            sample_mask_batch)
+from ..render.renderer import RenderSettings, render_staged
+from ..sam.predictor import PIXEL_MEAN, PIXEL_STD
+from ..utils.cache import Cache
 from ..utils.overlays import overlay_mask, overlay_point
 from ..utils.points import PointPrompts, project_points_to_view
-from .metrics import MeanIoUMeter
-from .steps import make_eval_render, make_mask_train_step
+from ..utils.resize import resize_bilinear
+from .metrics import MeanIoUMeter, MSEMeter
+from .steps import (make_eval_render, make_mask_train_step,
+                    make_sam_distill_step)
 from .trainer import Trainer, _save_image
-
-
-DISTILL_NOT_PORTED = (
-    "--feature_container distill is not ported yet (ROADMAP.md, queue 1, "
-    "M8: the s_grid / cp_s_* feature containers and the distill step); "
-    "use --feature_container cache")
 
 
 def _view_intrinsics(scene: Scene, i: int):
     return scene.intrinsics[i] if scene.intrinsics.ndim == 2 \
         else scene.intrinsics
+
+
+def _rays(trainer: Trainer, pose, intrinsics, H: int, W: int):
+    dev = trainer.device
+    return full_frame_rays(
+        torch.as_tensor(np.asarray(pose, np.float32), device=dev),
+        torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev),
+        H, W)
+
+
+def lowres_feature_camera(intr, H: int, W: int, grid: int = 64):
+    """The SAM-aligned low-res feature camera of an H x W view: (its
+    intrinsics, h, w), h x w the view's aspect with the long side `grid`
+    (SAM's resize-longest-side), the intrinsics scaled per axis so that the
+    h x w render covers the whole view.  Feature pixel (u, v) then sits
+    where the encoder's feature map has it once its bottom / right padding
+    is stripped, which `SamPredictor.set_features` puts back."""
+    M = max(H, W)
+    h = int(H * grid / M + 0.5)
+    w = int(W * grid / M + 0.5)
+    fx, fy, cx, cy = np.asarray(intr, np.float32)
+    sx, sy = w / W, h / H
+    return (np.array([fx * sx, fy * sy, cx * sx, cy * sy], np.float32),
+            h, w)
+
+
+def render_features(trainer: Trainer, pose, intr, H: int, W: int,
+                    grid: int = 64):
+    """The rendered SAM features [h, w, 256] of a view through its
+    low-res feature camera (`lowres_feature_camera`), with the live
+    weights."""
+    if getattr(trainer, "_feat_render", None) is None:
+        trainer._feat_render = make_eval_render(trainer.model, trainer.cfg,
+                                                return_feats=True)
+    f_intr, fh, fw = lowres_feature_camera(intr, H, W, grid)
+    out = trainer._feat_render(*_rays(trainer, pose, f_intr, fh, fw))
+    return out["samvit"].reshape(fh, fw, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -63,22 +104,183 @@ def store_sam_features(trainer: Trainer, scene: Scene, sam_predictor,
 
 
 # ---------------------------------------------------------------------------
+# Stage 2: the distill container
+# ---------------------------------------------------------------------------
+
+def evaluate_sam_features(trainer: Trainer, scene: Scene, sam_predictor,
+                          max_views: Optional[int] = None,
+                          save_dir: Optional[str] = None) -> float:
+    """Stage-2 eval, the rendered features' MSE (JAX stages.py:71-130).  Per
+    view: render the RGB (EMA weights) at a square online_resolution
+    camera, fovy 60 or, with --use_default_focal_length, the view's own
+    focal length (with --use_default_intrinsics the view's camera), encode
+    it for the ground truth; render the feature map through the
+    low-res feature camera at the encoder's grid (img_size / 16) and
+    compare it with the ground truth's valid h x w block.  Logs an [EVAL
+    stage-2] MSE line; save_dir gets {stem}_samvit.npy."""
+    cfg = trainer.cfg
+    grid = sam_predictor.img_size // 16
+    meter = MSEMeter()
+    n = scene.poses.shape[0] if max_views is None else min(
+        max_views, scene.poses.shape[0])
+    for i in range(n):
+        intr = np.asarray(_view_intrinsics(scene, i), np.float32)
+        H, W = scene.H, scene.W
+        if not cfg.use_default_intrinsics:
+            H = W = cfg.online_resolution
+            focal = (float(intr[0]) if cfg.use_default_focal_length
+                     else H / (2.0 * np.tan(0.5 * np.deg2rad(60.0))))
+            intr = np.array([focal, focal, H / 2, W / 2], np.float32)
+        out = trainer.render_view(scene.poses[i], intr, H, W)
+        rgb = (np.clip(out["image"].reshape(H, W, 3), 0, 1)
+               * 255).astype(np.uint8)
+        gt = sam_predictor.set_image(rgb)[0]  # [grid, grid, 256]
+        pred = render_features(trainer, scene.poses[i], intr, H, W, grid)
+        fh, fw = pred.shape[:2]
+        meter.update(pred.cpu(), gt[:fh, :fw].cpu())
+        if save_dir is not None:
+            os.makedirs(save_dir, exist_ok=True)
+            stem = os.path.splitext(str(scene.img_names[i]))[0]
+            np.save(os.path.join(save_dir, f"{stem}_samvit.npy"),
+                    pred.cpu().numpy())
+    trainer.log("[EVAL stage-2] " + meter.report())
+    return meter.measure()
+
+
+def make_render_and_encode(trainer: Trainer, sam, R: int,
+                           img_size: int = 1024):
+    """The distill container's ground truth without the host (JAX
+    stages.py:131-170): `render_and_encode(rays_o, rays_d)` renders an
+    R x R frame with the live weights, quantises it as round(rgb * 255)
+    (the JAX device program's rounding; the host path truncates), resizes
+    it to img_size^2 with jax.image.resize's bilinear, normalises it and
+    runs SAM's image encoder.  Returns (features [g, g, 256], the first
+    global block's output [g, g, C] or None)."""
+    cfg = trainer.cfg
+    settings = RenderSettings(
+        num_steps=tuple(cfg.num_steps), use_contract=cfg.contract,
+        min_near=cfg.min_near, background=cfg.background, bound=cfg.bound,
+        max_ray_batch=cfg.max_ray_batch)
+    dev = trainer.device
+    mean = torch.tensor(PIXEL_MEAN, device=dev)
+    std = torch.tensor(PIXEL_STD, device=dev)
+
+    @torch.no_grad()
+    def render_and_encode(rays_o, rays_d):
+        out = render_staged(trainer.model, rays_o, rays_d, settings)
+        img8 = torch.round(out["image"].clamp(0.0, 1.0).reshape(R, R, 3)
+                           * 255.0)
+        img = resize_bilinear(img8, (img_size, img_size, 3))
+        feats, interm = sam.image_encoder(((img - mean) / std)[None],
+                                          return_interm=True)
+        return feats[0], (interm[0][0] if interm else None)
+
+    return render_and_encode
+
+
+def distill_batch(trainer: Trainer, pose, intr, sam_predictor,
+                  render_and_encode=None, feat_hw: int = 64):
+    """One encoded distill batch of a pose and an R x R camera intr [4]
+    (R = online_resolution): the frame rendered with the live weights and
+    encoded (through `render_and_encode` when given, else the host path:
+    the image truncated to uint8, then `set_image`), and the low-res
+    feature camera's rays (the intrinsics over R / feat_hw, feat_hw^2 rays).
+    Returns {rays_o_lr, rays_d_lr, gt_samvit}."""
+    R = trainer.cfg.online_resolution
+    ro, rd = _rays(trainer, pose, intr, R, R)
+    if render_and_encode is not None:
+        gt, _ = render_and_encode(ro, rd)
+    else:
+        if getattr(trainer, "_live_render", None) is None:
+            trainer._live_render = make_eval_render(trainer.model,
+                                                    trainer.cfg)
+        out = trainer._live_render(ro, rd)
+        rgb = (out["image"].clamp(0, 1).reshape(R, R, 3) * 255).to(
+            torch.uint8)
+        gt = sam_predictor.set_image(rgb)[0]
+    intr_lr = np.asarray(intr, np.float32) / np.float32(R / feat_hw)
+    ro_lr, rd_lr = _rays(trainer, pose, intr_lr, feat_hw, feat_hw)
+    return {"rays_o_lr": ro_lr, "rays_d_lr": rd_lr, "gt_samvit": gt}
+
+
+def train_sam_distill(trainer: Trainer, scene: Scene, sam_predictor,
+                      iters: Optional[int] = None, on_device: bool = False):
+    """Distill container (JAX stages.py:172-242): each step renders a
+    random training view at online_resolution with a random fovy in [50,
+    70), encodes it (or, once the ring of cache_size batches is full, reuses
+    a stored batch on every step but each cache_interval-th), and regresses
+    the 64 x 64 rendered feature map onto the encoder's features.
+    on_device takes `make_render_and_encode`'s path to the ground truth.
+    The draws (view, fovy, the ring's pick, TV points) come from generators
+    seeded from --seed and the step resumed at.  Checkpoints every iters /
+    save_cnt steps and at the end."""
+    cfg = trainer.cfg
+    iters = iters or cfg.iters
+    dev = trainer.device
+    distill_step = make_sam_distill_step(
+        trainer.model, cfg, frozen_backbone=trainer.backbone_frozen)
+    step = step0 = trainer.state.step
+    seed = cfg.seed * 1000003 + step
+    host = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(dev).manual_seed(seed)
+    cache = (Cache(cfg.cache_size, torch.Generator().manual_seed(seed + 1))
+             if cfg.cache_size > 0 else None)
+    R = cfg.online_resolution
+    render_and_encode = (make_render_and_encode(trainer, sam_predictor.sam, R,
+                                                sam_predictor.img_size)
+                         if on_device else None)
+    save_every = max(iters // max(cfg.save_cnt, 1), 1)
+    V = scene.poses.shape[0]
+    trainer.stats["distill"] = []
+    t_start = time.time()
+    while step < iters:
+        if (cache is not None and cache.full()
+                and step % cfg.cache_interval != 0):
+            batch = cache.get()
+        else:
+            vi = int(torch.randint(V, (), generator=host))
+            batch = distill_batch(trainer, scene.poses[vi],
+                                  sam_aug_intrinsics(host, R), sam_predictor,
+                                  render_and_encode)
+            if cache is not None:
+                cache.insert(batch)
+        metrics = distill_step(trainer.state, batch, gen)
+        step += 1
+        if step == step0 + 1 or step % 100 == 0 or step == iters:
+            vals = {k: float(v) for k, v in metrics.items()}
+            trainer.stats["distill"].append((step, vals))
+            trainer.log(f"[SAM-distill {step}/{iters}] "
+                        f"loss={vals['loss']:.5f}")
+        if step % save_every == 0:
+            trainer.ckpt.save(step, trainer.state.state_dict())
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.time() - t_start
+    trainer.log(f"[INFO] distill training took {dt / 60:.2f} min "
+                f"({(step - step0) / max(dt, 1e-9):.1f} steps/s)")
+    if step == step0 or step % save_every:  # not saved at this step yet
+        trainer.ckpt.save(step, trainer.state.state_dict())
+
+
+# ---------------------------------------------------------------------------
 # Decode: 3-D point prompts -> per-view masks
 # ---------------------------------------------------------------------------
 
 def decode(trainer: Trainer, scene: Scene, sam_predictor,
            prompts: PointPrompts, out_dir: Optional[str] = None,
            feature_container: str = "cache", depth_tol: float = 0.05):
-    """Per view: render RGB and depth, read the cached features, project
-    the 3-D prompts with the depth gate, decode them with SAM and keep the
-    mask of the best IoU score.  Writes {stem}_rgb.png (the rendering with
+    """Per view: render RGB and depth, read the cached features (cache) or
+    render them through the view's low-res feature camera (distill; an
+    aspect-preserving h x w map that `set_features` pads), project the 3-D
+    prompts with the depth gate, decode them with SAM and keep the mask of
+    the best IoU score.  Writes {stem}_rgb.png (the rendering with
     the mask and points overlaid), {stem}_depth.npy, {stem}_obj_mask.npy
     ([1, H, W] uint8) and valid_dict.json ({stem: 0 or 1}) to out_dir
     (default <workspace>/object_masks)."""
     import json
 
-    if feature_container != "cache":
-        raise NotImplementedError(DISTILL_NOT_PORTED)
+    if feature_container not in ("cache", "distill"):
+        raise ValueError(f"unknown feature_container {feature_container}")
     out_dir = out_dir or os.path.join(trainer.workspace, "object_masks")
     os.makedirs(out_dir, exist_ok=True)
     valid_dict = {}
@@ -89,10 +291,13 @@ def decode(trainer: Trainer, scene: Scene, sam_predictor,
         out = trainer.render_view(scene.poses[i], intr, H, W)
         rgb = out["image"].reshape(H, W, 3)
         depth = out["depth"].reshape(H, W)
-        feats = np.load(os.path.join(trainer.workspace, "sam_cache",
-                                     stem + ".npy"))
-        if feats.ndim == 3 and feats.shape[0] == 256:
-            feats = feats.transpose(1, 2, 0)  # the legacy [256, h, w]
+        if feature_container == "cache":
+            feats = np.load(os.path.join(trainer.workspace, "sam_cache",
+                                         stem + ".npy"))
+            if feats.ndim == 3 and feats.shape[0] == 256:
+                feats = feats.transpose(1, 2, 0)  # the legacy [256, h, w]
+        else:
+            feats = render_features(trainer, scene.poses[i], intr, H, W)
         gate_info: dict = {}
         coords, labels, _, is_valid = project_points_to_view(
             prompts, scene.poses[i], np.asarray(intr), H, W,
@@ -202,12 +407,7 @@ def render_instance_mask(trainer: Trainer, pose, intrinsics, H: int, W: int):
     if getattr(trainer, "_mask_render", None) is None:
         trainer._mask_render = make_eval_render(trainer.model, trainer.cfg,
                                                 return_mask=True)
-    dev = trainer.device
-    ro, rd = full_frame_rays(
-        torch.as_tensor(np.asarray(pose, np.float32), device=dev),
-        torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev),
-        H, W)
-    out = trainer._mask_render(ro, rd)
+    out = trainer._mask_render(*_rays(trainer, pose, intrinsics, H, W))
     logits = out["instance_mask_logits"].cpu().numpy().reshape(
         H, W, trainer.cfg.n_inst)
     e = np.exp(logits - logits.max(-1, keepdims=True))

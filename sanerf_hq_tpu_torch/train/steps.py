@@ -13,6 +13,11 @@ labelled global rays, + label_regularization_weight * the depth-weighted
 smoothness of the patch logits, + ray_pair_rgb_loss_weight * the ray-pair
 RGB loss on the patches once step > ray_pair_rgb_iter; it also returns
 the error map with the global rays' cells moved to 0.1 old + 0.9 error.
+
+The stage-2 distill step: the MSE of the rendered 64 x 64 SAM feature map
+(resized to the encoder's grid where the two differ) against the
+encoder's features of a full rendering, + lambda_tv * total variation +
+lambda_wd * weight decay of the hash-grid field's s_grid.
 """
 from __future__ import annotations
 
@@ -24,13 +29,15 @@ from ..models.fields import active_reg_grid
 from ..ops.hashgrid import (total_variation_loss, total_variation_loss_at,
                             weight_decay_loss)
 from ..render.renderer import RenderSettings, render_rays, render_staged
+from ..utils.resize import resize_bilinear
 
 
 def make_eval_render(model, cfg: Config, perturb: bool = False,
-                     return_mask: bool = False):
+                     return_mask: bool = False, return_feats: bool = False):
     """Staged full-frame render for eval/test (chunked; deterministic unless
     perturb=True and a generator is passed); return_mask adds the object
-    field's 'instance_mask_logits'."""
+    field's 'instance_mask_logits', return_feats the SAM features
+    'samvit'."""
     settings = RenderSettings(
         num_steps=tuple(cfg.num_steps),
         use_contract=cfg.contract,
@@ -41,6 +48,8 @@ def make_eval_render(model, cfg: Config, perturb: bool = False,
         training=False,
         max_ray_batch=cfg.max_ray_batch,
         return_mask=return_mask,
+        return_feats=return_feats,
+        sam_use_view_direction=cfg.sam_use_view_direction,
     )
 
     @torch.inference_mode()
@@ -55,10 +64,10 @@ def make_eval_render(model, cfg: Config, perturb: bool = False,
 
 def _grid_regularizers(model, cfg: Config, stage: str):
     """The --lambda_tv / --lambda_wd term of a stage's loss on its hash
-    table ('rgb': grid, 'mask': m_grid), a function of a generator (TV
-    draws its points from it) or of the TV points themselves (unit-cube
-    [n, 3]); None when both lambdas are 0 or the model has no table for
-    the stage (the MLP field)."""
+    table ('rgb': grid, 'sam': s_grid, 'mask': m_grid), a function of a
+    generator (TV draws its points from it) or of the TV points themselves
+    (unit-cube [n, 3]); None when both lambdas are 0 or the model has no
+    table for the stage (the MLP field)."""
     if cfg.lambda_tv <= 0 and cfg.lambda_wd <= 0:
         return None
     reg = active_reg_grid(model, stage)
@@ -316,3 +325,59 @@ def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False):
 
     mask_step.loss_fn = loss_fn
     return mask_step
+
+
+def make_sam_distill_step(model, cfg: Config, feat_hw: int = 64,
+                          frozen_backbone: bool = False):
+    """Stage-2 distill step (JAX steps.py:173-225).
+
+    `distill_step(state, batch, generator)` with batch {rays_o_lr,
+    rays_d_lr [feat_hw^2, 3] (the low-res feature camera's rays, row-
+    major), gt_samvit [gh, gw, 256] (the encoder's features), optional
+    cam_near_far} renders the feature map without jitter, computes the
+    loss, backpropagates, applies one Adam update and returns the detached
+    metrics {loss, mse}.  The map [feat_hw, feat_hw, 256] is resized to
+    [gh, gw] (jax.image.resize's bilinear) when the grids differ.
+    `generator` (on the model's device) draws the TV points of
+    --lambda_tv.  frozen_backbone renders the backbone through K5 and K6
+    on the MLP field (the trainer freezes every backbone parameter).
+    `distill_step.loss_fn(batch, generator, tv_points)` returns (loss,
+    metrics, the render's outputs); tv_points [n, 3] in the unit cube
+    replace the drawn TV points."""
+    settings = RenderSettings(
+        num_steps=tuple(cfg.num_steps),
+        use_contract=cfg.contract,
+        min_near=cfg.min_near,
+        background=cfg.background,
+        bound=cfg.bound,
+        perturb=False,
+        training=True,
+        compute_losses=False,
+        return_feats=True,
+        sam_use_view_direction=cfg.sam_use_view_direction,
+        frozen_backbone=frozen_backbone,
+    )
+    reg_loss = _grid_regularizers(model, cfg, "sam")
+
+    def loss_fn(batch, generator=None, tv_points=None):
+        out = render_rays(model, batch["rays_o_lr"], batch["rays_d_lr"],
+                          settings, cam_near_far=batch.get("cam_near_far"),
+                          update_proposal=False)
+        pred = out["samvit"].reshape(feat_hw, feat_hw, -1)
+        gt = batch["gt_samvit"]
+        if pred.shape[:2] != gt.shape[:2]:
+            pred = resize_bilinear(pred, (*gt.shape[:2], pred.shape[-1]))
+        mse = torch.mean((pred - gt) ** 2)
+        loss = mse
+        if reg_loss is not None:
+            loss = loss + reg_loss(generator, tv_points)
+        return loss, {"loss": loss, "mse": mse}, out
+
+    def distill_step(state, batch, generator=None):
+        loss, metrics, _ = loss_fn(batch, generator)
+        loss.backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    distill_step.loss_fn = loss_fn
+    return distill_step

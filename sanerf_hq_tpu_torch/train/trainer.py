@@ -1,12 +1,12 @@
 """Host-side loop of stage 1: training epochs, checkpoints and resume,
 full-frame render, evaluation and test artifacts.  The eval renders use the
-EMA weights, as the JAX trainer does.  The stage-3 loops (stages.py) use
-the same Trainer, usually with an init checkpoint: its parameters are
-loaded and frozen, and `backbone_frozen` tells the mask step it may render
-the backbone without gradient (through the level kernels on the MLP
-field; the hash-grid field has none and renders through the composable
-route).  Without one nothing is frozen and the mask step renders through
-the composable route.
+EMA weights, as the JAX trainer does.  The stage-2 and stage-3 loops
+(stages.py) use the same Trainer, usually with an init checkpoint: its
+parameters are loaded and frozen, and `backbone_frozen` tells the distill
+and mask steps they may render the backbone without gradient (through the
+level kernels on the MLP field; the hash-grid field has none and renders
+through the composable route).  Without one nothing is frozen and those
+steps render through the composable route.
 
 Epoch math as the reference's: steps_per_epoch = number of training views,
 max_epoch = ceil(iters / steps_per_epoch), eval and save intervals from
@@ -250,9 +250,16 @@ class Trainer:
             self.log("[EVAL] " + m.report())
         return meters[0].measure() if meters else 0.0
 
-    def test(self, scene: Scene, save_dir: Optional[str] = None):
+    def test(self, scene: Scene, save_dir: Optional[str] = None,
+             extra: Optional[str] = None):
         """Render every pose and save {stem}_rgb.png / {stem}_depth.npy;
-        log an [EVAL] PSNR line when the scene has ground truth."""
+        log an [EVAL] PSNR line when the scene has ground truth.
+        extra='sam' (--return_extra with --with_sam) also saves each view's
+        rendered SAM features through its low-res feature camera, with
+        the live weights, to {stem}_sam.npy [h, w, 256] (JAX
+        trainer.py:416-470)."""
+        if extra not in (None, "sam"):
+            raise ValueError(f"unknown extra output {extra!r}")
         save_dir = save_dir or os.path.join(self.workspace, "results")
         os.makedirs(save_dir, exist_ok=True)
         meter = PSNRMeter()
@@ -262,6 +269,15 @@ class Trainer:
             _save_image(os.path.join(save_dir, f"{stem}_rgb.png"), pred)
             np.save(os.path.join(save_dir, f"{stem}_depth.npy"),
                     out["depth"].reshape(scene.H, scene.W))
+            if extra == "sam":
+                from .stages import render_features
+
+                intr = (scene.intrinsics[i] if scene.intrinsics.ndim == 2
+                        else scene.intrinsics)
+                feats = render_features(self, scene.poses[i], intr, scene.H,
+                                        scene.W)
+                np.save(os.path.join(save_dir, f"{stem}_sam.npy"),
+                        feats.cpu().numpy())
             if scene.images is not None:
                 meter.update(pred, scene.images[i][..., :3])
         if meter.N:

@@ -103,14 +103,10 @@ def test_trainer_evaluate_and_perturbed_render(scene, tmp_path, capsys):
 def test_cli_only_test_mode_is_ported(scene, tmp_path, capsys):
     """The CLI's fail-fast checks, before any model is built, as the JAX
     CLI's: --decode without --with_sam, --decode --use_point without
-    --point_file, stage-3 training without --mask_root; and the distill
-    container of stage 2, not ported yet, exits with an error that says
-    so."""
+    --point_file, stage-3 training without --mask_root."""
     cases = ((["--decode"], "--decode requires --with_sam"),
              (["--with_sam", "--decode", "--use_point"],
-              "requires --point_file"),
-             (["--with_sam", "--feature_container", "distill"],
-              "distill is not ported yet"))
+              "requires --point_file"))
     for flags, msg in cases:
         with pytest.raises(SystemExit, match=msg):
             cli.main(_argv(scene, str(tmp_path), "--device", "cpu", *flags))
@@ -437,6 +433,87 @@ def test_cli_with_sam_without_checkpoint_warns_and_uses_seeded_weights(
     # the cache's val_all: every view rendered
     assert len(os.listdir(os.path.join(ws, "results"))) == 2 * 17
     assert trainer.state.optimizer is not None  # nothing was frozen
+
+
+def test_cli_distill_container_trains_evaluates_and_decodes(
+        scene, tmp_path, capsys, monkeypatch):
+    """Stage 2's distill container through the CLI on the CPU (the tiny
+    ViT under vit_h's name, random weights): --with_sam
+    --feature_container distill --init_ckpt <stage 1> trains the CP
+    volume and the SAM MLP for 6 steps (a ring of 2 batches, the encoder
+    every 2nd step once it is full: 4 encodes), leaves the backbone bit for
+    bit the stage-1 checkpoint's and prints the rendered features' MSE;
+    then --test --decode --use_point --feature_container distill decodes
+    every view from the rendered features, and --test --return_extra
+    --with_sam writes each held-out view's rendered features."""
+    import json
+
+    import sanerf_hq_tpu_torch.sam.build as B
+    from sanerf_hq_tpu_torch.train import stages
+
+    monkeypatch.setitem(B._CONFIGS, "vit_h", lambda: dict(
+        embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
+        window_size=3))
+    encodes = []
+    batch = stages.distill_batch
+    monkeypatch.setattr(stages, "distill_batch", lambda *a, **k: (
+        encodes.append(1), batch(*a, **k))[1])
+    ws1, ws2 = str(tmp_path / "ws1"), str(tmp_path / "ws2")
+    argv = _argv(scene, ws1, "--device", "cpu", "--num_points", "1024",
+                 "--iters", "4", "--eval_cnt", "1", "--save_cnt", "1")
+    argv.remove("--test")
+    cli.main(argv)
+    stage1 = torch.load(os.path.join(ws1, "checkpoints", "step_00000004.pt"),
+                        weights_only=True)["model"]
+    sam = ["--with_sam", "--feat_rank", "8", "--feat_res", "16",
+           "--sam_use_view_direction", "--sam_ckpt",
+           str(tmp_path / "none.pth")]
+    argv = _argv(scene, ws2, "--device", "cpu", "--init_ckpt", ws1,
+                 "--feature_container", "distill", "--iters", "6",
+                 "--cache_size", "2", "--cache_interval", "2",
+                 "--online_resolution", "16", "--save_cnt", "2", *sam)
+    argv.remove("--test")
+    trainer = cli.main(argv)
+    out = capsys.readouterr().out
+    assert trainer.state.step == 6 and trainer.backbone_frozen
+    assert len(encodes) == 4
+    assert "[SAM-distill 6/6] loss=" in out and "[EVAL stage-2] MSE" in out
+    assert np.isfinite([v["loss"] for _, v in trainer.stats["distill"]]).all()
+    state = trainer.model.state_dict()
+    for name, p in stage1.items():
+        assert torch.equal(state[name], p), name
+    moved = sorted(n for n, p in trainer.model.named_parameters()
+                   if not torch.equal(p, trainer.state.ema_model.state_dict()[n]))
+    assert moved and all(n.startswith(("cp_s_", "samvit_")) for n in moved)
+    assert sorted(os.listdir(os.path.join(ws2, "checkpoints"))) == [
+        "step_00000003.pt", "step_00000006.pt"]
+
+    points = str(tmp_path / "points.json")
+    with open(points, "w") as f:
+        json.dump({"points": [[0.0, 0.0, 0.0]], "valid_threshold": 1}, f)
+    cli.main(_argv(scene, ws2, "--device", "cpu", "--init_ckpt", ws1,
+                   "--decode", "--use_point", "--point_file", points,
+                   "--feature_container", "distill", *sam))
+    assert "[decode] v16 valid=" in capsys.readouterr().out
+    dec = os.path.join(ws2, "object_masks")
+    with open(os.path.join(dec, "valid_dict.json")) as f:
+        assert sorted(json.load(f)) == ["v00", "v16"]
+    for stem in ("v00", "v16"):
+        m = np.load(os.path.join(dec, f"{stem}_obj_mask.npy"))
+        assert m.shape == (1, HW, HW) and m.dtype == np.uint8
+        assert os.path.exists(os.path.join(dec, f"{stem}_rgb.png"))
+
+    tested = cli.main(_argv(scene, ws2, "--device", "cpu", "--return_extra",
+                            *sam))
+    # without --init_ckpt nothing is frozen, so Adam's state does not fit
+    assert "loaded model weights only (resumed at step 6)" in (
+        capsys.readouterr().out)
+    assert tested.state.step == 6
+    for stem in ("v00", "v16"):
+        f = np.load(os.path.join(ws2, "results", f"{stem}_sam.npy"))
+        assert f.shape == (64, 64, 256) and np.isfinite(f).all()
+        assert os.path.exists(os.path.join(ws2, "results",
+                                           f"{stem}_rgb.png"))
 
 
 _SAM_CHAIN = r"""

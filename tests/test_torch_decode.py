@@ -237,9 +237,14 @@ def test_decode_matches_jax(shared):
 
 
 def test_decode_distill_container_is_not_ported(shared):
-    with pytest.raises(NotImplementedError, match="M8"):
+    """decode knows the reference's two containers, cache and distill
+    (tests/test_torch_distill.py decodes from the distilled features), and
+    refuses any other name before it renders or writes anything."""
+    out_dir = str(shared["root"] / "refused")
+    with pytest.raises(ValueError, match="unknown feature_container"):
         stages.decode(shared["pt"], shared["ps"], shared["ppred"],
                       points.PointPrompts(np.zeros((1, 3), np.float32),
                                           np.ones(1, np.int32),
                                           np.zeros(1, np.int32), 0, 1),
-                      feature_container="distill")
+                      out_dir=out_dir, feature_container="distil")
+    assert not os.path.exists(out_dir)

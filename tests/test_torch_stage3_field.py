@@ -107,7 +107,27 @@ def test_mask_branch_params_and_init():
                                      (dict(field_type="hashgrid",
                                            with_sam=True), "M8")])
 def test_unported_field_options_raise(kw, item):
-    """Stage 2 (with_sam) is not ported in either field."""
+    """with_sam, the last field option that raised (ROADMAP.md item
+    `item`, stage 2's distill container), builds the SAM branch in either
+    field: the feature volume (cp_s_* on the MLP field, the s_grid table
+    on the hash-grid field), samvit_mlp 147 -> 256 x 5 with biases and
+    samvit_norm, all drawn after the backbone and the mask branch, so a
+    seed gives the same field with or without them; no option raises."""
+    assert item == "M8"
     kw = dict(KW, **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        make_field(kw.pop("field_type", "mlp"), device="cpu", **kw)
+    field_type = kw.pop("field_type", "mlp")
+    with_sam = make_field(field_type, device="cpu", seed=3, **kw)
+    plain = make_field(field_type, device="cpu", seed=3,
+                       **dict(kw, with_sam=False))
+    sam = {n for n, _ in with_sam.named_parameters()} - {
+        n for n, _ in plain.named_parameters()}
+    for name, p in plain.state_dict().items():
+        assert torch.equal(p, with_sam.state_dict()[name]), name
+    volume = ({"cp_s_x", "cp_s_y", "cp_s_z", "cp_s_proj"}
+              if field_type == "mlp" else {"s_grid"})
+    head = {f"samvit_mlp.layers.{i}.{w}" for i in range(5)
+            for w in ("weight", "bias")}
+    assert sam == volume | head | {"samvit_norm.weight", "samvit_norm.bias"}
+    assert [lin.weight.shape for lin in with_sam.samvit_mlp.layers] == [
+        (256, 147), (256, 256), (256, 256 + 147), (256, 256), (256, 256)]
+    assert with_sam.samvit_norm.eps == 1e-5
