@@ -222,6 +222,43 @@ last line:
         point file: {stem}_obj_mask.npy [1, 512, 512] uint8 for each of
         the 17 views and valid_dict.json, launches as reckoned;
      then one JSON line {"distill_path": {...}}.
+ 14. the viewer of scripts/gui.sh and the trajectories (run after 13,
+     before 10's traces), counts set to 0 just before and read just after
+     each request or run and held to the count reckoned from the code
+     (K10 twice a 16384-ray chunk on the hash-grid field, K5 twice and K3
+     once on the MLP field):
+     1. the flags of scripts/gui.sh, read out of the script, through
+        cli.main with web_viewer.serve on a free port and not blocking, on
+        phase 11's stage-1 workspace and scene (the hash-grid field at its
+        published widths, 512x512 frames); over HTTP: GET / and /status,
+        /frame at ds 1, 2 and 4 (each frame decoded from its PNG bit for
+        bit the uint8 of render_view at the same pose), each part of a
+        frame's latency (median of 5: the render with CUDA events and the
+        host clock, the copy to the host, the PNG encode, the HTTP round
+        trip); three /clicks, one negative (each point reprojected to its
+        pixel within 1 px, its camera-space depth the rendered depth, rel
+        1e-5), /save_points; /orbit, /scale, /pan, /fovy; /record_pose
+        twice around an orbit and /save_trajectory; /spp 4 and four frames
+        (the running mean of renders jittered by generators seeded 0 to
+        3, rel-max 1e-6; an orbit restarts it); the crop box and its
+        reset; /bg; a 64x64 frame against the same session on the CPU,
+        the CPU handed the card's K10 bins (image and depth max abs <=
+        1e-3);
+     2. the MLP field's viewer on the phase-5 workspace (--test --gui
+        --background white): the same requests, a crop box that no ray
+        meets leaving a background-only frame (JAX's bar), the CPU handed
+        K5's bins;
+     3. decode.sh's flags (phase 12's cache, --downscale 4) with
+        --point_file set to the viewer's picked_points.json;
+     4. the gui branch without --test on both fields: two training ticks
+        each (the step advances by the tick size, a finite loss), steps/s
+        and the next tick's size;
+     5. --test --render_trajectory (70 frames) and --test --circle (60)
+        on the MLP field at 512x512, and --test --trajectory_root <the
+        viewer's saved keyframes> --vis_pose on the hash-grid field (9
+        frames at 1024x1024): the frames' names and counts, frames/s,
+        whether video.mp4 was written; the PLY's vertex and edge counts;
+     then one JSON line {"viewer_path": {...}}.
  10. the device-only torch.profiler traces of phases 5, 7, 8, 9 and 11,
      taken after every rate, since a trace slows the host's later steps;
      one JSON line with every kernel's numbers (K10's launches those of
@@ -229,6 +266,7 @@ last line:
      "scripts_path"), the device line again, and the last line {"ok":
      true, "device": {...}}.
 """
+import copy
 import dataclasses
 import hashlib
 import json
@@ -239,13 +277,14 @@ import shutil
 import subprocess
 import sys
 import time
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sanerf_hq_tpu_torch import cli
-from sanerf_hq_tpu_torch.data.png import read_png
+from sanerf_hq_tpu_torch.data.png import decode_png, encode_png, read_png
 from sanerf_hq_tpu_torch.data.provider import (load_scene, resize_nearest,
                                                split_indices)
 from sanerf_hq_tpu_torch.data.rays import full_frame_rays
@@ -274,6 +313,8 @@ from sanerf_hq_tpu_torch.ops.ray import (near_far_from_aabb, spacing_fn,
 from sanerf_hq_tpu_torch.ops.sample_pdf import (sample_pdf_lookup,
                                                 sample_pdf_lookup_ref)
 from sanerf_hq_tpu_torch.ops.sh import sh_encode
+from sanerf_hq_tpu_torch.render import web_viewer
+from sanerf_hq_tpu_torch.render.gui_api import InteractiveSession
 from sanerf_hq_tpu_torch.render.renderer import RenderSettings, render_rays
 from sanerf_hq_tpu_torch.sam import SamPredictor, build_sam
 from sanerf_hq_tpu_torch.train import stages
@@ -283,6 +324,7 @@ from sanerf_hq_tpu_torch.train.steps import (_grid_regularizers,
                                              make_rgb_train_step,
                                              make_sam_distill_step,
                                              mask_losses)
+from sanerf_hq_tpu_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "sanerf_hq_tpu_torch/csrc/render_level.cu"
@@ -3106,12 +3148,15 @@ def distill_expected(field_kind, steps, encodes, n_val, R, n_dec, view):
 
 
 def check_counts(tag, got, want):
-    print(f"[distill] {tag} launches read " + ", ".join(
-        f"{k} {got[k]}" for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7",
-                                  "K8", "K10"))
+    """Every kernel's launches against the reckoning `want` (0 where it
+    has none), printed beside it after `tag` ("[phase] what")."""
+    kernels = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10")
+    want = {k: want.get(k, 0) for k in kernels}
+    print(f"{tag} launches read " + ", ".join(
+        f"{k} {got[k]}" for k in kernels)
           + "; reckoned " + ", ".join(
               f"{k} {v}" for k, v in want.items() if v), flush=True)
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10"):
+    for k in kernels:
         assert got[k] == want[k], (tag, k, got, want)
 
 
@@ -3137,7 +3182,7 @@ def distill_cli(tag, field_kind, argv, init):
     n_val = val.poses.shape[0]
     want, _ = distill_expected(field_kind, steps, encodes, n_val,
                                cfg.online_resolution, 0, scene.H)
-    check_counts(f"{tag} distill run", launches, want)
+    check_counts(f"[distill] {tag} distill run", launches, want)
     state = t.model.state_dict()
     for name, p in init.items():
         assert torch.equal(state[name].cpu(), p), f"backbone {name} moved"
@@ -3232,7 +3277,7 @@ def distill_run(tag, field_kind, argv, dec_argv, init, sam, n_dec):
     t_dec, dt_dec, launches = run_cli(dec_argv)
     assert t_dec.cfg.feature_container == "distill" and t_dec.resumed
     assert t_dec.state.step == DISTILL_STEPS
-    check_counts(f"{tag} decode", launches, want_dec)
+    check_counts(f"[distill] {tag} decode", launches, want_dec)
     dec = os.path.join(t_dec.cfg.workspace, "object_masks")
     with open(os.path.join(dec, "valid_dict.json")) as f:
         valid = json.load(f)
@@ -3615,6 +3660,546 @@ def mask_card_vs_cpu(trainer, batch):
             "grad_rel_max": g_rel}
 
 
+# phase 14: the viewer of scripts/gui.sh, the trajectory renders and
+# --vis_pose
+VIEWER_DS = (1, 2, 4)
+VIEWER_CPU_DS = 8  # the card-vs-CPU frame: 64x64
+VIEWER_REPS = 5  # timed frames a part, median
+TRAJ_FRAMES = {"interp": 14 * 5, "circle": 60}  # 60 // 14 = 4: 5 a pair
+REPLAY_FRAMES, REPLAY_RES = 9, 1024  # 2 keyframes, 8 steps: 1024x1024
+
+
+def http_get(base, path):
+    with urllib.request.urlopen(base + path, timeout=600) as r:
+        return dict(r.headers), r.read()
+
+
+def http_post(base, path, obj):
+    req = urllib.request.Request(
+        base + path, data=json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def frame_counts(kind, rays):
+    """The launches of one full-frame render of `rays` rays: 2 K10 (hash
+    grid) or 2 K5 and 1 K3 (MLP field) a 16384-ray chunk."""
+    chunks = -(-rays // CHUNK)
+    return ({"K10": 2 * chunks} if kind == "hashgrid"
+            else {"K5": 2 * chunks, "K3": chunks})
+
+
+class Viewer:
+    """cli.main(argv) with web_viewer.serve started on a free port, not
+    blocking; close() ends the server and the training thread."""
+
+    def __init__(self, argv):
+        real = web_viewer.serve
+        started = {}
+
+        def serve(session, **kw):
+            kw.update(port=0, block=False)
+            started["kw"] = kw
+            started["r"] = real(session, **kw)
+            return started["r"]
+
+        web_viewer.serve = serve
+        try:
+            self.trainer, self.seconds, self.launches = run_cli(argv)
+        finally:
+            web_viewer.serve = real
+        self.server, self.state = started["r"]
+        self.points_path = started["kw"]["points_path"]
+        self.sess = self.state.session
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.state.stop()
+
+    def view(self, ds):
+        """(pose, intrinsics, H, W) of the session's frame at ds."""
+        cam = self.sess.camera
+        H, W = cam.H // ds, cam.W // ds
+        intr = cam.intrinsics / ds
+        intr[2], intr[3] = W / 2, H / 2
+        return cam.pose, intr, H, W
+
+    def reference(self, ds, generator=None):
+        """render_view at the session's camera, crop box and background."""
+        pose, intr, H, W = self.view(ds)
+        return self.trainer.render_view(pose, intr, H, W,
+                                        bg_color=self.sess.bg_color,
+                                        aabb=self.sess.aabb,
+                                        generator=generator)
+
+
+def uint8_frame(img, H, W):
+    return (np.clip(img.reshape(H, W, 3), 0, 1) * 255).astype(np.uint8)
+
+
+def viewer_frames(v, kind, tag):
+    """GET /frame at ds 1, 2 and 4, each held bit for bit to the uint8 of
+    render_view at the same pose and its launches to the reckoning; then
+    each part of a frame's latency (median of VIEWER_REPS): the render
+    (CUDA events and the host clock), the copy to the host, the PNG
+    encode, and the HTTP round trip."""
+    out = {}
+    for ds in VIEWER_DS:
+        pose, intr, H, W = v.view(ds)
+        reset_counts()
+        headers, body = http_get(v.base, f"/frame?ds={ds}")
+        check_counts(f"[viewer] {tag} GET /frame?ds={ds} ({W}x{H})",
+                     read_counts(), frame_counts(kind, H * W))
+        assert headers["Content-Type"] == "image/png", headers
+        frame = decode_png(body)
+        ref = v.reference(ds)
+        assert np.array_equal(frame, uint8_frame(ref["image"], H, W)), ds
+        dev = v.trainer.device
+        ro, rd = full_frame_rays(torch.as_tensor(pose, device=dev),
+                                 torch.as_tensor(intr, device=dev), H, W)
+        parts = {"render_device_ms": [], "render_host_ms": [],
+                 "copy_ms": [], "png_ms": [], "http_ms": []}
+        for _ in range(VIEWER_REPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            e0.record()
+            o = v.trainer.eval_render(ro, rd, bg_color=v.sess.bg_color)
+            e1.record()
+            torch.cuda.synchronize()
+            h1 = time.perf_counter()
+            host = {k: x.cpu().numpy() for k, x in o.items()}
+            h2 = time.perf_counter()
+            img = uint8_frame(host["image"], H, W)
+            h3 = time.perf_counter()
+            png = encode_png(img)
+            h4 = time.perf_counter()
+            _, body = http_get(v.base, f"/frame?ds={ds}")
+            h5 = time.perf_counter()
+            parts["render_device_ms"].append(e0.elapsed_time(e1))
+            parts["render_host_ms"].append((h1 - h0) * 1e3)
+            parts["copy_ms"].append((h2 - h1) * 1e3)
+            parts["png_ms"].append((h4 - h3) * 1e3)
+            parts["http_ms"].append((h5 - h4) * 1e3)
+            assert png == body  # the same frame, the same bytes
+        med = {k: float(np.median(x)) for k, x in parts.items()}
+        med.update(png_bytes=len(png), rays=H * W,
+                   mrays_per_s=H * W / med["render_host_ms"] / 1e3,
+                   frames_per_s=1e3 / med["http_ms"])
+        print(f"[viewer] {tag} ds={ds} ({W}x{H}), median of {VIEWER_REPS}: "
+              f"render {med['render_device_ms']:.3f} ms device, "
+              f"{med['render_host_ms']:.3f} ms host "
+              f"({med['mrays_per_s']:.4f} Mrays/s); copy to host "
+              f"{med['copy_ms']:.3f} ms; PNG encode {med['png_ms']:.3f} ms "
+              f"({len(png)} bytes); HTTP round trip {med['http_ms']:.3f} ms "
+              f"({med['frames_per_s']:.2f} frames/s); the frame bit for bit "
+              "the uint8 of render_view", flush=True)
+        out[f"ds{ds}"] = med
+    return out
+
+
+def viewer_picks(v, kind, tag):
+    """Three right-clicks (one negative) through POST /click: each point
+    projects back to its pixel within 1 px and its camera-space depth is
+    the rendered depth there (rel 1e-5); a pick renders one ds=1 frame.
+    Then POST /save_points."""
+    pose, intr, H, W = v.view(1)
+    depth = v.reference(1)["depth"].reshape(H, W)
+    R, t = pose[:3, :3], pose[:3, 3]
+    fx, fy, cx, cy = intr
+    picks, ms = [], []
+    for px, py, label in ((W // 2, H // 2, 1), (W * 3 // 8, H * 5 // 8, 0),
+                          (W * 5 // 8, H * 3 // 8, 1)):
+        reset_counts()
+        t0 = time.perf_counter()
+        p = http_post(v.base, "/click", {"x": (px + 0.5) / W,
+                                         "y": (py + 0.5) / H,
+                                         "label": label})["point"]
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check_counts(f"[viewer] {tag} POST /click ({px}, {py})",
+                     read_counts(), frame_counts(kind, H * W))
+        pc = R.T @ (np.asarray(p, np.float64) - t)
+        z = -pc[2]
+        u, w_ = fx * pc[0] / z + cx, -fy * pc[1] / z + cy
+        err_px = max(abs(u - (px + 0.5)), abs(w_ - (py + 0.5)))
+        err_z = abs(z - depth[py, px]) / abs(depth[py, px])
+        assert err_px <= 1.0 and err_z <= 1e-5, (px, py, err_px, err_z)
+        picks.append({"pixel": [px, py], "label": label, "point": p,
+                      "reprojection_px": float(err_px),
+                      "depth_rel": float(err_z)})
+    saved = http_post(v.base, "/save_points", {})
+    with open(v.points_path) as f:
+        pf = json.load(f)
+    assert saved["n"] == 3 and len(pf["points"]) == 3
+    assert pf["negative_labels"] == [1] and pf["valid_threshold"] == -1
+    print(f"[viewer] {tag} picks: " + "; ".join(
+        f"({p['pixel'][0]}, {p['pixel'][1]}) label {p['label']} -> "
+        f"{np.round(p['point'], 4).tolist()}, reprojection "
+        f"{p['reprojection_px']:.2e} px, depth rel {p['depth_rel']:.2e}"
+        for p in picks) + f"; POST /click {np.median(ms):.3f} ms (median of "
+          f"3); saved {v.points_path}", flush=True)
+    return {"picks": picks, "click_ms": float(np.median(ms)),
+            "points_file": pf}
+
+
+def viewer_widgets(v, kind, tag, trajdir):
+    """The page's other requests: GET / and /status, POST /orbit, /scale,
+    /pan and /fovy, /record_pose twice around an orbit and
+    /save_trajectory, SPP 4 (four frames, the running mean of renders
+    jittered by generators seeded 0 to 3, rel-max 1e-6; an orbit restarts
+    it), the crop box and its reset, /bg."""
+    headers, body = http_get(v.base, "/")
+    assert b"<canvas" in body and f'width="{VIEW}"'.encode() in body
+    st = json.loads(http_get(v.base, "/status")[1])
+    assert st["training"] is False and st["spp"] == 1, st
+    cam = v.sess.camera
+    pose0 = cam.pose.copy()
+    for path, obj in (("/orbit", {"dx": 40, "dy": -20}),
+                      ("/scale", {"delta": -1}),
+                      ("/pan", {"dx": 30, "dy": 10}),
+                      ("/fovy", {"value": 55})):
+        assert http_post(v.base, path, obj) == {"ok": True}, path
+    assert cam.fovy == 55.0 and not np.allclose(cam.pose, pose0)
+    assert http_post(v.base, "/record_pose", {})["n_keyframes"] == 1
+    http_post(v.base, "/orbit", {"dx": 120, "dy": 15})
+    assert http_post(v.base, "/record_pose", {})["n_keyframes"] == 2
+    os.makedirs(trajdir, exist_ok=True)
+    saved = http_post(v.base, "/save_trajectory",
+                      {"path": os.path.join(trajdir, "orbit.json")})
+    assert saved["n_keyframes"] == 2
+
+    # SPP: four jittered frames at ds=2, then the mean served as it is
+    assert http_post(v.base, "/spp", {"value": 4}) == {"ok": True}
+    pose, intr, H, W = v.view(2)
+    spp = []
+    for i in range(5):
+        reset_counts()
+        headers, body = http_get(v.base, "/frame?ds=2")
+        check_counts(f"[viewer] {tag} SPP frame {i + 1}", read_counts(),
+                     frame_counts(kind, H * W) if i < 4 else {})
+        spp.append(int(headers["X-SPP"]))
+    assert spp == [1, 2, 3, 4, 4], spp
+    dev = v.trainer.device
+    renders = [v.reference(2, torch.Generator(dev).manual_seed(s))["image"]
+               .reshape(H, W, 3) for s in range(4)]
+    want = np.mean(np.stack(renders).astype(np.float64), axis=0)
+    err = float(np.abs(v.sess._accum - want).max() / np.abs(want).max())
+    assert err <= 1e-6, err
+    assert np.array_equal(decode_png(body), uint8_frame(v.sess._accum, H, W))
+    jitter = float(np.abs(renders[0] - renders[1]).max())
+    assert jitter > 0
+    http_post(v.base, "/orbit", {"dx": 10, "dy": 0})
+    headers, _ = http_get(v.base, "/frame?ds=2")
+    assert headers["X-SPP"] == "1"
+    http_post(v.base, "/spp", {"value": 1})
+
+    # the crop box and its reset, then the background
+    ds = 4
+    before = http_get(v.base, f"/frame?ds={ds}")[1]
+    depth = v.sess._last_depth.copy()
+    http_post(v.base, "/aabb", {"min": [-0.05] * 3, "max": [0.05] * 3})
+    st = json.loads(http_get(v.base, "/status")[1])
+    assert np.allclose(st["aabb"], [-0.05] * 3 + [0.05] * 3), st
+    http_get(v.base, f"/frame?ds={ds}")
+    assert not np.array_equal(v.sess._last_depth, depth)  # rays cut short
+    http_post(v.base, "/aabb", {"reset": True})
+    assert v.sess.aabb is None
+    assert http_get(v.base, f"/frame?ds={ds}")[1] == before
+    assert np.array_equal(v.sess._last_depth, depth)
+    assert http_post(v.base, "/bg", {"value": 0.5}) == {"ok": True}
+    assert v.sess.bg_color == 0.5
+    http_post(v.base, "/bg", {"value": 1.0})
+    print(f"[viewer] {tag} widgets: GET / and /status; orbit, scale, pan, "
+          f"fovy; 2 keyframes saved to {saved['saved']}; SPP counts {spp}, "
+          f"the mean of 4 jittered renders rel-max {err:.2e} (<= 1e-6), "
+          f"jitter moved the image by up to {jitter:.3e}, an orbit restarts "
+          "it; the crop box changed the depths and its reset restored the "
+          "frame bit for bit; /bg", flush=True)
+    return {"spp_counts": spp, "spp_rel_max": err, "jitter": jitter}
+
+
+def viewer_crop_empties(v, tag):
+    """On a session with --background white, the JAX viewer test's check
+    that a crop box empties the frame (max |clip(image) - 1| < 0.05): a
+    box of 0.02 beside the camera, which no ray meets."""
+    pose = v.sess.camera.pose
+    c = pose[:3, 3] + 5.0 * pose[:3, 0]
+    http_post(v.base, "/aabb", {"min": (c - 0.01).tolist(),
+                                "max": (c + 0.01).tolist()})
+    frame = v.sess.render_frame(downscale=4)
+    http_post(v.base, "/aabb", {"reset": True})
+    img = np.clip(frame["image"], 0, 1)
+    err = float(np.abs(img - 1.0).max())
+    print(f"[viewer] {tag} a crop box of 0.02 beside the camera, "
+          f"--background white: max |image - 1| {err:.3e} (< 0.05), depth "
+          f"max {float(frame['depth'].max()):.3e}", flush=True)
+    assert err < 0.05 and np.isfinite(frame["depth"]).all()
+    return err
+
+
+def viewer_card_vs_cpu(v, kind, tag):
+    """A ds=8 frame (64x64) of the session on the card against the same
+    session on the CPU with the same EMA weights, the CPU handed the card's
+    resampled bins (K10's outputs on the hash-grid field, K5's on the MLP
+    field): image and depth max abs <= 1e-3."""
+    t, cfg = v.trainer, v.trainer.cfg
+    cpu = make_field(cfg.field_type, device="cpu", grid_bound=cfg.grid_bound,
+                     cp_rank=cfg.cp_rank, cp_res=cfg.cp_res,
+                     density_bias=cfg.density_bias)
+    ct = Trainer("cpu", cfg.replace(device="cpu"), cpu,
+                 os.path.join(cfg.workspace, "cpu_frame"), resume=False)
+    ct.state.load_weights({k: x.cpu() for k, x in
+                           t.state.ema_model.state_dict().items()})
+    cs = InteractiveSession(ct, W=v.sess.camera.W, H=v.sess.camera.H)
+    for name in ("rot", "center", "radius", "fovy"):
+        setattr(cs.camera, name, copy.deepcopy(getattr(v.sess.camera, name)))
+    cs.bg_color = v.sess.bg_color
+    recorded = []
+    card_m, cpu_m = t.state.ema_model, ct.state.ema_model
+    if kind == "hashgrid":
+        def record(*a):
+            o = sample_pdf_lookup(*a)
+            recorded.append(o)
+            return o
+        ray_ops.sample_pdf_lookup = record
+    else:
+        def spy(*a, fn=card_m.fused_prop_next_bins, **k):
+            o = fn(*a, **k)
+            recorded.append(o)
+            return o
+        card_m.fused_prop_next_bins = spy
+    try:
+        card = v.sess.render_frame(downscale=VIEWER_CPU_DS)
+    finally:
+        ray_ops.sample_pdf_lookup = sample_pdf_lookup
+        card_m.__dict__.pop("fused_prop_next_bins", None)
+    it = iter(recorded)
+    if kind == "hashgrid":
+        ray_ops.sample_pdf_lookup = lambda *a: next(it).cpu()
+    else:
+        cpu_m.fused_prop_next_bins = lambda *a, **k: next(it).cpu()
+    try:
+        host = cs.render_frame(downscale=VIEWER_CPU_DS)
+    finally:
+        ray_ops.sample_pdf_lookup = sample_pdf_lookup
+        cpu_m.__dict__.pop("fused_prop_next_bins", None)
+    err = {k: float(np.abs(card[k] - host[k]).max()) for k in ("image",
+                                                              "depth")}
+    print(f"[viewer] {tag} card vs CPU, a ds={VIEWER_CPU_DS} frame "
+          f"({card['image'].shape[1]}x{card['image'].shape[0]}), the CPU "
+          f"handed the card's {len(recorded)} resampled-bin tensors: image "
+          f"max abs {err['image']:.2e}, depth max abs {err['depth']:.2e} "
+          f"(<= 1e-3; depth up to {float(card['depth'].max()):.3f})",
+          flush=True)
+    assert max(err.values()) <= 1e-3, err
+    return err
+
+
+def viewer_ticks(argv, kind, tag):
+    """The gui branch without --test (a session with the training views):
+    two training ticks, each advancing the step by its tick size with a
+    finite loss and the launches of that many steps."""
+    v = Viewer(argv)
+    try:
+        assert v.sess.scene is not None
+        out = []
+        for _ in range(2):
+            n, step0 = v.sess._train_steps, v.trainer.state.step
+            reset_counts()
+            r = v.sess.train_ticks(target_seconds=0.5)
+            per = ({"K10": 2} if kind == "hashgrid" else
+                   {"K1": 2, "K2": 2, "K3": 1, "K4": 1})
+            want = {k: c * n for k, c in per.items()}
+            got = read_counts()
+            check_counts(f"[viewer] {tag} tick of {n} steps", got, want)
+            for kid, parts in PARTS.items():
+                assert all(got[k] == got[kid] for k in parts), got
+            assert r["steps"] == n and r["step"] == step0 + n, r
+            assert np.isfinite(r["loss"]), r
+            print(f"[viewer] {tag} tick: {n} steps of "
+                  f"{v.trainer.cfg.num_rays} rays in {r['time']:.3f} s "
+                  f"({r['steps_per_sec']:.3f} steps/s), step {r['step']}, "
+                  f"loss {r['loss']:.5f}; next tick {v.sess._train_steps} "
+                  "steps (0.5 s)", flush=True)
+            out.append({"steps": n, "steps_per_s": r["steps_per_sec"],
+                        "loss": r["loss"], "next": v.sess._train_steps})
+        return out
+    finally:
+        v.close()
+
+
+def trajectory_run(argv, kind, tag, frames, names, H, W):
+    """One trajectory CLI run into a fresh <workspace>/trajectory: the
+    frames' names and count, their launches, frames/s, and whether the
+    video was written."""
+    ws = argv[argv.index("--workspace") + 1]
+    d = os.path.join(ws, "trajectory")
+    shutil.rmtree(d, ignore_errors=True)
+    t, dt, launches = run_cli(argv)
+    want = {k: frames * c for k, c in frame_counts(kind, H * W).items()}
+    check_counts(f"[viewer] {tag}: {frames} frames of {W}x{H}", launches,
+                 want)
+    got = sorted(os.listdir(d))
+    video = "video.mp4" in got
+    want_files = sorted([f"{n}_{s}" for n in names
+                         for s in ("rgb.png", "depth.npy")]
+                        + (["video.mp4"] if video else []))
+    assert got == want_files, (got[:4], want_files[:4])
+    img = read_png(os.path.join(d, f"{names[0]}_rgb.png"))
+    assert img.shape == (H, W, 3)
+    print(f"[viewer] {tag}: {frames} frames ({names[0]} ... {names[-1]}) of "
+          f"{W}x{H} in {dt:.2f} s ({frames / dt:.3f} frames/s with the PNG "
+          "and depth writes); "
+          + ("video.mp4 written" if video else
+             "no video.mp4: imageio (or imageio-ffmpeg) is not installed, "
+             "the frames stay"), flush=True)
+    return {"frames": frames, "seconds": dt, "frames_per_s": frames / dt,
+            "video": video, "launches": launches}
+
+
+def viewer_path(work):
+    """Phase 14: scripts/gui.sh through the CLI on phase 11's hash-grid
+    workspace, and the MLP field's viewer on the phase-5 workspace, driven
+    over HTTP; the decode of the picked points; training ticks on both
+    fields; the three trajectory renders; --vis_pose."""
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "scripts")
+    env = {"SANERFHQ_DATA_PATH": os.path.join(root, "scene"),
+           "SANERFHQ_WORKSPACE_ROOT": os.path.join(root, "ws"),
+           "SANERFHQ_SCENE": "sphere",
+           "SANERFHQ_INIT_CKPT": os.path.join(root, "ws", "rgb_nerf",
+                                              "sphere")}
+    trajdir = os.path.join(work, "viewer_trajectories")
+    out = {}
+
+    # 1. scripts/gui.sh on the hash-grid field (phase 11's stage 1)
+    gui = script_argv("gui.sh", env)
+    v = Viewer(gui)
+    try:
+        cfg = v.trainer.cfg
+        assert v.sess.scene is None and v.trainer.resumed
+        assert (v.sess.camera.W, v.sess.camera.H, v.sess.camera.radius) == (
+            VIEW, VIEW, 0.5)
+        check_counts("[viewer] gui.sh start", v.launches, {})
+        print(f"[viewer] scripts/gui.sh {' '.join(gui[1:])}: serving "
+              f"{v.base} in {v.seconds:.2f} s (resumed at step "
+              f"{v.trainer.state.step}, {cfg.field_type} field)", flush=True)
+        # the training cameras ring the sphere in the z = 0 plane at
+        # distance 1; gui.sh's first camera looks down from +z at --radius
+        # 0.5, a view the field never saw: orbit 90 degrees about the up
+        # axis and zoom out to radius 0.5 * 1.1^7 = 0.974, beside the
+        # training view at (1, 0.09, 0)
+        http_post(v.base, "/orbit", {"dx": -0.5 * np.pi / 0.005, "dy": 0})
+        http_post(v.base, "/scale", {"delta": -7})
+        print(f"[viewer] camera at {np.round(v.sess.camera.pose[:3, 3], 4)}"
+              , flush=True)
+        hg = {"frames": viewer_frames(v, "hashgrid", "hash-grid")}
+        hg.update(viewer_picks(v, "hashgrid", "hash-grid"))
+        hg.update(viewer_widgets(v, "hashgrid", "hash-grid", trajdir))
+        hg["card_vs_cpu"] = viewer_card_vs_cpu(v, "hashgrid", "hash-grid")
+    finally:
+        v.close()
+    out["hashgrid"] = hg
+    points_file = v.points_path
+
+    # 2. the MLP field's viewer on the phase-5 workspace, --background
+    # white for the crop check
+    scene = os.path.join(work, "scene")
+    mlp = [scene, "--field_type", "mlp", "--data_type", "llff",
+           "--workspace", os.path.join(work, "train_ws")]
+    v = Viewer(mlp + ["--test", "--gui", "--background", "white"])
+    try:
+        assert v.trainer.resumed and v.sess.scene is None
+        print(f"[viewer] the MLP field's viewer (phase-5 workspace, "
+              f"--background white): serving {v.base}", flush=True)
+        ml = {"frames": viewer_frames(v, "mlp", "MLP")}
+        ml.update(viewer_picks(v, "mlp", "MLP"))
+        ml.update(viewer_widgets(v, "mlp", "MLP", os.path.join(
+            work, "viewer_mlp_trajectories")))
+        ml["crop_empties"] = viewer_crop_empties(v, "MLP")
+        ml["card_vs_cpu"] = viewer_card_vs_cpu(v, "mlp", "MLP")
+    finally:
+        v.close()
+    out["mlp"] = ml
+
+    # 3. the decode of the viewer's picked points: scripts/decode.sh with
+    # --point_file set to them, over phase 12's feature cache
+    dec = script_argv("decode.sh", env) + ["--downscale", str(SCRIPTS_DS)]
+    dec[dec.index("--point_file") + 1] = points_file
+    t, dt, launches = run_cli(dec)
+    n_views = 17
+    check_counts("[viewer] decode.sh --point_file <the viewer's picks>",
+                 launches, {"K10": n_views * frame_counts(
+                     "hashgrid", VIEW * VIEW)["K10"]})
+    obj = os.path.join(t.cfg.workspace, "object_masks")
+    with open(os.path.join(obj, "valid_dict.json")) as f:
+        valid = json.load(f)
+    assert sorted(valid) == [f"v{i:02d}" for i in range(n_views)], valid
+    for stem in valid:
+        m = np.load(os.path.join(obj, f"{stem}_obj_mask.npy"))
+        assert m.shape == (1, VIEW, VIEW) and m.dtype == np.uint8
+    with open(os.path.join(t.cfg.workspace, "log_ngp.txt")) as f:
+        gate = [l_.strip() for l_ in f if l_.startswith("[decode] v")]
+    gate = gate[-n_views:]  # this run's: the log is appended to
+    assert [g.split()[1] for g in gate] == sorted(valid), gate
+    # a view is valid when every picked point passes its depth gate
+    # (valid_threshold -1: int(0.8 * 3) + 1 points); on a 20-step field the
+    # rendered depth is a diffuse mean, so few or none may pass
+    n_valid = int(sum(valid.values()))
+    print(f"[viewer] decode of the 3 picked points: {n_views} views in "
+          f"{dt:.2f} s ({dt / n_views:.3f} s a view), valid "
+          f"{n_valid}/{n_views} at depth_tol 0.05; the gate: "
+          + "; ".join(gate), flush=True)
+    out["decode"] = {"seconds": dt, "valid": n_valid}
+    del t
+
+    # 4. training ticks: the gui branch without --test, both fields
+    out["ticks"] = {
+        "hashgrid": viewer_ticks([a for a in gui if a != "--test"],
+                                 "hashgrid", "hash-grid"),
+        "mlp": viewer_ticks(mlp + ["--gui"], "mlp", "MLP")}
+
+    # 5. trajectories: interp and circle on the MLP field at 512x512, the
+    # viewer's saved keyframes on the hash-grid field at 1024x1024 (with
+    # --vis_pose)
+    out["trajectories"] = {}
+    for kind_ in ("interp", "circle"):
+        flags = (["--render_trajectory"] if kind_ == "interp"
+                 else ["--circle"])
+        n = TRAJ_FRAMES[kind_]
+        out["trajectories"][kind_] = trajectory_run(
+            mlp + ["--test"] + flags, "mlp", f"MLP --test {flags[0]}", n,
+            [f"traj_{i:04d}" for i in range(n)], VIEW, VIEW)
+    replay = gui + ["--trajectory_root", trajdir, "--vis_pose"]
+    out["trajectories"]["replay"] = trajectory_run(
+        replay, "hashgrid", "hash-grid --test --trajectory_root",
+        REPLAY_FRAMES, [f"0000_{i:04d}" for i in range(REPLAY_FRAMES)],
+        REPLAY_RES, REPLAY_RES)
+
+    # 6. --vis_pose (that run): 9 segments a camera, the two boxes (bound
+    # 128), the sparse points
+    s = load_scene(env["SANERFHQ_DATA_PATH"], "mip", SCRIPTS_DS,
+                   enable_cam_center=True, load_images=False)
+    ply = os.path.join(env["SANERFHQ_WORKSPACE_ROOT"], "rgb_nerf", "sphere",
+                       "poses.ply")
+    with open(ply) as f:
+        head = [next(f).strip() for _ in range(12)]
+    segs = 9 * s.poses.shape[0] + 12 + 12
+    assert head[2] == f"element vertex {2 * segs + s.pts3d.shape[0]}", head
+    assert head[9] == f"element edge {segs}", head
+    print(f"[viewer] --vis_pose: {ply}: {segs} segments ({s.poses.shape[0]} "
+          f"cameras, two boxes), {s.pts3d.shape[0]} sparse points",
+          flush=True)
+    out["vis_pose"] = {"segments": segs, "points": int(s.pts3d.shape[0])}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[viewer] phase 14 in {out['seconds']:.2f} s", flush=True)
+    return out
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
@@ -3676,6 +4261,8 @@ def main(argv):
     print(json.dumps({"sam_path": sam}), flush=True)
     distill = distill_path(work)
     print(json.dumps({"distill_path": distill}), flush=True)
+    viewer = viewer_path(work)
+    print(json.dumps({"viewer_path": viewer}), flush=True)
     # the device-time breakdowns of phases 5, 7, 8 and 9, traced after
     # every rate: a torch.profiler trace slows the host's later steps
     print("[train] the stage-1 step's device time by kernel (phase 5's "

@@ -38,10 +38,27 @@ rendered features' MSE (`[EVAL stage-2]`); `--test --decode
 --feature_container distill` decodes from the rendered features, and
 `--test --return_extra --with_sam` writes `results/{stem}_sam.npy`.
 
-The flags are the JAX CLI's that these paths read, plus `--device`;
-`--fp16`, `--preload` and `--mixed_sampling` are parsed only (the
-reference forces fp16 off and preload on after parsing, and overrides
---bound to 128 and --contract on).
+The viewer (`--gui`, the flags of scripts/gui.sh): a browser viewer of
+the field on 127.0.0.1:7860 (render/web_viewer.py; frames of `--W` x
+`--H` at fovy `--fovy`, an orbit camera at `--radius`), with right-click
+point prompts that `S` saves as `<workspace>/picked_points.json` (the
+`--point_file` the decode reads), keyframe recording and, without
+`--test`, live training ticks on the training views.  Trajectory renders
+into `<workspace>/trajectory/` (`{name}_rgb.png`, `_depth.npy`, and
+`video.mp4` where imageio is installed): `--render_trajectory` (poses
+interpolated along the training cameras, or a circle with `--camera_traj
+circle`), `--test --circle`, and `--test --trajectory_root <dir>` (the
+viewer's saved keyframes at 1024x1024).  `--vis_pose` writes the cameras
+as `<workspace>/poses.ply` and goes on.  `--auto_seg` takes every view
+with a decoded mask as valid and trains on all views.
+
+The parser takes every flag of the JAX CLI, plus `--device`;
+`--fp16`, `--preload`, `--mixed_sampling`, `--max_spp`, `--T_thresh`,
+`--sum_after_mlp`, `--density_thresh`, `--ray_jittering`,
+`--use_gt_focal_length`, `--scene_name`, `--object_name` and
+`--val_save_root` are parsed only (the reference forces fp16 off and
+preload on after parsing, and overrides --bound to 128 and --contract
+on), and `--render_mesh` exits with an error, as in the JAX package.
 `--ckpt latest` (the default) resumes the newest checkpoint in
 `<workspace>/checkpoints`; `--ckpt` also takes an `.npz` of JAX parameters
 (models/convert.py).  Otherwise the field is initialised from `--seed`
@@ -79,6 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_cnt", type=int, default=20)
     p.add_argument("--eval_cnt", type=int, default=5)
     p.add_argument("--test", action="store_true")
+    p.add_argument("--camera_traj", type=str, default="interp",
+                   help="--render_trajectory poses: interp (along the "
+                        "training cameras) or circle")
     p.add_argument("--train_split", type=str, default="train",
                    choices=["train", "trainval", "all"])
     p.add_argument("--test_split", type=str, default="val",
@@ -97,6 +117,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--enable_cam_near_far", action="store_true")
     p.add_argument("--enable_cam_center", action="store_true")
     p.add_argument("--min_near", type=float, default=0.2)
+    p.add_argument("--T_thresh", type=float, default=1e-4,
+                   help="surface parity only: dead in the reference too "
+                        "(only read by the commented-out mesh branch, "
+                        "nerf/renderer.py:386-498)")
     p.add_argument("--iters", type=int, default=20000)
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--num_steps", type=int, nargs="*", default=[128, 64, 32])
@@ -105,6 +129,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--background", type=str, default="last_sample",
                    choices=["white", "random", "last_sample"])
     p.add_argument("--max_ray_batch", type=int, default=4096 * 4)
+    p.add_argument("--density_thresh", type=float, default=10,
+                   help="surface parity only: dead in the reference too "
+                        "(a torch-ngp occupancy-grid leftover; no "
+                        "raymarching extension exists, SURVEY.md intro)")
     p.add_argument("--num_rays", type=int, default=4096)
     p.add_argument("--adaptive_num_rays", action="store_true")
     p.add_argument("--num_points", type=int, default=2 ** 18)
@@ -119,6 +147,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_type", type=str, default="mip",
                    choices=["mip", "lerf", "llff", "3dfront", "ctr", "pano",
                             "others"])
+    p.add_argument("--scene_name", type=str, default="garden",
+                   help="parsed only, as in the JAX package")
+    p.add_argument("--object_name", type=str, default="table_whole",
+                   help="parsed only, as in the JAX package")
     p.add_argument("--field_type", type=str, default="hashgrid",
                    choices=["hashgrid", "hashgrid_packed", "mlp"])
     p.add_argument("--cp_rank", type=int, default=64)
@@ -144,6 +176,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sam_use_view_direction", action="store_true",
                    help="the SAM MLP reads the composited view-dependent "
                         "features (the distill container)")
+    p.add_argument("--sum_after_mlp", action="store_true",
+                   help="surface parity only: dead in the reference too "
+                        "(parsed at main.py:36; only read inside the "
+                        "commented-out mesh branch, nerf/renderer.py:472)")
     p.add_argument("--cache_size", type=int, default=256,
                    help="the distill container's ring of encoded batches "
                         "(0: encode every step)")
@@ -173,6 +209,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mask_root", type=str, default=None)
     p.add_argument("--n_inst", type=int, default=2)
     p.add_argument("--label_regularization_weight", type=float, default=0.0)
+    p.add_argument("--ray_jittering", action="store_true",
+                   help="surface parity only: dead in the reference too "
+                        "(parsed at main.py:128, never read)")
     p.add_argument("--ray_pair_rgb_loss_weight", type=float, default=0)
     p.add_argument("--ray_pair_rgb_threshold", type=float, default=0.3)
     p.add_argument("--epsilon", type=float, default=1e-6)
@@ -190,6 +229,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_default_focal_length", action="store_true",
                    help="stage-2 eval: the view's focal length at "
                         "online_resolution instead of fovy 60")
+    p.add_argument("--use_gt_focal_length", action="store_true",
+                   help="surface parity only: dead in the reference too "
+                        "(parsed at main.py:172, never read)")
+    p.add_argument("--render_mesh", action="store_true",
+                   help="refused, as in the JAX package: the reference's "
+                        "mesh branch is commented out")
+    p.add_argument("--val_save_root", type=str, default=None,
+                   help="parsed only, as in the JAX package")
+    p.add_argument("--auto_seg", action="store_true",
+                   help="every view with a decoded mask is valid (no ::3 "
+                        "subsampling); train on all views, validate on the "
+                        "first 100")
     p.add_argument("--render_mask_type", type=str, default="heatmap",
                    choices=["mask", "composition", "heatmap"])
     p.add_argument("--render_mask_instance_id", type=int, default=0)
@@ -197,6 +248,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--test --with_sam: also write each view's rendered "
                         "SAM features (results/{stem}_sam.npy); --test "
                         "--with_mask always writes the mask probabilities")
+
+    # the viewer, trajectory renders and the pose dump
+    p.add_argument("--vis_pose", action="store_true",
+                   help="write the cameras, the bound and the sparse points "
+                        "as <workspace>/poses.ply (and .png with "
+                        "matplotlib), then go on")
+    p.add_argument("--gui", action="store_true",
+                   help="serve the browser viewer on 127.0.0.1:7860 (with "
+                        "--test no training ticks)")
+    p.add_argument("--W", type=int, default=512)
+    p.add_argument("--H", type=int, default=512)
+    p.add_argument("--radius", type=float, default=0.5,
+                   help="the viewer camera's orbit radius")
+    p.add_argument("--fovy", type=float, default=60)
+    p.add_argument("--max_spp", type=int, default=1,
+                   help="parsed only, as in the JAX package (the page's spp "
+                        "field sets the accumulation)")
+    p.add_argument("--gui_mouse_right_drag", action="store_true",
+                   help="right-drag pans; right-click picks no point")
+    p.add_argument("--trajectory_root", type=str, default=None,
+                   help="with --test: render the viewer's saved "
+                        "trajectories (*.json here) at 1024x1024 into "
+                        "<workspace>/trajectory")
+    p.add_argument("--render_trajectory", action="store_true",
+                   help="render poses synthesized from the training "
+                        "cameras (--camera_traj) into <workspace>/trajectory")
+    p.add_argument("--circle", action="store_true",
+                   help="with --test: render a circle around the scene "
+                        "into <workspace>/trajectory")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default cuda (cpu must be asked for)")
     return p
@@ -226,6 +306,29 @@ def _subset(scene, idx):
     return s
 
 
+def _trajectory_scene(cfg: Config, scene, train_scene):
+    """The poses of a trajectory render, without images: the viewer's
+    saved keyframes under --trajectory_root (interpolated, 1024x1024 at
+    fovy 60), else poses synthesized from the training cameras (a circle
+    with --circle, else --camera_traj) with the scene's camera."""
+    from .data.trajectory import (load_recorded_trajectories,
+                                  synthesize_test_poses)
+
+    t = copy.copy(scene)
+    t.images = t.cam_near_far = t.masks = None
+    if cfg.trajectory_root and os.path.isdir(cfg.trajectory_root):
+        t.poses, t.intrinsics, t.img_names = load_recorded_trajectories(
+            cfg.trajectory_root)
+        t.H = t.W = int(2 * t.intrinsics[2])  # its square camera's size
+    else:
+        t.poses = synthesize_test_poses(
+            train_scene.poses, "circle" if cfg.circle else cfg.camera_traj)
+        t.intrinsics = (scene.intrinsics[0] if scene.intrinsics.ndim == 2
+                        else scene.intrinsics)
+        t.img_names = np.array([f"traj_{i:04d}" for i in range(len(t.poses))])
+    return t
+
+
 def load_init_params(path: str) -> dict:
     """--init_ckpt: an .npz of JAX parameters, or a port workspace (or its
     checkpoints/ directory), whose newest checkpoint's model weights are
@@ -248,6 +351,10 @@ def load_init_params(path: str) -> dict:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.render_mesh:
+        raise SystemExit(
+            "error: --render_mesh is not supported (the reference's mesh "
+            "branch is commented out / non-functional; see SURVEY.md §2.5)")
     cfg = config_from_args(args)
     # fail fast, before any model or data is built
     if cfg.decode and cfg.use_point and not cfg.point_file:
@@ -279,6 +386,14 @@ def main(argv=None):
                        sam_use_view_direction=cfg.sam_use_view_direction)
     scene = load_scene(cfg.path, cfg.data_type, cfg.downscale, cfg.scale,
                        cfg.offset, cfg.enable_cam_center, cfg.bound)
+    if cfg.vis_pose:
+        from .utils.vis_pose import visualize_poses
+
+        os.makedirs(cfg.workspace, exist_ok=True)
+        ply = visualize_poses(
+            scene.poses, bound=cfg.bound, points=scene.pts3d,
+            out_path=os.path.join(cfg.workspace, "poses.ply"))
+        print(f"[INFO] pose visualization written to {ply}(.png)")
     test_view_names = None
     if cfg.test_view_path:
         with open(cfg.test_view_path) as f:
@@ -289,7 +404,8 @@ def main(argv=None):
     mask_valid_idx = None
     if cfg.with_mask and cfg.mask_root:
         scene.masks, mask_valid_idx = load_object_masks(
-            cfg.mask_root, scene.img_names, scene.H, scene.W, seed=cfg.seed)
+            cfg.mask_root, scene.img_names, scene.H, scene.W, seed=cfg.seed,
+            auto_seg=cfg.auto_seg)
 
     init_params = (load_init_params(cfg.init_ckpt)
                    if (cfg.with_sam or cfg.with_mask) and cfg.init_ckpt
@@ -319,11 +435,36 @@ def main(argv=None):
                         f"using random weights from --seed {cfg.seed}")
 
     n = scene.poses.shape[0]
+    train_idx = split_indices(n, cfg.train_split, cfg.val_type,
+                              test_view_names, scene.img_names,
+                              auto_seg=cfg.auto_seg)
+    if mask_valid_idx is not None and not cfg.test:
+        # stage 3 trains on the views with a valid mask only
+        train_idx = train_idx[np.isin(train_idx, mask_valid_idx)]
+    train_scene = _subset(scene, train_idx)
     # the cache holds every view
     val_type = ("val_all" if cfg.with_sam and cfg.feature_container ==
                 "cache" else cfg.val_type)
     val_scene = _subset(scene, split_indices(
-        n, cfg.test_split, val_type, test_view_names, scene.img_names))
+        n, cfg.test_split, val_type, test_view_names, scene.img_names,
+        auto_seg=cfg.auto_seg))
+    if cfg.render_trajectory or (cfg.test and cfg.camera_traj and
+                                 (cfg.circle or cfg.trajectory_root)):
+        trainer.test(_trajectory_scene(cfg, scene, train_scene),
+                     save_dir=os.path.join(cfg.workspace, "trajectory"),
+                     write_video=True)
+        return trainer
+    if cfg.gui:
+        from .render.gui_api import InteractiveSession
+        from .render.web_viewer import serve
+
+        sess = InteractiveSession(
+            trainer, scene=None if cfg.test else train_scene,
+            W=cfg.W, H=cfg.H, fovy=cfg.fovy, radius=cfg.radius)
+        serve(sess, points_path=os.path.join(cfg.workspace,
+                                             "picked_points.json"),
+              right_drag_pan=cfg.gui_mouse_right_drag)
+        return trainer
     if cfg.test:
         if cfg.decode:
             from .utils.points import load_point_file
@@ -340,12 +481,6 @@ def main(argv=None):
             trainer.test(val_scene, extra="sam" if cfg.return_extra
                          and cfg.with_sam else None)
         return trainer
-    train_idx = split_indices(n, cfg.train_split, cfg.val_type,
-                              test_view_names, scene.img_names)
-    if mask_valid_idx is not None:
-        # stage 3 trains on the views with a valid mask only
-        train_idx = train_idx[np.isin(train_idx, mask_valid_idx)]
-    train_scene = _subset(scene, train_idx)
     if cfg.with_sam and cfg.feature_container == "cache":
         stages.store_sam_features(trainer, val_scene, sam_predictor)
         return trainer

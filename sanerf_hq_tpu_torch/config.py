@@ -1,5 +1,6 @@
 """Static configuration: the `Config` fields the stage-1, stage-2 (the
-feature cache and the distill container), decode and stage-3 paths read.
+feature cache and the distill container), decode, stage-3, viewer and
+trajectory paths read.
 
 A copy of the matching fields of the JAX package's `Config` (defaults
 unchanged, including the post-parse hard overrides bound=128,
@@ -58,6 +59,8 @@ class Config:
     save_cnt: int = 20
     eval_cnt: int = 5
     test: bool = False
+    # --render_trajectory: interp (along the training cameras) | circle
+    camera_traj: str = "interp"
 
     # dataset
     train_split: str = "train"
@@ -137,6 +140,28 @@ class Config:
     # ({stem}_sam.npy); --test --with_mask always writes the mask
     # probabilities
     return_extra: bool = False
+
+    # every view with a decoded mask is valid (no ::3 subsampling, no
+    # top-up); train on all views, validate on the first 100
+    auto_seg: bool = False
+
+    # the viewer (--gui): frame size, orbit radius and fovy of its camera;
+    # right-drag pans instead of picking points
+    gui: bool = False
+    W: int = 512
+    H: int = 512
+    radius: float = 0.5
+    fovy: float = 60.0
+    gui_mouse_right_drag: bool = False
+    # write the cameras, bound and sparse points as <workspace>/poses.ply
+    vis_pose: bool = False
+
+    # trajectory renders into <workspace>/trajectory: the viewer's saved
+    # keyframes (trajectory_root) or poses synthesized from the training
+    # cameras (render_trajectory; circle for an orbit)
+    trajectory_root: Optional[str] = None
+    render_trajectory: bool = False
+    circle: bool = False
 
     # port: where tensors live ("cuda" unless the caller asks for "cpu")
     device: Optional[str] = None

@@ -11,8 +11,8 @@ _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> channels
 
 
-def write_png(path: str, img: np.ndarray):
-    """img: uint8 [H, W] or [H, W, 1|2|3|4]."""
+def encode_png(img: np.ndarray) -> bytes:
+    """img: uint8 [H, W] or [H, W, 1|2|3|4] -> the bytes of a PNG file."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
     H, W = img.shape[:2]
     C = 1 if img.ndim == 2 else img.shape[2]
@@ -24,10 +24,15 @@ def write_png(path: str, img: np.ndarray):
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
+    return (_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype,
+                                              0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray):
+    """img: uint8 [H, W] or [H, W, 1|2|3|4]."""
     with open(path, "wb") as f:
-        f.write(_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype,
-                                                  0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+        f.write(encode_png(img))
 
 
 def _paeth(a, b, c):
@@ -37,12 +42,17 @@ def _paeth(a, b, c):
 
 
 def read_png(path: str) -> np.ndarray:
-    """8-bit, non-interlaced grey / grey+alpha / RGB / RGBA PNG -> uint8
-    [H, W, C]."""
+    """8-bit, non-interlaced grey / grey+alpha / RGB / RGBA PNG file ->
+    uint8 [H, W, C]."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, name: str = "PNG data") -> np.ndarray:
+    """The bytes of an 8-bit, non-interlaced grey / grey+alpha / RGB / RGBA
+    PNG file -> uint8 [H, W, C]."""
     if data[:8] != _SIG:
-        raise ValueError(f"{path} is not a PNG file")
+        raise ValueError(f"{name} is not a PNG file")
     pos, idat, hdr = 8, [], None
     while pos < len(data):
         n, tag = struct.unpack(">I4s", data[pos:pos + 8])
@@ -57,7 +67,7 @@ def read_png(path: str) -> np.ndarray:
     W, H, depth, ctype, _, _, interlace = hdr
     if depth != 8 or interlace or ctype not in _CHANNELS:
         raise NotImplementedError(
-            f"{path}: only 8-bit non-interlaced grey/RGB(A) PNGs are read "
+            f"{name}: only 8-bit non-interlaced grey/RGB(A) PNGs are read "
             f"(bit depth {depth}, colour type {ctype}, interlace {interlace})")
     C = _CHANNELS[ctype]
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)

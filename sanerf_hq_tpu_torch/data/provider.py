@@ -443,8 +443,10 @@ def resize_nearest(img: np.ndarray, H: int, W: int) -> np.ndarray:
 
 def _linear_taps(dst: int, src: int):
     """OpenCV's INTER_LINEAR taps along one axis: half-pixel centres,
-    clamped at both edges.  Returns (lower index, upper weight)."""
-    f = ((np.arange(dst) + 0.5) * (src / dst) - 0.5).astype(np.float32)
+    clamped at both edges, the position and its fraction in float64 (as
+    OpenCV 5 takes them; within an fp32 rounding of OpenCV 4's float
+    ones).  Returns (lower index, lower weight, upper weight)."""
+    f = (np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5
     i0 = np.floor(f).astype(np.int64)
     f = f - i0
     f[i0 < 0] = 0.0
@@ -452,30 +454,31 @@ def _linear_taps(dst: int, src: int):
     top = i0 >= src - 1
     f[top] = 0.0
     i0[top] = src - 1
-    return i0, f.astype(np.float32)
+    return i0, (1.0 - f).astype(np.float32), f.astype(np.float32)
 
 
 def resize_linear(img: np.ndarray, H: int, W: int) -> np.ndarray:
     """Bilinear resize of a float32 [h, w] image to [H, W] as OpenCV's
-    INTER_LINEAR computes it: a horizontal pass, then a vertical one."""
+    INTER_LINEAR computes it: a horizontal pass, then a vertical one
+    (within two fp32 roundings of cv2.resize)."""
     img = np.asarray(img, np.float32)
     h, w = img.shape
-    c0, fc = _linear_taps(W, w)
-    r0, fr = _linear_taps(H, h)
+    c0, a0, a1 = _linear_taps(W, w)
+    r0, b0, b1 = _linear_taps(H, h)
     c1, r1 = np.minimum(c0 + 1, w - 1), np.minimum(r0 + 1, h - 1)
-    rows = img[:, c0] * (1.0 - fc) + img[:, c1] * fc  # [h, W]
-    return (rows[r0] * (1.0 - fr)[:, None]
-            + rows[r1] * fr[:, None]).astype(np.float32)
+    rows = img[:, c0] * a0 + img[:, c1] * a1  # [h, W]
+    return rows[r0] * b0[:, None] + rows[r1] * b1[:, None]
 
 
 def load_object_masks(mask_root: str, img_names, H: int, W: int,
-                      seed: int = 0):
+                      seed: int = 0, auto_seg: bool = False):
     """Load {stem}_obj_mask.npy files (the decode output: [1, H, W] uint8
     labels) with validity gating: a view is valid when its
     valid_dict.json score is > 0.5 and its mask has >= 10 foreground
     pixels; more than 25 valid views are subsampled ::3, topped up to 25
     with views drawn (with replacement) from a numpy Generator seeded with
-    `seed`.
+    `seed`.  auto_seg: every view with a mask file is valid, none is
+    dropped or drawn.
 
     Returns (masks [V, H, W] int32 labels, valid indices [K] int64)."""
     valid_path = os.path.join(mask_root, "valid_dict.json")
@@ -499,10 +502,10 @@ def load_object_masks(mask_root: str, img_names, H: int, W: int,
             m = resize_nearest(m.astype(np.uint8), H, W)
         masks[i] = m.astype(np.int32)
         score = float(valid.get(stem, 1))
-        if (m > 0).sum() >= 10 and score > 0.5:
+        if auto_seg or ((m > 0).sum() >= 10 and score > 0.5):
             valid_idx.append(i)
     valid_idx = np.asarray(valid_idx, np.int64)
-    if valid_idx.shape[0] > 25:
+    if not auto_seg and valid_idx.shape[0] > 25:
         sub = valid_idx[::3]
         if sub.shape[0] < 25:
             extra = np.random.default_rng(seed).choice(valid_idx,

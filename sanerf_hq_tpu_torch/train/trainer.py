@@ -107,6 +107,7 @@ class Trainer:
         self.train_step = make_rgb_train_step(model, cfg)
         self.eval_render = make_eval_render(self.state.ema_model, cfg)
         self._eval_render_perturb = None
+        self._train_data = None
         self.best_metric = -np.inf
         self.stats = {"loss": []}
 
@@ -114,8 +115,11 @@ class Trainer:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
     # -- stage 1 -----------------------------------------------------------
-    def train(self, scene: Scene, val_scene: Optional[Scene] = None,
-              max_epoch: Optional[int] = None):
+    def prepare_training(self, scene: Scene):
+        """Put the training views on the device and seed the generator that
+        draws the batches and the jitter (from the config and the step
+        resumed at); `train` and `train_one_step` draw from them.  With
+        adaptive_num_rays the ray count is set here."""
         cfg = self.cfg
         if cfg.adaptive_num_rays:
             # the reference rescales num_rays each step so that num_rays *
@@ -127,12 +131,31 @@ class Trainer:
                          f"{target} (num_points {cfg.num_points} / "
                          f"final-level samples {cfg.num_steps[-1]})")
                 cfg = self.cfg = cfg.replace(num_rays=target)
-        images = self._to_device(scene.images)
-        poses = self._to_device(scene.poses)
-        intr = self._to_device(scene.intrinsics)
-        cnf = (self._to_device(scene.cam_near_far)
-               if cfg.enable_cam_near_far and scene.cam_near_far is not None
-               else None)
+        gen = torch.Generator(self.device)
+        gen.manual_seed(cfg.seed * 1000003 + self.state.step)
+        self._train_data = dict(
+            images=self._to_device(scene.images),
+            poses=self._to_device(scene.poses),
+            intr=self._to_device(scene.intrinsics),
+            cnf=(self._to_device(scene.cam_near_far)
+                 if cfg.enable_cam_near_far
+                 and scene.cam_near_far is not None else None),
+            gen=gen)
+
+    def train_one_step(self) -> dict:
+        """One optimizer step on a batch drawn from the views that
+        `prepare_training` put on the device.  The EMA is not updated."""
+        d = self._train_data
+        batch = sample_rgb_batch(
+            d["gen"], d["images"], d["poses"], d["intr"], self.cfg.num_rays,
+            random_image_batch=self.cfg.random_image_batch,
+            cam_near_far=d["cnf"])
+        return self.train_step(self.state, batch, d["gen"])
+
+    def train(self, scene: Scene, val_scene: Optional[Scene] = None,
+              max_epoch: Optional[int] = None):
+        self.prepare_training(scene)
+        cfg = self.cfg
         steps_per_epoch = scene.poses.shape[0]
         if max_epoch is None:
             max_epoch = int(np.ceil(cfg.iters / steps_per_epoch))
@@ -140,10 +163,6 @@ class Trainer:
         save_interval = max(1, max_epoch // max(1, cfg.save_cnt))
         self.log(f"[INFO] max_epoch {max_epoch}, eval every {eval_interval}, "
                  f"save every {save_interval}")
-        # batches and jitter from one generator on the device, seeded from
-        # the config and the step resumed at
-        gen = torch.Generator(self.device)
-        gen.manual_seed(cfg.seed * 1000003 + self.state.step)
 
         t_start = time.time()
         step0 = self.state.step
@@ -153,11 +172,7 @@ class Trainer:
             if k <= 0:
                 break
             for _ in range(k):
-                batch = sample_rgb_batch(
-                    gen, images, poses, intr, cfg.num_rays,
-                    random_image_batch=cfg.random_image_batch,
-                    cam_near_far=cnf)
-                metrics = self.train_step(self.state, batch, gen)
+                metrics = self.train_one_step()
             self.state.update_ema()
             step = self.state.step
             loss = float(metrics["loss"])
@@ -251,9 +266,12 @@ class Trainer:
         return meters[0].measure() if meters else 0.0
 
     def test(self, scene: Scene, save_dir: Optional[str] = None,
-             extra: Optional[str] = None):
+             write_video: bool = False, extra: Optional[str] = None):
         """Render every pose and save {stem}_rgb.png / {stem}_depth.npy;
         log an [EVAL] PSNR line when the scene has ground truth.
+        write_video also writes the frames as save_dir/video.mp4 where
+        imageio and imageio-ffmpeg are installed (the trajectory
+        renders).
         extra='sam' (--return_extra with --with_sam) also saves each view's
         rendered SAM features through its low-res feature camera, with
         the live weights, to {stem}_sam.npy [h, w, 256] (JAX
@@ -263,6 +281,7 @@ class Trainer:
         save_dir = save_dir or os.path.join(self.workspace, "results")
         os.makedirs(save_dir, exist_ok=True)
         meter = PSNRMeter()
+        frames = []
         for i in range(scene.poses.shape[0]):
             out, pred = self._render_scene(scene, i)
             stem = self._stem(scene, i)
@@ -280,10 +299,29 @@ class Trainer:
                         feats.cpu().numpy())
             if scene.images is not None:
                 meter.update(pred, scene.images[i][..., :3])
+            if write_video:
+                frames.append((pred * 255).astype(np.uint8))
         if meter.N:
             self.log("[EVAL] " + meter.report())
+        if frames:
+            _write_video(os.path.join(save_dir, "video.mp4"), frames)
         self.log(f"[INFO] test results saved to {save_dir}")
 
 
 def _save_image(path: str, img: np.ndarray):
     write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+
+def _write_video(path: str, frames, fps: int = 24) -> bool:
+    """frames: uint8 [H, W, 3] each.  Without imageio or its ffmpeg plugin
+    (imageio-ffmpeg, which writes .mp4) only the frames stay and a warning
+    says so; any other failure of the write raises.  Returns whether the
+    video was written."""
+    try:
+        import imageio
+        import imageio_ffmpeg  # noqa: F401
+    except ImportError as e:
+        print(f"[WARN] video write failed ({e}); saving frames only")
+        return False
+    imageio.mimwrite(path, frames, fps=fps, quality=8)
+    return True

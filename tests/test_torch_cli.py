@@ -7,6 +7,7 @@ Bar: max abs < 2e-2 on image, depth and weights_sum.  The JAX trainer
 renders through the composable route on the CPU and the port through its
 level-kernel route (plain twins here), so this is also the route bar.
 """
+import json
 import os
 import subprocess
 import sys
@@ -279,7 +280,7 @@ def test_entry_points_need_a_device_or_cpu(scene, tmp_path, monkeypatch):
 _NO_JAX = r"""
 import importlib, importlib.abc, pkgutil, sys
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "sanerf_hq_tpu", "cv2",
-           "transformers"}
+           "transformers", "imageio", "matplotlib"}
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -302,12 +303,13 @@ print(len(mods))
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Every module of the port (the SAM modules too) and chip_smoke.py
-    import with JAX, the JAX package, OpenCV and transformers blocked."""
+    """Every module of the port (the SAM, viewer and trajectory modules
+    too) and chip_smoke.py import with JAX, the JAX package, OpenCV,
+    transformers, imageio and matplotlib blocked."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 47  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 55  # every module was imported
 
 
 _SCRIPTS = r"""
@@ -643,3 +645,98 @@ def test_cli_sam_chain_runs_without_jax_or_opencv(tmp_path):
         assert np.load(os.path.join(dec, f"{s}_depth.npy")).shape == (HW, HW)
     assert os.path.exists(os.path.join(str(tmp_path), "ws3", "checkpoints",
                                        "step_00000004.pt"))
+
+
+def _options(parser):
+    return {o: a.default for a in parser._actions for o in a.option_strings}
+
+
+def test_parser_takes_every_jax_flag_and_adds_only_device():
+    """The port's parser takes every option string of the JAX CLI's, with
+    the same default; its only extra is --device."""
+    from sanerf_hq_tpu.cli import build_parser as jax_parser
+
+    want, got = _options(jax_parser()), _options(cli.build_parser())
+    assert set(want) - set(got) == set()
+    assert set(got) - set(want) == {"--device"}
+    for flag, default in want.items():
+        assert got[flag] == default, flag
+    for flag in ("--T_thresh", "--sum_after_mlp", "--density_thresh",
+                 "--ray_jittering", "--use_gt_focal_length"):  # parsed only
+        a = next(a for a in cli.build_parser()._actions
+                 if flag in a.option_strings)
+        assert "surface parity only" in a.help, flag
+
+
+def test_render_mesh_exits_as_jax_does(scene, tmp_path):
+    from sanerf_hq_tpu.cli import main as jax_main
+
+    argv = _argv(scene, str(tmp_path), "--render_mesh")
+    with pytest.raises(SystemExit) as want:
+        jax_main(argv)
+    with pytest.raises(SystemExit) as got:
+        cli.main(argv + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+    assert "--render_mesh is not supported" in str(got.value)
+    assert not os.listdir(tmp_path)
+
+
+def _auto_seg_masks(root, names, H, W):
+    """Decode-format masks: view 1 has no file, view 3 three foreground
+    pixels, view 4 a low score; the rest are valid."""
+    rng = np.random.default_rng(8)
+    os.makedirs(root, exist_ok=True)
+    valid = {}
+    for i, name in enumerate(names):
+        stem = os.path.splitext(name)[0]
+        if i == 1:
+            continue
+        m = (rng.uniform(size=(1, H, W)) > 0.5).astype(np.uint8)
+        if i == 3:
+            m[:] = 0
+            m[0, 0, :3] = 1
+        np.save(os.path.join(root, f"{stem}_obj_mask.npy"), m)
+        valid[stem] = 0.2 if i == 4 else 0.9
+    with open(os.path.join(root, "valid_dict.json"), "w") as f:
+        json.dump(valid, f)
+
+
+@pytest.mark.parametrize("n_views", [17, 40])
+def test_auto_seg_masks_and_splits_match_jax(scene, tmp_path, monkeypatch,
+                                             n_views):
+    """--auto_seg: every view with a mask file is valid, none subsampled
+    or drawn; train on every view, validate on the first 100; the masks,
+    the valid views and both splits as JAX's; the CLI hands the flag to
+    the loader and both splits."""
+    from sanerf_hq_tpu.data import provider as jprov
+    from sanerf_hq_tpu_torch.data import provider as tprov
+    from sanerf_hq_tpu_torch.train import stages
+
+    names = [f"v{i:02d}.png" for i in range(n_views)]
+    root = str(tmp_path / "masks")
+    _auto_seg_masks(root, names, HW, HW)
+    jm, jv = jprov.load_object_masks(root, names, HW, HW, auto_seg=True)
+    tm, tv = tprov.load_object_masks(root, names, HW, HW, auto_seg=True)
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal(tv, jv)
+    assert list(tv) == [i for i in range(n_views) if i != 1]
+    for split in ("train", "val"):
+        np.testing.assert_array_equal(
+            tprov.split_indices(n_views, split, auto_seg=True),
+            jprov.split_indices(n_views, split, auto_seg=True))
+    if n_views != 17:
+        return
+    seen = {}
+    real = tprov.load_object_masks
+
+    def load(*a, **kw):
+        seen["auto_seg"] = kw["auto_seg"]
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tprov, "load_object_masks", load)
+    monkeypatch.setattr(stages, "evaluate_masks",
+                        lambda t, s, **kw: seen.update(val=list(s.img_names)))
+    cli.main(_argv(scene, str(tmp_path / "ws"), "--device", "cpu",
+                   "--with_mask", "--mask_root", root, "--auto_seg"))
+    assert seen["auto_seg"] is True
+    assert seen["val"] == names  # the first 100 views: all 17
