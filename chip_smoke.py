@@ -5,6 +5,12 @@
     python3 chip_smoke.py --ab      # phases 1 and 2, the level kernels'
                                     # output digests and K8's check alone
 
+    python3 chip_smoke.py --dp-cards  # phase 15 (a) and (b) on every
+                                      # card of the host: world size N
+                                      # against 1
+
+(`--dp-worker <spec>` is phase 15's process under torch.distributed.run.)
+
 `--ab` is what an A/B call runs on each of two commits: copied into an
 earlier commit's checkout, it measures that commit's package the same way
 (the design lines of K8 are left out where its module has no design rule).
@@ -259,6 +265,50 @@ last line:
         frames at 1024x1024): the frames' names and counts, frames/s,
         whether video.mp4 was written; the PLY's vertex and edge counts;
      then one JSON line {"viewer_path": {...}}.
+ 15. data parallelism, LPIPS and the native COLMAP reader (run after 14,
+     before 10's traces): first, beside phase 3, the level kernels K5, K1,
+     K2, K3, K4 and K10 at ray counts a rank's shard gives (3128, a
+     stage-3 batch's half, and 1001), each against its plain twin at the
+     phase-3 bars; then one `python -m torch.distributed.run --standalone
+     --nproc_per_node 1 chip_smoke.py --dp-worker <spec>` (NCCL, one rank
+     a card; no fallback to gloo), whose rank runs through cli.main, counts
+     set to 0 just before and read just after each run:
+     a. stage 1 of the MLP field at the phase-5 flags (20 steps of 8192
+        rays, the eval of PSNR, SSIM and LPIPS on the 512x512 held-out
+        views): launches K1 40, K2 40, K3 20 + 16 an eval view, K4 20, K5
+        32 an eval view (4 views), K6-K10 0; the eval images equal
+        render_view's; the checkpoint against phase 5's, beside a second
+        run without torchrun: bitwise where those two agree bit for bit,
+        else the share of elements apart by > 1e-3 under 1% (JAX's bound)
+        and the mean abs under 1e-3, the max abs printed (K4's CP grads
+        are summed with fp32 atomics, and Adam's eps 1e-15 lifts a
+        difference to an lr-sized step on single elements); one step's
+        grads,
+        sharded and all-reduced, against the unsharded step's on one
+        batch: every non-CP grad bitwise equal;
+     b. the scripts' stage 3 (train_obj_nerf.sh's flags over phase 11's
+        workspace, --iters 20 --ray_pair_rgb_iter 10 --downscale 4): K10
+        2 a step, an error-map chunk and an eval chunk, K1-K8 0; one step
+        sharded (all-reduced) against unsharded on one batch: loss,
+        metrics and the mask MLP's grads bitwise equal; the error map's
+        update on the card (cells drawn twice) equal to a sequential
+        write; 10 sharded steps, each drawing from the map the last one
+        left, every rank's batch and map bitwise rank 0's; the CLI
+        against two runs without torchrun (m_grid's grads are summed by
+        index_add_'s atomics, so past step 1 no run repeats bit for bit):
+        step 1's losses bitwise equal, the trace's gap printed, the final
+        MeanIoU within 1e-2;
+     c. LPIPS (VGG16, the proxy weights) on the card against the CPU on
+        (a)'s two eval images, rel 1e-4, and its time at 512x512 (CUDA
+        events, median of 10) with its peak device memory;
+     d. the native COLMAP reader (g++) on phase 11's scene, field by field
+        equal to the Python reader, both timed;
+     e. the steps/s of (a) and (b) with and without the process group at
+        world size 1 (in turns in the rank's process);
+     with two or more cards, (a) again at world size 2, held to world
+     size 1 by the same rule, its eval metrics within 1e-4 rel, one
+     step's grads within 1e-4 rel; on one card the line says that this rests on
+     the CPU tests over gloo; then one JSON line {"dp_path": {...}}.
  10. the device-only torch.profiler traces of phases 5, 7, 8, 9 and 11,
      taken after every rate, since a trace slows the host's later steps;
      one JSON line with every kernel's numbers (K10's launches those of
@@ -284,6 +334,8 @@ import torch
 import torch.nn.functional as F
 
 from sanerf_hq_tpu_torch import cli
+from sanerf_hq_tpu_torch.data import colmap
+from sanerf_hq_tpu_torch.data.colmap_native import read_model_native
 from sanerf_hq_tpu_torch.data.png import decode_png, encode_png, read_png
 from sanerf_hq_tpu_torch.data.provider import (load_scene, resize_nearest,
                                                split_indices)
@@ -319,6 +371,7 @@ from sanerf_hq_tpu_torch.render.renderer import RenderSettings, render_rays
 from sanerf_hq_tpu_torch.sam import SamPredictor, build_sam
 from sanerf_hq_tpu_torch.train import stages
 from sanerf_hq_tpu_torch.train.checkpoints import CheckpointManager
+from sanerf_hq_tpu_torch.train.lpips import make_lpips_fn, random_lpips_params
 from sanerf_hq_tpu_torch.train.steps import (_grid_regularizers,
                                              make_mask_train_step,
                                              make_rgb_train_step,
@@ -2628,29 +2681,54 @@ def mask_branch_moved(trainer, init):
     return moved
 
 
+def scripts_env(root):
+    """The SANERFHQ_* variables of the scripts over a tree under root."""
+    return {"SANERFHQ_DATA_PATH": os.path.join(root, "scene"),
+            "SANERFHQ_WORKSPACE_ROOT": os.path.join(root, "ws"),
+            "SANERFHQ_SCENE": "sphere",
+            "SANERFHQ_MASK_PATH": os.path.join(root, "masks"),
+            "SANERFHQ_INIT_CKPT": os.path.join(root, "ws", "rgb_nerf",
+                                               "sphere")}
+
+
+def write_scripts_scene(root, view):
+    """The scripts' COLMAP scene under root (17 views, images_4/ at view x
+    view, images/ and the sphere masks at 4x that) and the scripts'
+    relative --test_view_path, written there and passed by its absolute
+    path."""
+    env, full = scripts_env(root), view * SCRIPTS_DS
+    write_colmap_scene(env["SANERFHQ_DATA_PATH"], n_views=17, H=view,
+                       W=view, downscale=SCRIPTS_DS)
+    write_sphere_masks(env["SANERFHQ_MASK_PATH"], n_views=17, H=full,
+                       W=full)
+    with open(os.path.join(root, "example_test_views.json"), "w") as f:
+        json.dump(["v00", "v16"], f)
+
+
+def obj_argv(root, ws):
+    """scripts/train_obj_nerf.sh's flags over the tree under root, in
+    workspace ws, cut to DP_STEPS steps (the ray-pair loss and the error
+    map's rebuild every DP_RAY_PAIR_ITER)."""
+    a = script_argv("train_obj_nerf.sh", scripts_env(root))
+    a[a.index("--test_view_path") + 1] = os.path.join(
+        root, "example_test_views.json")
+    a[a.index("--workspace") + 1] = ws
+    return a + ["--iters", str(DP_STEPS), "--ray_pair_rgb_iter",
+                str(DP_RAY_PAIR_ITER), "--downscale", str(SCRIPTS_DS)]
+
+
 def scripts_path(work):
     """Phase 11: the three scripts without SAM on a COLMAP scene, through
     the CLI with the flags read out of scripts/*.sh, then the stage-3
     step's rate and parts, the lightweight, packed and feat_rep variants
     and the card against the CPU."""
     root = os.path.join(work, "scripts")
-    env = {"SANERFHQ_DATA_PATH": os.path.join(root, "scene"),
-           "SANERFHQ_WORKSPACE_ROOT": os.path.join(root, "ws"),
-           "SANERFHQ_SCENE": "sphere",
-           "SANERFHQ_MASK_PATH": os.path.join(root, "masks"),
-           "SANERFHQ_INIT_CKPT": os.path.join(root, "ws", "rgb_nerf",
-                                              "sphere")}
+    env = scripts_env(root)
     scene, masks_dir = env["SANERFHQ_DATA_PATH"], env["SANERFHQ_MASK_PATH"]
     n_views, full = 17, VIEW * SCRIPTS_DS
     t0 = time.perf_counter()
-    write_colmap_scene(scene, n_views=n_views, H=VIEW, W=VIEW,
-                       downscale=SCRIPTS_DS)
-    write_sphere_masks(masks_dir, n_views=n_views, H=full, W=full)
-    # the scripts' relative --test_view_path, written here and passed by
-    # its absolute path
+    write_scripts_scene(root, VIEW)
     test_views = os.path.join(root, "example_test_views.json")
-    with open(test_views, "w") as f:
-        json.dump(["v00", "v16"], f)
     print(f"[scripts] COLMAP scene (Mip-NeRF 360 layout: images/ {full}x"
           f"{full}, images_{SCRIPTS_DS}/ {VIEW}x{VIEW}, sparse/0 binary "
           f"model, {n_views} views, held out v00 and v16) and sphere masks "
@@ -4200,10 +4278,721 @@ def viewer_path(work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data parallelism, LPIPS and the native COLMAP reader
+# ---------------------------------------------------------------------------
+
+SHARD_NS = (3128, 1001)  # a stage-3 batch's shard at world size 2, odd N
+DP_STEPS = 20  # steps of each run under torchrun
+DP_RAY_PAIR_ITER = 10  # (b): the ray-pair loss on past step 10, cut from 150
+DP_RANK_STEPS = 10  # (b): sharded steps with the ranks' batches compared
+# two trainings of the same flags are held to JAX's rule for its 1-vs-8
+# device test: a sharding fault moves most elements, while fp32 sums in
+# another order (K4's CP-grad atomics; the ranks' partial sums) move a few
+# by an lr-sized Adam step (eps 1e-15).  So the share of elements apart by
+# more than 1e-3 (JAX's 1%) and the mean abs difference are held; the max
+# abs, one element's step, is printed
+DP_SHARE, DP_MEAN = 1e-2, 1e-3
+
+
+def check_shard_sizes(field):
+    """Phase 15: the level kernels K5, K1, K2, K3, K4 and K10 at ray counts
+    that a rank's shard gives (not multiples of 128 or 256), each against
+    its plain twin at the phase-3 bars."""
+    dev = field.cp_x.device
+    ro_all, rd_all = view_rays(dev, 64, 128)
+    g = torch.Generator(dev).manual_seed(5)
+    pargs = dict(freq_degree=field.prop_freq_degree,
+                 grid_bound=field.grid_bound, opaque_last=True,
+                 density_bias=field.density_bias)
+    worst = {}
+    for N in SHARD_NS:
+        ro, rd = ro_all[:N].contiguous(), rd_all[:N].contiguous()
+        sn, sf = s_space(ro, rd)
+        s_bins = torch.linspace(0.0, 1.0, 129, device=dev).expand(N, 129)
+        s_bins = s_bins.contiguous()
+        errs = {}
+        for level, (T, Q) in enumerate(((128, 65), (64, 33))):
+            real = spacing_fn_inv(sn * (1.0 - s_bins) + sf * s_bins)
+            u = stratified_queries(N, Q, dev).contiguous()
+            ws = (field.prop_mlp_0 if level == 0 else field.prop_mlp_1).weights
+            call = (ro, rd, real, s_bins, u, ws)
+            nb5 = rl.fused_prop_level_sample(*call, **pargs)
+            errs[f"K5 T{T} bins"] = (
+                nb5 - rl.prop_level_sample_ref(*call, **pargs)).abs().max()
+            w, nb = rl.fused_prop_level_sample_train(*call, **pargs)
+            w_ref, nb_ref = rl.prop_level_train_sample_ref(*call, **pargs)
+            errs[f"K1 T{T} bins"] = (nb - nb_ref).abs().max()
+            errs[f"K1 T{T} weights rel"] = rel_max(w, w_ref)
+            g_w = torch.randn(N, T, generator=g, device=dev)
+            bcall = (ro, rd, real, ws, g_w)
+            for i, (a, b_) in enumerate(zip(
+                    rl.fused_prop_level_bwd(*bcall, **pargs),
+                    rl.prop_level_bwd_ref(*bcall, **pargs))):
+                errs[f"K2 T{T} dW{i} rel"] = rel_max(a, b_)
+            s_bins = nb5
+        real = spacing_fn_inv(sn * (1.0 - s_bins) + sf * s_bins)
+        T = real.shape[1] - 1
+        sh = sh_encode(rd / torch.linalg.norm(rd, dim=-1, keepdim=True))
+        ws, cps = field.trunk.weights, field.cp_basis
+        fargs = dict(freq_degree=field.freq_degree, skip_layer=2,
+                     grid_bound=field.grid_bound, opaque_last=True,
+                     density_bias=field.density_bias, cps=cps,
+                     cp_res=field.cp_res)
+        for name, a, b_ in zip(
+                ("f_image", "depth", "weights_sum", "weights"),
+                rl.fused_final_level(ro, rd, real, sh, ws, **fargs),
+                rl.final_level_ref(ro, rd, real, sh, ws, **fargs)):
+            errs[f"K3 {name} rel"] = rel_max(a, b_)
+        cots = [torch.randn(*shape, generator=g, device=dev)
+                for shape in ((N, 31), (N,), (N,), (N, T))]
+        call = (ro, rd, real, sh, ws, *cots)
+        (dws, dcps), (want_w, want_c) = (
+            rl.fused_final_level_bwd(*call, **fargs),
+            rl.final_level_bwd_ref(*call, **fargs))
+        for i, (a, b_) in enumerate(zip(dws, want_w)):
+            errs[f"K4 dW{i} rel"] = rel_max(a, b_)
+        for i, (a, b_) in enumerate(zip(dcps, want_c)):
+            errs[f"K4 dcp{i} rel"] = rel_max(a, b_)
+        for K, Q in ((129, 65), (65, 33)):
+            cdf, bins, u = pdf_rows(dev, N, K, Q, seed=K)
+            errs[f"K10 K{K} Q{Q}"] = (sample_pdf_lookup(cdf, bins, u)
+                                      - sample_pdf_lookup_ref(cdf, bins, u)
+                                      ).abs().max()
+        torch.cuda.synchronize()
+        errs = {k: float(v) for k, v in errs.items()}
+        for k, v in errs.items():
+            bar = (2e-2 if k.endswith("rel") else
+                   1e-6 if k.startswith("K10") else 1e-3)
+            assert np.isfinite(v) and v <= bar, (N, k, v, bar)
+            worst[k] = max(worst.get(k, 0.0), v)
+        print(f"[dp] kernels at a shard of N = {N} rays against their plain "
+              "twins: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + " (bins <= 1e-3, rel-max < 2e-2, K10 <= 1e-6)", flush=True)
+    return worst
+
+
+def _mask_draw(trainer, scene, masks_dir, n_views, seed=11):
+    """A stage-3 batch drawn as train_mask draws it, on the scripts' scene
+    (the held-out views v00 and v16 left out)."""
+    cfg, dev = trainer.cfg, trainer.device
+    res = cfg.online_resolution
+    s_full = load_scene(scene, "mip", 1, enable_cam_center=True,
+                        load_images=False)
+    idx = split_indices(n_views, "train", "val_split", ["v00", "v16"],
+                        s_full.img_names)
+    masks_t = torch.as_tensor(np.stack([resize_nearest(np.load(
+        os.path.join(masks_dir, f"v{i:02d}_obj_mask.npy"))[0], res, res)
+        for i in idx]), dtype=torch.long, device=dev)
+    poses_t = torch.as_tensor(s_full.poses[idx], device=dev)
+    intr_t = torch.as_tensor(fixed_fovy_intrinsics(res, 60.0), device=dev)
+    S = cfg.error_map_size
+    gen = torch.Generator(dev).manual_seed(seed)
+    # from gen, so that every rank of a process group holds the same map
+    em = torch.rand((len(idx), S * S), generator=gen, device=dev) + 0.05
+
+    def draw(m=em):
+        return sample_mask_batch(gen, masks_t, poses_t, intr_t, m,
+                                 cfg.num_rays, cfg.num_local_sample,
+                                 cfg.local_sample_patch_size, res, res, S)
+
+    return draw, gen, em
+
+
+def _rates(steps):
+    """{name: steps/s} of step functions timed in turns (a, b, b, a): the
+    mean of each name's two runs."""
+    order = list(steps) + list(steps)[::-1]
+    got = {k: [] for k in steps}
+    for k in order:
+        got[k].append(steps_per_s(steps[k]))
+    return {k: float(np.mean(v)) for k, v in got.items()}
+
+
+def dp_worker(spec_path):
+    """Phase 15's process under `python -m torch.distributed.run`: each run
+    of the spec through cli.main (the counts set to 0 just before and read
+    just after), then, on the trained field, one step of the sharded step
+    against the unsharded step on one batch (grads after the all-reduce)
+    and the step rates with and without the process group; rank 0 writes
+    the results as JSON."""
+    import torch.distributed as dist
+
+    from sanerf_hq_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    out = {}
+    for run in spec["runs"]:
+        trainer, dt, launches = run_cli(run["argv"])
+        assert pm.is_distributed(), "cli.main did not join the process group"
+        res = {"launches": launches, "seconds": dt,
+               "step": trainer.state.step, "world": pm.world_size(),
+               "backend": dist.get_backend(),
+               "device": str(trainer.device)}
+        if run["kind"] == "rgb":
+            res.update(dp_worker_rgb(trainer, run))
+        else:
+            res.update(dp_worker_mask(trainer, run))
+        out[run["tag"]] = res
+    if pm.is_main_process():
+        with open(spec["out"], "w") as f:
+            json.dump(out, f)
+    pm.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_worker_rgb(trainer, run):
+    """(a) in the worker: the eval images against render_view, the
+    sharded step against the unsharded one on one batch, the rates."""
+    scene, dev = run["scene"], trainer.device
+    s = load_scene(scene, "llff")
+    val = split_indices(s.poses.shape[0], "val")
+    images_equal = True
+    for i in val:
+        stem = os.path.splitext(str(s.img_names[i]))[0]
+        png = read_png(os.path.join(trainer.workspace, "validation",
+                                    f"{stem}_rgb.png"))
+        img = trainer.render_view(s.poses[i], s.intrinsics[i], s.H,
+                                  s.W)["image"].reshape(s.H, s.W, 3)
+        images_equal &= bool(np.array_equal(
+            png, (np.clip(img, 0, 1) * 255).astype(np.uint8)))
+    assert images_equal, "the eval images differ from render_view's"
+
+    # one step from the trained state: the sharded loss (this rank's rows,
+    # the grads all-reduced) against the unsharded loss, the same draws
+    from sanerf_hq_tpu_torch.parallel.mesh import allreduce_grads
+    cfg, model = trainer.cfg, trainer.model
+    scene_t = train_tensors(scene, dev)
+    plain = make_rgb_train_step(model, cfg)
+    grads = {}
+    for kind, fn in (("sharded", trainer.train_step), ("plain", plain)):
+        gen = torch.Generator(dev).manual_seed(3)
+        batch = sample_rgb_batch(gen, *scene_t, cfg.num_rays,
+                                 random_image_batch=cfg.random_image_batch)
+        model.zero_grad(set_to_none=True)
+        loss, _ = fn.loss_fn(batch, trainer.state.step, True, gen)
+        loss.backward()
+        if kind == "sharded":
+            allreduce_grads(list(model.parameters()))
+        grads[kind] = {n: p.grad.clone() for n, p in model.named_parameters()
+                       if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    bitwise = {n: bool(torch.equal(g, grads["plain"][n]))
+               for n, g in grads["sharded"].items()}
+    cp_diff = max(float((g - grads["plain"][n]).abs().max())
+                  for n, g in grads["sharded"].items() if n.startswith("cp_"))
+    not_cp = [n for n in bitwise if not n.startswith("cp_")]
+    # at one rank the same sums; at more the rays' sums split over ranks
+    grad_rel = max(rel_max(grads["sharded"][n], grads["plain"][n])
+                   for n in not_cp)
+    if pm_world() == 1:
+        assert all(bitwise[n] for n in not_cp), bitwise
+    else:
+        assert grad_rel <= 1e-4, grad_rel
+
+    state = trainer.state
+    gen = torch.Generator(dev).manual_seed(1)
+
+    def stepper(fn):
+        return lambda: fn(state, sample_rgb_batch(
+            gen, *scene_t, cfg.num_rays,
+            random_image_batch=cfg.random_image_batch), gen)
+
+    rates = _rates({"no_pg": stepper(plain),
+                    "pg": stepper(trainer.train_step)})
+    return {"images_equal": images_equal, "grads_bitwise": bitwise,
+            "cp_grads_max_abs_diff": cp_diff,
+            "non_cp_grads_rel_max": grad_rel, "rates": rates,
+            "losses": trainer.stats["loss"]}
+
+
+def pm_world():
+    from sanerf_hq_tpu_torch.parallel.mesh import world_size
+    return world_size()
+
+
+def dp_worker_mask(trainer, run):
+    """(b) in the worker: one mask step's loss and grads, sharded (the
+    grads all-reduced) against unsharded on one batch; the error map's
+    update on the card against a sequential write; DP_RANK_STEPS steps of
+    the sharded step, each drawing its batch from the map the last one
+    left, with every rank's batch and map held bitwise to rank 0's; the
+    step rates with and without the process group, and the loss trace."""
+    from sanerf_hq_tpu_torch.parallel.mesh import allreduce_grads
+    from sanerf_hq_tpu_torch.train.steps import write_cells
+
+    draw, gen, em = _mask_draw(trainer, run["scene"], run["masks"], 17)
+    cfg, model = trainer.cfg, trainer.model
+    steps = {k: make_mask_train_step(model, cfg, frozen_backbone=True,
+                                     shard=sh)
+             for k, sh in (("no_pg", None), ("pg", trainer.shard))}
+    batch = draw()
+    one = {}
+    for kind, fn in steps.items():
+        g = torch.Generator(trainer.device).manual_seed(4)
+        model.zero_grad(set_to_none=True)
+        loss, metrics, _ = fn.loss_fn(batch, trainer.state.step, em, g)
+        loss.backward()
+        if kind == "pg":
+            allreduce_grads(list(model.parameters()))
+        one[kind] = ({k: float(v.detach()) for k, v in metrics.items()},
+                     {n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    model.zero_grad(set_to_none=True)
+    (m_pg, g_pg), (m_plain, g_plain) = one["pg"], one["no_pg"]
+    not_grid = [n for n in g_plain if n != "m_grid"]
+    grid_rel = rel_max(g_pg["m_grid"], g_plain["m_grid"])
+    grads_rel = max(rel_max(g_pg[n], g_plain[n]) for n in not_grid)
+    metrics_rel = max(abs(m_pg[k] - v) / max(abs(v), 1e-12)
+                      for k, v in m_plain.items())
+    if pm_world() == 1:
+        assert m_pg == m_plain, (m_pg, m_plain)
+        assert grads_rel == 0.0, not_grid
+    else:
+        # a shard's products differ from the whole batch's in their last
+        # bits (ce 8e-5 rel at 4 ranks), and the grads' sums split over
+        # ranks; a misplaced row moves them by O(1): the kernels' bar
+        assert metrics_rel <= 1e-3 and grads_rel <= 2e-2, (
+            m_pg, m_plain, grads_rel)
+    assert grid_rel <= 2e-2, grid_rel  # index_add_'s fp32 atomics
+
+    # the map's update on the card: a cell drawn twice takes the last
+    # draw's value, as a sequential write on the host gives it
+    views, cells = batch["img_inds"], batch["inds_coarse"]
+    flat = (views * em.shape[1] + cells).cpu()
+    repeats = int(flat.numel() - flat.unique().numel())
+    vals = torch.rand(flat.shape, generator=torch.Generator().manual_seed(5))
+    want = em.cpu().reshape(-1).clone()
+    for k, v in zip(flat.tolist(), vals.tolist()):
+        want[k] = v
+    got = write_cells(em, views, cells, vals.to(em.device))
+    assert repeats > 0 and torch.equal(got.cpu().reshape(-1), want), repeats
+
+    # the sharded steps from the drawn map: every rank the same batches
+    # and maps (the ranks compute the loss, and so the map, alike)
+    agree, m = True, em.clone()
+    for _ in range(DP_RANK_STEPS):
+        b = draw(m)
+        _, m = steps["pg"](trainer.state, b, gen, m)
+        for t in (b["img_inds"], b["inds_coarse"], b["rays_o"],
+                  b["gt_masks"], m):
+            agree &= _same_on_every_rank(t)
+    assert agree, "the ranks' error maps or batches differ"
+
+    def stepper(fn):
+        return lambda: fn(trainer.state, draw(), gen, em)[0]
+
+    rates = _rates({k: stepper(fn) for k, fn in steps.items()})
+    return {"rates": rates, "trace": trainer.stats["mask"],
+            "one_step_metrics": m_pg, "one_step_metrics_rel": metrics_rel,
+            "one_step_grads_rel": grads_rel, "m_grid_grad_rel": grid_rel,
+            "m_grid_grad_max_abs_diff": float(
+                (g_pg["m_grid"] - g_plain["m_grid"]).abs().max()),
+            "map_repeats": repeats, "ranks_agree": agree,
+            "rank_steps": DP_RANK_STEPS}
+
+
+def miou(text):
+    """The last [EVAL] MeanIoU of a CLI log."""
+    return float(text.split("[EVAL] MeanIoU = ")[-1].split()[0])
+
+
+def _trace_gap(trace, ref):
+    """The largest gap of ce, loss and acc between two stage-3 loss
+    traces logged at the same steps."""
+    assert [s_ for s_, _ in trace] == [s_ for s_, _ in ref], (trace, ref)
+    return max(abs(v[k] - w[k]) for (_, v), (_, w) in zip(trace, ref)
+               for k in ("ce", "loss", "acc"))
+
+
+def mask_checks_line(b):
+    """What dp_worker_mask checked, for the log."""
+    return (f"one step sharded (all-reduced) against unsharded on one "
+            f"batch: metrics rel {b['one_step_metrics_rel']:.3e}, the mask "
+            f"MLP's grads rel {b['one_step_grads_rel']:.3e}, m_grid's grads "
+            f"rel {b['m_grid_grad_rel']:.3e} (max abs "
+            f"{b['m_grid_grad_max_abs_diff']:.3e}; index_add_'s atomics); "
+            f"the error map's update on the card equal to a sequential "
+            f"write ({b['map_repeats']} cells drawn twice); "
+            f"{b['rank_steps']} sharded steps with every rank's batch and "
+            f"error map bitwise rank 0's {b['ranks_agree']}")
+
+
+def _same_on_every_rank(t):
+    """Whether t is bitwise rank 0's t on every rank (all-gathered)."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.contiguous())
+    return all(torch.equal(p, parts[0]) for p in parts)
+
+
+def mask_run(root, ws):
+    """The --dp-worker spec of (b): the scripts' stage 3 over the tree
+    under root."""
+    env = scripts_env(root)
+    return {"tag": "b", "kind": "mask", "scene": env["SANERFHQ_DATA_PATH"],
+            "masks": env["SANERFHQ_MASK_PATH"], "argv": obj_argv(root, ws)}
+
+
+def _param_diff(a, b):
+    """(all bitwise equal, worst max abs, worst mean abs, worst share of
+    elements apart by more than 1e-3) over two state_dicts."""
+    worst = [True, 0.0, 0.0, 0.0]
+    for name, x in a.items():
+        d = (x.double() - b[name].double()).abs()
+        worst[0] &= bool(torch.equal(x, b[name]))
+        if d.numel():
+            worst[1] = max(worst[1], float(d.max()))
+            worst[2] = max(worst[2], float(d.mean()))
+            worst[3] = max(worst[3], float((d > 1e-3).double().mean()))
+    return worst
+
+
+def _same_training(diff):
+    return diff[3] < DP_SHARE and diff[2] < DP_MEAN
+
+
+def _eval_metrics(log):
+    """The last [EVAL] PSNR, SSIM and LPIPS values of a CLI log."""
+    return {k: float(log.split(f"[EVAL] {k}")[-1].split("= ")[1].split()[0])
+            for k in ("PSNR", "SSIM", "LPIPS")}
+
+
+def rgb_argv(scene, ws):
+    """Phase 5's stage-1 flags (the MLP field, 20 steps of 8192 rays, one
+    eval and one checkpoint) in workspace ws."""
+    return [scene, "--field_type", "mlp", "--data_type", "llff",
+            "--workspace", ws, "--seed", "0", "--iters", str(DP_STEPS),
+            "--eval_cnt", "1", "--save_cnt", "1"]
+
+
+def load_ckpt(ws):
+    """The model and EMA tensors of the workspace's step-DP_STEPS
+    checkpoint, prefixed."""
+    st = torch.load(os.path.join(ws, "checkpoints", f"step_{DP_STEPS:08d}.pt"),
+                    map_location="cpu", weights_only=True)
+    return {**{f"model.{k}": v for k, v in st["model"].items()},
+            **{f"ema.{k}": v for k, v in st["ema"].items()}}
+
+
+def torchrun(work, nproc, runs, tag):
+    """One `python -m torch.distributed.run --standalone` of this script's
+    --dp-worker over `runs` at nproc ranks: (rank 0's results, its
+    stdout, seconds).  A failing rank fails it."""
+    spec = os.path.join(work, f"dp_spec_{tag}.json")
+    result = os.path.join(work, f"dp_result_{tag}.json")
+    with open(spec, "w") as f:
+        json.dump({"runs": runs, "out": result}, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+           "--dp-worker", spec]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    dt = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        if line.startswith(("[EVAL]", "[INFO] training took",
+                            "[INFO] mask training", "[INFO] sharding",
+                            "[mask ")):
+            print(f"[dp] {tag} rank 0: {line}", flush=True)
+    assert r.returncode == 0, (r.returncode, r.stdout[-3000:],
+                               r.stderr[-6000:])
+    with open(result) as f:
+        return json.load(f), r.stdout, dt
+
+
+def dp_world(work, scene, nproc, w1_state, w1_eval, spread, root=None,
+             w1_mask=None):
+    """(a) at world size nproc (NCCL, one rank a card) against world size
+    1: the parameters (_same_training), the eval's PSNR, SSIM and LPIPS
+    within 1e-4 rel, one step's non-CP grads within 1e-4 rel of the
+    unsharded step's, the launches, the rates with and without the
+    process group (without: each rank trains the whole batch alone).
+    With root (the scripts' tree), (b) too: dp_worker_mask's checks at
+    nproc ranks, and the loss trace against w1_mask's (world size 1)."""
+    ws = os.path.join(work, f"dp_rgb_w{nproc}")
+    runs = [{"tag": "a", "kind": "rgb", "scene": scene,
+             "argv": rgb_argv(scene, ws)}]
+    if root is not None:
+        runs.append(mask_run(root, os.path.join(work, f"dp_obj_w{nproc}")))
+    res, log, dt = torchrun(work, nproc, runs, f"w{nproc}")
+    a = res["a"]
+    d = _param_diff(load_ckpt(ws), w1_state)
+    ev = _eval_metrics(log)
+    print(f"[dp] (a) world size {a['world']} against world size 1: max abs "
+          f"{d[1]:.3e}, mean {d[2]:.3e}, share > 1e-3 {d[3]:.3e} (runs "
+          f"without torchrun apart by {spread[1]:.3e}, {spread[2]:.3e}, "
+          f"{spread[3]:.3e}); the eval {ev} against {w1_eval}; one step's "
+          f"non-CP grads rel-max "
+          f"{a['non_cp_grads_rel_max']:.3e}; launches on rank 0 "
+          f"{a['launches']}; steps/s of {BATCH} rays, each rank alone / "
+          f"sharded over {nproc}: {a['rates']['no_pg']:.3f} / "
+          f"{a['rates']['pg']:.3f}; {dt:.2f} s ({device_line()})",
+          flush=True)
+    assert a["world"] == nproc and _same_training(d), (d, spread)
+    # rel 1e-4, or two units of the 6 printed decimals
+    assert all(abs(ev[k] - w1_eval[k]) <= max(1e-4 * abs(w1_eval[k]), 2e-6)
+               for k in ev), (ev, w1_eval)
+    out = {"world": nproc, "vs_world1": d, "eval": ev, "rates": a["rates"],
+           "launches": a["launches"],
+           "non_cp_grads_rel_max": a["non_cp_grads_rel_max"]}
+    if root is None:
+        return out
+    b = res["b"]
+    trace = [(s_, v) for s_, v in b["trace"]]
+    gap = 0.0 if w1_mask is None else _trace_gap(trace, w1_mask["trace"])
+    print(f"[dp] (b) world size {b['world']}: {mask_checks_line(b)}; the "
+          f"loss trace {trace}, its largest gap of ce, loss and acc to world "
+          f"size 1's {gap:.3e}; MeanIoU "
+          f"{miou(log):.6f}; launches on rank 0 {b['launches']}; steps/s, "
+          f"each rank alone / sharded over {nproc}: "
+          f"{b['rates']['no_pg']:.3f} / {b['rates']['pg']:.3f}", flush=True)
+    assert b["world"] == nproc and b["ranks_agree"], b
+    assert all(b["launches"][k] == 0 for k in LEVEL_KERNELS + ("K8",))
+    assert b["launches"]["K10"] >= 2 * DP_STEPS, b["launches"]
+    out["b"] = {k: b[k] for k in (
+        "launches", "rates", "one_step_metrics_rel", "one_step_grads_rel",
+        "m_grid_grad_rel", "map_repeats", "ranks_agree")}
+    out["b"].update(trace=trace, trace_gap=gap, miou=miou(log))
+    return out
+
+
+def dp_cards():
+    """`--dp-cards`: phase 15's (a) and (b) across every card of the host:
+    world size N against world size 1, and (a) against two runs without
+    torchrun, on phase 4's scene and on the scripts' tree (a COLMAP scene
+    at a quarter of phase 11's size and a hash-grid stage 1 of
+    SCRIPTS_S1_STEPS steps)."""
+    cards = torch.cuda.device_count()
+    dev_line = device_line()
+    print(f"{dev_line} x {cards}", flush=True)
+    cuda_lib.build_all()  # once here, not in every rank
+    work = os.path.join(ROOT, "build", "chip_smoke_cards")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    scene = os.path.join(work, "scene")
+    write_llff_scene(scene, n_views=17, H=VIEW, W=VIEW)
+    root = os.path.join(work, "scripts")
+    write_scripts_scene(root, VIEW // 4)
+    run_cli(script_argv("train_rgb_nerf.sh", scripts_env(root))
+            + ["--iters", str(SCRIPTS_S1_STEPS)])
+    for tag in ("ref1", "ref2"):
+        run_cli(rgb_argv(scene, os.path.join(work, f"dp_rgb_{tag}")))
+    ref1, ref2 = (load_ckpt(os.path.join(work, f"dp_rgb_{t}"))
+                  for t in ("ref1", "ref2"))
+    spread = _param_diff(ref2, ref1)
+    ref_eval = _eval_metrics(open(os.path.join(
+        work, "dp_rgb_ref1", "log_ngp.txt")).read())
+    w1 = dp_world(work, scene, 1, ref1, ref_eval, spread, root)
+    out = {"cards": cards, "spread_without": spread, "w1": w1}
+    if cards > 1:
+        out[f"w{cards}"] = dp_world(work, scene, cards, load_ckpt(
+            os.path.join(work, "dp_rgb_w1")), w1["eval"], spread, root,
+            w1["b"])
+    print(json.dumps({"dp_cards": out}), flush=True)
+    print(dev_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards}}))
+    return 0
+
+
+def dp_path(work):
+    """Phase 15: (a) stage 1 of the MLP field and (b) the scripts' stage 3
+    through the CLI under torch.distributed.run (NCCL, one rank a card),
+    each against the same CLI run without it; (c) LPIPS on the card
+    against the CPU; (d) the native COLMAP reader; (e) rates and launch
+    counts; and the kernels at shard sizes (check_shard_sizes, run from
+    main beside phase 3)."""
+    cards = torch.cuda.device_count()
+    scene = os.path.join(work, "scene")
+    root = os.path.join(work, "scripts")
+    env = scripts_env(root)
+    runs = [{"tag": "a", "kind": "rgb", "scene": scene,
+             "argv": rgb_argv(scene, os.path.join(work, "dp_rgb"))},
+            mask_run(root, os.path.join(work, "dp_obj"))]
+    res, log, dt = torchrun(work, 1, runs, "w1")
+    a, b = res["a"], res["b"]
+    out = {"torchrun_seconds": dt, "world": a["world"],
+           "backend": a["backend"]}
+    assert a["world"] == b["world"] == 1 and a["backend"] == "nccl", res
+    for metric in ("[EVAL] PSNR", "[EVAL] SSIM", "[EVAL] LPIPS"):
+        assert metric in log, f"{metric} missing from the stage-1 eval"
+    print(f"[dp] torch.distributed.run --nproc_per_node 1 ({a['backend']}, "
+          f"world size {a['world']}, {a['device']}): (a) and (b) in "
+          f"{dt:.2f} s, the process's start included", flush=True)
+
+    # (a) against the CLI without torchrun: phase 5's run of the same
+    # flags, and a second run now (K4's CP grads are summed with fp32
+    # atomics, so two runs need not agree bit for bit)
+    ref2, _, _ = run_cli(rgb_argv(scene, os.path.join(work, "dp_rgb_ref2")))
+    dp_state, ref, ref_b = (load_ckpt(os.path.join(work, w)) for w in
+                            ("dp_rgb", "train_ws", "dp_rgb_ref2"))
+    d_dp, d_ref = _param_diff(dp_state, ref), _param_diff(ref_b, ref)
+    print(f"[dp] (a) stage 1, {DP_STEPS} steps of {BATCH} rays under "
+          f"torchrun against phase 5's run without it: bitwise equal "
+          f"{d_dp[0]}, max abs {d_dp[1]:.3e}, mean {d_dp[2]:.3e}, share > "
+          f"1e-3 {d_dp[3]:.3e}; two runs without it: bitwise equal "
+          f"{d_ref[0]}, max abs {d_ref[1]:.3e}, mean {d_ref[2]:.3e}; one "
+          f"step's grads, sharded (all-reduced) against unsharded: every "
+          f"non-CP grad bitwise equal, CP grads max abs "
+          f"{a['cp_grads_max_abs_diff']:.3e} (K4's atomics); the eval "
+          f"images equal render_view's {a['images_equal']}; where the runs "
+          f"without it differ, the share apart by > 1e-3 held under "
+          f"{DP_SHARE:g} and the mean under {DP_MEAN:g} (Adam's eps 1e-15 "
+          "lifts an atomics difference to an lr-sized step on single "
+          "elements)", flush=True)
+    if d_ref[0]:
+        assert d_dp[0], "torchrun at world size 1 moved the parameters"
+    else:
+        assert _same_training(d_dp), (d_dp, d_ref)
+    assert ref2.state.step == DP_STEPS
+    views = 4  # the in-loop eval at the last epoch and the CLI's final one
+    chunks = views * -(-VIEW * VIEW // CHUNK)
+    want = {"K1": 2 * DP_STEPS, "K2": 2 * DP_STEPS,
+            "K3": DP_STEPS + chunks, "K4": DP_STEPS, "K5": 2 * chunks,
+            "K6": 0, "K7": 0, "K8": 0, "K10": 0}
+    got = {k: a["launches"][k] for k in want}
+    print(f"[dp] (a) launches {got}, reckoned {want} (K1, K2 2 a step, "
+          f"K3 1 a step + 16 an eval view, K4 1 a step, K5 32 an eval view, "
+          f"{views} eval views of {VIEW}x{VIEW})", flush=True)
+    assert got == want, (got, want)
+    out["a"] = {"bitwise_equal": d_dp[0], "max_abs": d_dp[1],
+                "mean_abs": d_dp[2], "share_above_1e-3": d_dp[3],
+                "runs_without_bitwise_equal": d_ref[0],
+                "runs_without_max_abs": d_ref[1],
+                "cp_grads_max_abs_diff": a["cp_grads_max_abs_diff"],
+                "launches": got, "steps_per_s": a["rates"],
+                "losses": a["losses"]}
+
+    # (b) against two runs of the same CLI without torchrun: m_grid's
+    # grads are summed by index_add_'s fp32 atomics, so past step 1 the
+    # runs need not agree bit for bit, and a map apart in its last bits
+    # moves a few of the next batch's cells; step 1's losses are held
+    # bitwise, the trace's gap printed
+    refs = [run_cli(obj_argv(root, os.path.join(work, f"dp_obj_ref{i}")))[0]
+            for i in (1, 2)]
+    traces = [[(s_, v) for s_, v in b["trace"]]] + [
+        [(s_, v) for s_, v in r.stats["mask"]] for r in refs]
+    mious = [miou(log)] + [miou(open(os.path.join(
+        r.cfg.workspace, "log_ngp.txt")).read()) for r in refs]
+    first_equal = all(t[0] == traces[0][0] for t in traces)
+    spread = abs(mious[2] - mious[1])
+    gaps = [_trace_gap(t, traces[1]) for t in (traces[0], traces[2])]
+    print(f"[dp] (b) scripts' stage 3, {DP_STEPS} steps (the ray-pair loss "
+          f"on past step {DP_RAY_PAIR_ITER}): {mask_checks_line(b)}; the "
+          f"CLI's loss trace under torchrun {traces[0]}, two runs without "
+          f"{traces[1]} / {traces[2]}: step 1 bitwise equal {first_equal}, "
+          f"the largest gap of ce, loss and acc to the first run without "
+          f"{gaps[0]:.3e} (the second run {gaps[1]:.3e}); MeanIoU "
+          f"{mious[0]:.6f} against {mious[1]:.6f} / {mious[2]:.6f} (within "
+          f"1e-2)", flush=True)
+    assert first_equal, traces
+    assert abs(mious[0] - mious[1]) <= 1e-2, mious
+    ref3 = refs[0]
+    n_train = 17 - 2
+    em_chunks = (DP_STEPS // DP_RAY_PAIR_ITER) * n_train * -(
+        -ref3.cfg.error_map_size ** 2 // CHUNK)
+    val_chunks = 2 * -(-VIEW * VIEW // CHUNK)
+    want = {k: 0 for k in LEVEL_KERNELS + ("K8",)}
+    want["K10"] = 2 * (DP_STEPS + em_chunks + val_chunks)
+    got = {k: b["launches"][k] for k in want}
+    print(f"[dp] (b) launches {got}, reckoned {want} (K10 2 a step, 2 an "
+          f"error-map chunk ({em_chunks}) and an eval chunk ({val_chunks}))",
+          flush=True)
+    assert got == want, (got, want)
+    out["b"] = {"step1_bitwise_equal": first_equal, "mious": mious,
+                "miou_spread_without": spread, "trace_gaps": gaps,
+                "m_grid_grad_max_abs_diff": b["m_grid_grad_max_abs_diff"],
+                "map_repeats": b["map_repeats"],
+                "launches": got, "steps_per_s": b["rates"],
+                "traces": traces}
+
+    # (c) LPIPS on the card against the CPU on the two eval images of (a)
+    params = random_lpips_params()
+    fn_card, fn_cpu = (make_lpips_fn(params, d) for d in ("cuda", "cpu"))
+    vals = []
+    for stem in ("v00", "v16"):
+        pred, gt = (read_png(os.path.join(
+            work, "dp_rgb", "validation", f"{stem}_{k}.png")).astype(
+                np.float32) / 255.0 for k in ("rgb", "gt"))
+        card, cpu = float(fn_card(pred, gt)), float(fn_cpu(pred, gt))
+        r = abs(card - cpu) / abs(cpu)
+        assert r <= 1e-4, (stem, card, cpu)
+        vals.append((card, cpu, r))
+    p_t, g_t = (torch.as_tensor(x, device="cuda") for x in (pred, gt))
+    ms = cuda_ms(lambda: fn_card(p_t, g_t))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn_card(p_t, g_t)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    logged = float(log.split("[EVAL] LPIPS[torch-random-proxy] = ")[-1]
+                   .split()[0])
+    print(f"[dp] (c) LPIPS (VGG16, the torch-random-proxy weights, TF32 off) "
+          f"on the card against the CPU: " + ", ".join(
+              f"v{i * 16:02d} {c:.6f} / {p:.6f} (rel {r:.2e})"
+              for i, (c, p, r) in enumerate(vals))
+          + f" (<= 1e-4; the PNGs, uint8); the CLI's [EVAL] LPIPS "
+          f"{logged:.6f} (the float renders); a {VIEW}x"
+          f"{VIEW} pair {ms:.4f} ms (CUDA events, median of 10), peak "
+          f"device memory {peak:.4f} GiB ({device_line()})", flush=True)
+    out["c"] = {"card_vs_cpu_rel": max(r for _, _, r in vals), "ms": ms,
+                "peak_memory_gib": peak, "values": vals}
+
+    # (d) the native COLMAP reader on phase 11's COLMAP scene
+    sparse = os.path.join(env["SANERFHQ_DATA_PATH"], "sparse", "0")
+    t0 = time.perf_counter()
+    native = read_model_native(sparse)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = (colmap.read_cameras_binary(os.path.join(sparse, "cameras.bin")),
+              colmap.read_images_binary(os.path.join(sparse, "images.bin")),
+              colmap.read_points3d_binary(os.path.join(sparse,
+                                                       "points3D.bin")))
+    t_python = time.perf_counter() - t0
+    for part_n, part_p in zip(native, python):
+        assert part_n.keys() == part_p.keys()
+        for k in part_p:
+            for x, y in zip(part_n[k], part_p[k]):
+                assert np.array_equal(np.asarray(x), np.asarray(y)), k
+    counts = [len(x) for x in native]
+    print(f"[dp] (d) the native COLMAP reader on {sparse} ({counts[0]} "
+          f"camera, {counts[1]} images, {counts[2]} points): field by field "
+          f"equal to the Python reader; {t_native * 1e3:.3f} ms against "
+          f"{t_python * 1e3:.3f} ms (host clock, first read)", flush=True)
+    out["d"] = {"native_ms": t_native * 1e3, "python_ms": t_python * 1e3,
+                "counts": counts}
+
+    # (e) the rates with and without the process group at world size 1
+    print(f"[dp] (e) steps/s without / with the process group (world size "
+          f"1, the grads' all-reduce and the metrics' mean): (a) "
+          f"{a['rates']['no_pg']:.3f} / {a['rates']['pg']:.3f}, (b) "
+          f"{b['rates']['no_pg']:.3f} / {b['rates']['pg']:.3f} "
+          f"({device_line()})", flush=True)
+    if cards >= 2:
+        out["a"]["world2"] = dp_world(work, scene, 2, dp_state,
+                                      _eval_metrics(log), d_ref)
+    else:
+        print("[dp] one card: world size 2 against world size 1 rests on "
+              "the CPU tests over gloo (tests/test_torch_parallel.py)",
+              flush=True)
+    return out
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
         return 1
+    if argv[:1] == ["--dp-worker"] and len(argv) == 2:
+        return dp_worker(argv[1])
+    if argv == ["--dp-cards"]:
+        return dp_cards()
     ab = argv == ["--ab"]
     if argv and not ab:
         print(f"error: unknown arguments {argv} (none, or --ab)",
@@ -4248,6 +5037,8 @@ def main(argv):
     kernels["K3"]["train_shape_ms"] = kernels.pop("K3_train_ms")
     kernels["K7"] = check_prop_weights_kernel(field)
     kernels["K8"] = check_mlp_kernel(field, trunk0)
+    with torch.inference_mode():
+        shard_errs = check_shard_sizes(field)
     launches, mrays = main_path(work)
     trainer, train_launches, sps, train_step = train_path(work)
     parity = grad_parity(trainer, os.path.join(work, "scene"))
@@ -4263,6 +5054,9 @@ def main(argv):
     print(json.dumps({"distill_path": distill}), flush=True)
     viewer = viewer_path(work)
     print(json.dumps({"viewer_path": viewer}), flush=True)
+    dp = dp_path(work)
+    dp["shard_kernel_errors"] = shard_errs
+    print(json.dumps({"dp_path": dp}), flush=True)
     # the device-time breakdowns of phases 5, 7, 8 and 9, traced after
     # every rate: a torch.profiler trace slows the host's later steps
     print("[train] the stage-1 step's device time by kernel (phase 5's "

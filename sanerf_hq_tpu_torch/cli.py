@@ -1,7 +1,9 @@
 """CLI of the port: `python -m sanerf_hq_tpu_torch <scene> [flags]` trains
 stage 1 of the hash-grid field (`--field_type hashgrid`, the default, or
 `hashgrid_packed`) or of the flagship MLP field (`--field_type mlp`), then
-evaluates PSNR and SSIM into `<workspace>/validation/`; with `--test` it
+evaluates PSNR, SSIM and LPIPS (train/metrics.py `LPIPSMeter`: the VGG16
+weights of `$SANERF_LPIPS_WEIGHTS`, else a seeded random proxy) into
+`<workspace>/validation/`; with `--test` it
 renders the held-out views into `<workspace>/results/{stem}_rgb.png` and
 `{stem}_depth.npy`.  Scenes: `--data_type mip` (the default) and `lerf`
 read a COLMAP model (`--downscale k` takes `images_k/`), `others`,
@@ -52,6 +54,11 @@ viewer's saved keyframes at 1024x1024).  `--vis_pose` writes the cameras
 as `<workspace>/poses.ply` and goes on.  `--auto_seg` takes every view
 with a decoded mask as valid and trains on all views.
 
+Data parallelism: under `python -m torch.distributed.run --nproc_per_node
+N -m sanerf_hq_tpu_torch ...` every rank trains on its slice of the rays
+(NCCL on the cards; gloo with `--device cpu`) and rank 0 writes the
+outputs; there is no flag for it, as JAX reads its device count.
+
 The parser takes every flag of the JAX CLI, plus `--device`;
 `--fp16`, `--preload`, `--mixed_sampling`, `--max_spp`, `--T_thresh`,
 `--sum_after_mlp`, `--density_thresh`, `--ray_jittering`,
@@ -76,6 +83,7 @@ import torch
 
 from .config import Config
 from .device import resolve_device
+from .parallel.mesh import init_process_group_from_env
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -365,7 +373,10 @@ def main(argv=None):
     if cfg.with_mask and not cfg.mask_root and not cfg.test:
         raise SystemExit("error: --with_mask training requires --mask_root "
                          "(decode outputs directory)")
-    device = resolve_device(cfg.device)
+    # under `python -m torch.distributed.run` this process joins the group
+    # (NCCL on cuda:LOCAL_RANK, gloo with --device cpu) and trains on its
+    # shard of the rays
+    device = init_process_group_from_env(resolve_device(cfg.device))
     # the view MLP, SSIM and any plain twin stay true fp32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -373,7 +384,7 @@ def main(argv=None):
     from .data.provider import load_object_masks, load_scene, split_indices
     from .models import make_field, params_from_jax
     from .train import stages
-    from .train.metrics import PSNRMeter, SSIMMeter
+    from .train import metrics as M
     from .train.trainer import Trainer
 
     model = make_field(cfg.field_type, device=device, seed=cfg.seed,
@@ -496,6 +507,10 @@ def main(argv=None):
         stages.evaluate_masks(trainer, val_scene)
         return trainer
     trainer.train(train_scene, val_scene)
-    trainer.evaluate(val_scene, meters=[PSNRMeter(), SSIMMeter()],
+    meters = [M.PSNRMeter(), M.SSIMMeter()]
+    lp = M.LPIPSMeter(device=device)
+    if lp.available:
+        meters.append(lp)
+    trainer.evaluate(val_scene, meters=meters,
                      save_dir=os.path.join(cfg.workspace, "validation"))
     return trainer

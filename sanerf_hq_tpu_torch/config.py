@@ -165,6 +165,10 @@ class Config:
 
     # port: where tensors live ("cuda" unless the caller asks for "cpu")
     device: Optional[str] = None
+    # the data-parallel mesh over the process group's ranks (-1: all of
+    # them); rays are sharded over the "data" axis, parameters replicated
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axis_names: Tuple[str, ...] = ("data",)
 
     @property
     def grid_bound(self) -> float:

@@ -5,8 +5,10 @@ JAX package's `data/colmap.py` reads it: the camera-model table,
 `qvec2rotmat` / `rotmat2qvec`, the binary readers of cameras, images and
 points3D, the text readers of cameras and images, and `load_sparse_model`
 (binary when `cameras.bin` exists, else text, which returns no points).
-The JAX package also tries a native C++ reader first; this module reads
-with Python only.
+A binary model goes through the native C++ reader (data/colmap_native.py)
+whenever a C++ compiler is on the PATH; its build or read failing raises.
+The Python readers take it only when there is no compiler, and say so.
+(The JAX package swallows the native reader's failures and falls back.)
 """
 from __future__ import annotations
 
@@ -171,9 +173,16 @@ def read_images_text(path: str) -> Dict[int, Image]:
 
 def load_sparse_model(path: str):
     """(cameras, images, points3D) of a COLMAP sparse directory: the
-    binary model when `cameras.bin` exists, else the text model (cameras
-    and images; no points)."""
+    binary model when `cameras.bin` exists (the native reader where a C++
+    compiler is on the PATH), else the text model (cameras and images; no
+    points)."""
     if os.path.exists(os.path.join(path, "cameras.bin")):
+        from .colmap_native import compiler, read_model_native
+
+        if compiler() is not None:
+            return read_model_native(path)
+        print("[INFO] no C++ compiler on the PATH: the COLMAP model is read "
+              "by the Python readers", flush=True)
         return (read_cameras_binary(os.path.join(path, "cameras.bin")),
                 read_images_binary(os.path.join(path, "images.bin")),
                 read_points3d_binary(os.path.join(path, "points3D.bin")))

@@ -45,6 +45,24 @@ def sample_rgb_batch(generator: Optional[torch.Generator], images, poses,
     return batch
 
 
+def draw_cells(generator: Optional[torch.Generator], weights, n: int):
+    """n draws with replacement of a flat index of weights [V, C], each
+    with probability proportional to its weight.  The CDF is summed in
+    int64 fixed point (2^40 a unit of the row-normalised weights) and
+    searched with one float64 uniform a draw: integer sums do not depend
+    on their order, so the draw is the same on every device, run and rank
+    (a float cumsum on the card, as torch.multinomial's, sums in no fixed
+    order)."""
+    w = weights.double()
+    w = (w / w.sum(-1, keepdim=True) * 2.0 ** 40).round().long()
+    cdf = w.reshape(-1).cumsum(0)
+    u = torch.rand(n, generator=generator, device=weights.device,
+                   dtype=torch.float64)
+    target = (u * cdf[-1].double()).long()
+    return torch.searchsorted(cdf, target, right=True).clamp_max(
+        cdf.numel() - 1)
+
+
 def sample_mask_batch(generator: Optional[torch.Generator], masks, poses,
                       intrinsics, error_map, n_rays: int, num_local: int,
                       patch_size: int, H: int, W: int,
@@ -56,9 +74,9 @@ def sample_mask_batch(generator: Optional[torch.Generator], masks, poses,
     n_rays global rays, each from a uniformly drawn view; with
     use_error_map each takes a cell of its view's error map with
     probability proportional to the map (the JAX sampler's Gumbel argmax,
-    drawn here with torch.multinomial: one categorical draw a ray over the
-    view-normalised maps of all views) and a uniform pixel inside the
-    cell, else a uniform pixel.  Then num_local
+    drawn here by draw_cells: one categorical draw a ray over the
+    view-normalised maps of all views, the same on every device) and a
+    uniform pixel inside the cell, else a uniform pixel.  Then num_local
     patch_size^2 patches, each from a uniformly drawn view, centred on a
     cell drawn from that view's map the same way (or placed uniformly).
 
@@ -76,10 +94,7 @@ def sample_mask_batch(generator: Optional[torch.Generator], masks, poses,
         # one draw a ray over every view's cells, each view's row scaled
         # to sum 1: the view is uniform and the cell follows its view's
         # map, as the Gumbel argmax draws them
-        probs = error_map.clamp_min(1e-12)
-        probs = probs / probs.sum(-1, keepdim=True)
-        idx = torch.multinomial(probs.reshape(-1), n_rays, replacement=True,
-                                generator=generator)
+        idx = draw_cells(generator, error_map.clamp_min(1e-12), n_rays)
         img_inds = torch.div(idx, S * S, rounding_mode="floor")
         inds_coarse = idx % (S * S)
         rows = ((torch.div(inds_coarse, S, rounding_mode="floor") * sx

@@ -1,7 +1,7 @@
 """Ray-domain ops: AABB intersection, spacing functions, inverse-CDF sampling."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,20 +32,34 @@ def spacing_fn_inv(s):
     return torch.where(s < 0.5, 2.0 * s, 1.0 / (2.0 - 2.0 * s).clamp_min(1e-8))
 
 
+def uniform_rows(n: int, k: int, device, generator: torch.Generator,
+                 rows: Optional[Tuple[int, int]] = None):
+    """[n, k] U(0, 1) draws.  rows=(start, total): this batch is rows
+    start..start+n of a batch of `total` rays (a data-parallel shard), so
+    the draws of the whole batch are made and this slice kept; every rank
+    then holds the numbers the unsharded batch would."""
+    if rows is None:
+        return torch.rand((n, k), generator=generator, device=device)
+    start, total = rows
+    return torch.rand((total, k), generator=generator,
+                      device=device)[start:start + n]
+
+
 def stratified_queries(n: int, q: int, device,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None,
+                       rows: Optional[Tuple[int, int]] = None):
     """[n, q] midpoints of q uniform strata, jittered by +-0.5/q when a
-    generator is given (perturbed sampling)."""
+    generator is given (perturbed sampling; `rows` as in uniform_rows)."""
     u = torch.linspace(0.5 / q, 1.0 - 0.5 / q, q, device=device)
     u = u.expand(n, q)
     if generator is not None:
-        u = u + (torch.rand((n, q), generator=generator, device=device)
-                 - 0.5) / q
+        u = u + (uniform_rows(n, q, device, generator, rows) - 0.5) / q
     return u
 
 
 def sample_pdf(bins, weights, T: int,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               rows: Optional[Tuple[int, int]] = None):
     """Inverse-CDF resampling of `T` new bin edges from a weight histogram.
 
     bins: [N, T0+1] edges, weights: [N, T0].  Weights get +0.01 flooring;
@@ -58,5 +72,6 @@ def sample_pdf(bins, weights, T: int,
     pdf = weights / weights.sum(dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1).clamp_max(1.0)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
-    u = stratified_queries(weights.shape[0], T, weights.device, generator)
+    u = stratified_queries(weights.shape[0], T, weights.device, generator,
+                           rows)
     return sample_pdf_lookup(cdf, bins.detach().contiguous(), u.contiguous())

@@ -19,9 +19,13 @@ Fixed per-ray sample counts (default 128, 64, 32).  Two routes:
     without level kernels, and, as in JAX, the route of a stage-2 or -3
     training render whose backbone is not frozen (`return_feats` or
     `return_mask` without `frozen_backbone`).
-`update_proposal` is a Python bool: when False the proposal weights are
-detached and the proposal loss is 0 (the reference's cadence, step <= 3000
-or step % 5 == 0, picks it per step).
+`update_proposal` is a Python bool or, as JAX's traced form, a 0-d bool
+tensor.  A Python False detaches the proposal weights and the proposal
+loss is 0 (the reference's cadence, step <= 3000 or step % 5 == 0, picks it
+per step); a tensor leaves the forward as it is and gates the proposal
+grads with torch.where(upd, x, x.detach()), the proposal loss multiplied
+by upd, on either route (on the level-kernel route the gate sits on K1's
+weights, so K2 runs with a zero cotangent under False).
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from ..models.fields import GEOM_FEAT_DIM, SH_DEGREE
 from ..ops.composite import compute_weights, distort_loss, proposal_loss
 from ..ops.contraction import contract
 from ..ops.ray import (near_far_from_aabb, sample_pdf, spacing_fn,
-                       spacing_fn_inv, stratified_queries)
+                       spacing_fn_inv, stratified_queries, uniform_rows)
 from ..ops.sh import sh_encode
 
 
@@ -65,17 +69,17 @@ class RenderSettings:
 
 def render_rays(field, rays_o, rays_d, settings: RenderSettings,
                 generator: Optional[torch.Generator] = None, bg_color=1.0,
-                cam_near_far=None, aabb=None, update_proposal: bool = True):
+                cam_near_far=None, aabb=None, update_proposal=True,
+                rows: Optional[Tuple[int, int]] = None):
     """Render a batch of rays.  rays_o, rays_d: [N, 3] float32 (rays_d
     unnormalised, so depth is z-distance).  `generator` jitters the samples
-    when settings.perturb.  Returns {'image' [N, 3], 'depth' [N],
-    'weights_sum' [N]}; training adds 'weights' [N, T] (final level) and
-    'num_points', and with compute_losses 'proposal_loss' and
-    'distort_loss'; return_feats adds 'samvit', return_mask
-    'instance_mask_logits'."""
-    if not isinstance(update_proposal, bool):
-        raise TypeError("update_proposal must be a Python bool (the JAX "
-                        "renderer's traced form is not ported)")
+    when settings.perturb; rows=(start, total) says the batch is rows
+    start.. of a batch of `total` rays (a data-parallel shard) whose
+    jitter is drawn whole (ops/ray.py uniform_rows).  Returns {'image'
+    [N, 3], 'depth' [N], 'weights_sum' [N]}; training adds 'weights' [N, T]
+    (final level) and 'num_points', and with compute_losses
+    'proposal_loss' and 'distort_loss'; return_feats adds 'samvit',
+    return_mask 'instance_mask_logits'."""
     N, dev = rays_o.shape[0], rays_o.device
     n_levels = len(settings.num_steps)
     training = settings.training
@@ -91,8 +95,15 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
         fars = torch.minimum(fars, cam_near_far[:, 1:2])
     s_nears, s_fars = spacing_fn(nears), spacing_fn(fars)
 
-    def gate(x):  # proposal grads flow only on update_proposal steps
-        return x if update_proposal else x.detach()
+    static_upd = isinstance(update_proposal, bool)
+    if static_upd:
+        def gate(x):  # proposal grads flow only on update_proposal steps
+            return x if update_proposal else x.detach()
+    else:
+        upd = torch.as_tensor(update_proposal, device=dev).reshape(())
+
+        def gate(x):  # the forward as it is, grads where upd
+            return torch.where(upd, x, x.detach())
 
     opaque = settings.background == "last_sample"
     kernels = settings.level_kernels and getattr(
@@ -111,13 +122,14 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
         if level == 0:
             bins = torch.linspace(0.0, 1.0, T + 1, device=dev).expand(N, T + 1)
             if gen is not None:
-                bins = (bins + (torch.rand((N, T + 1), generator=gen,
-                                           device=dev) - 0.5) / T).clamp(0, 1)
+                bins = (bins + (uniform_rows(N, T + 1, dev, gen, rows)
+                                - 0.5) / T).clamp(0, 1)
             bins = bins.contiguous()
         elif folded is not None:
             bins, folded = folded, None
         else:
-            bins = sample_pdf(bins, weights.detach(), T + 1, generator=gen)
+            bins = sample_pdf(bins, weights.detach(), T + 1, generator=gen,
+                              rows=rows)
 
         real_bins = spacing_fn_inv(s_nears * (1.0 - bins) + s_fars * bins)
         if frozen and level == n_levels - 1:
@@ -145,7 +157,7 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
             # next level's s-space edges straight from the proposal kernel;
             # in inference the per-sample weights never reach device memory
             u = stratified_queries(N, settings.num_steps[level + 1] + 1, dev,
-                                   gen).contiguous()
+                                   gen, rows).contiguous()
             if training and not frozen:
                 weights, folded = field.fused_prop_weights_train_sample(
                     rays_o, rays_d, real_bins, bins, u, proposal=level,
@@ -187,9 +199,13 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
         results["num_points"] = N * settings.num_steps[-1]
         results["weights"] = weights
         if settings.compute_losses:
-            results["proposal_loss"] = (
-                proposal_loss(all_bins, all_weights) if update_proposal
-                else torch.zeros((), device=dev))
+            if static_upd:
+                results["proposal_loss"] = (
+                    proposal_loss(all_bins, all_weights) if update_proposal
+                    else torch.zeros((), device=dev))
+            else:
+                results["proposal_loss"] = (
+                    proposal_loss(all_bins, all_weights) * upd.float())
             results["distort_loss"] = distort_loss(bins, weights)
     image = image + (1.0 - weights_sum)[..., None] * bg_color
     results.update(weights_sum=weights_sum, depth=depth, image=image)

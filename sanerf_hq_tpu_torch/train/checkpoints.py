@@ -3,8 +3,11 @@ in the port's own format: one `torch.save` file of the training state
 (step, model, optimizer, EMA and EMA counter; `TrainState.state_dict`).
 
 <workspace>/checkpoints/step_{step:08d}.pt, the newest `max_keep` kept;
-best.pt for the best eval metric.  Reading the JAX package's orbax
-checkpoints is out of scope (models/convert.py carries weights across).
+best.pt for the best eval metric.  Under a process group rank 0 writes and
+every rank waits for it at a barrier.  The JAX package's orbax checkpoints
+are read by the repository's `convert_jax_ckpt.py` (under JAX), which
+writes their parameters as the `.npz` that models/convert.py carries
+across (`--ckpt x.npz`, `--init_ckpt x.npz`).
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import os
 from typing import Optional
 
 import torch
+
+from ..parallel.mesh import barrier, is_main_process
 
 
 class CheckpointManager:
@@ -26,15 +31,17 @@ class CheckpointManager:
                       if f.startswith("step_") and f.endswith(".pt"))
 
     def save(self, step: int, state: dict, best: bool = False) -> str:
-        os.makedirs(self.dir, exist_ok=True)
         name = "best.pt" if best else f"step_{step:08d}.pt"
         path = os.path.join(self.dir, name)
-        tmp = path + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)  # a reader never sees a partial file
-        if not best:
-            for old in self._steps()[:-self.max_keep]:
-                os.remove(os.path.join(self.dir, old))
+        if is_main_process():
+            os.makedirs(self.dir, exist_ok=True)
+            tmp = path + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, path)  # a reader never sees a partial file
+            if not best:
+                for old in self._steps()[:-self.max_keep]:
+                    os.remove(os.path.join(self.dir, old))
+        barrier()
         return path
 
     def latest_path(self) -> Optional[str]:

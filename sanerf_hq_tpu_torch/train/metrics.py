@@ -1,8 +1,7 @@
 """Metric meters with the reference's clear/update/measure/report protocol:
 PSNR, SSIM (11x11 gaussian window, sigma 1.5, k1 0.01, k2 0.03, data range
-1, valid convolution, as torchmetrics' default), MSE and the stage-3 mean
-IoU.  LPIPS needs pretrained weights the repository does not carry and is
-not ported."""
+1, valid convolution, as torchmetrics' default), LPIPS (VGG16; train/
+lpips.py), MSE and the stage-3 mean IoU; and `pixel_accuracy`."""
 from __future__ import annotations
 
 import numpy as np
@@ -84,6 +83,53 @@ class SSIMMeter(Meter):
             self.N += 1
 
 
+class LPIPSMeter(Meter):
+    """VGG-LPIPS, lower is better.  Backends in JAX's order: the `lpips`
+    package where it imports; else VGG16 weights in the `.npz` format of
+    scripts/convert_lpips.py (`weights_path`, else $SANERF_LPIPS_WEIGHTS;
+    a path that names no file raises); else the seeded random proxy
+    (train/lpips.py).  `.mode` names the
+    backend; `device` defaults to the card."""
+    name = "LPIPS"
+    higher_better = False
+
+    def __init__(self, net: str = "vgg", weights_path=None, device=None):
+        from ..device import resolve_device
+
+        self.device = resolve_device(device)
+        try:
+            import lpips  # noqa: F401
+        except ImportError:
+            from .lpips import load_lpips_params, make_lpips_fn
+
+            params, self.mode = load_lpips_params(weights_path)
+            self._fn = make_lpips_fn(params, self.device)
+        else:
+            self.mode = "torch-lpips"
+            net_ = lpips.LPIPS(net=net).eval().to(self.device)
+
+            @torch.no_grad()
+            def fn(pred, gt):
+                p, t = (torch.as_tensor(a, dtype=torch.float32,
+                                        device=self.device)
+                        .permute(2, 0, 1)[None] for a in (pred, gt))
+                return net_(p * 2 - 1, t * 2 - 1)
+
+            self._fn = fn
+        super().__init__()
+
+    @property
+    def available(self):
+        return True
+
+    def report(self):
+        return f"{self.name}[{self.mode}] = {self.measure():.6f}"
+
+    def update(self, preds, truths):
+        self.V += float(self._fn(preds, truths))
+        self.N += 1
+
+
 class MSEMeter(Meter):
     name = "MSE"
     higher_better = False
@@ -113,3 +159,14 @@ class MeanIoUMeter(Meter):
         if ious:
             self.V += float(np.mean(ious))
             self.N += 1
+
+
+def pixel_accuracy(pred, gt, ignore=-1) -> float:
+    """The share of pixels whose label equals the truth's, over the pixels
+    whose truth is not `ignore` (0 when there are none)."""
+    p = np.asarray(pred).reshape(-1)
+    t = np.asarray(gt).reshape(-1)
+    valid = t != ignore
+    if valid.sum() == 0:
+        return 0.0
+    return float((p[valid] == t[valid]).mean())

@@ -11,6 +11,11 @@ as the JAX stage functions render `trainer.state.params`: the distill and
 mask steps never update the EMA, so the EMA copy would still hold the
 heads' initial weights.  The RGB renders (`trainer.render_view`) use the
 EMA weights, as in JAX; over a frozen backbone the two agree.
+
+Under a process group the distill and mask steps are data-parallel
+(`_stage_shard`, train/steps.py); every rank draws the same views and
+batches, and rank 0 alone writes files (the cache, the decode's masks,
+the eval outputs, checkpoints).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from ..data.provider import Scene, resize_linear, resize_nearest
 from ..data.rays import full_frame_rays
 from ..data.sampler import (fixed_fovy_intrinsics, sam_aug_intrinsics,
                             sample_mask_batch)
+from ..parallel.mesh import is_main_process
 from ..render.renderer import RenderSettings, render_staged
 from ..sam.predictor import PIXEL_MEAN, PIXEL_STD
 from ..utils.cache import Cache
@@ -35,6 +41,17 @@ from .metrics import MeanIoUMeter, MSEMeter
 from .steps import (make_eval_render, make_mask_train_step,
                     make_sam_distill_step)
 from .trainer import Trainer, _save_image
+
+
+def _stage_shard(trainer: Trainer):
+    """The ray sharding of the stage-2 and stage-3 steps (JAX stages.py
+    `_stage_shard`): the stage-1 trainer's, rays over the mesh's data axis
+    and parameters replicated.  None without a process group; with one,
+    the sharded path runs whatever the world size, its collectives too."""
+    if trainer.shard is not None:
+        trainer.log("[INFO] sharding stage rays over mesh "
+                    f"{trainer.shard.mesh.shape}")
+    return trainer.shard
 
 
 def _view_intrinsics(scene: Scene, i: int):
@@ -89,10 +106,14 @@ def store_sam_features(trainer: Trainer, scene: Scene, sam_predictor,
     image encoder and save the features [g, g, 256] (g = img_size / 16)
     to sam_cache/{stem}.npy."""
     out_dir = out_dir or os.path.join(trainer.workspace, "sam_cache")
-    os.makedirs(out_dir, exist_ok=True)
+    main = is_main_process()
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
     for i in range(scene.poses.shape[0]):
         out = trainer.render_view(scene.poses[i], _view_intrinsics(scene, i),
                                   scene.H, scene.W)
+        if not main:
+            continue
         rgb = (np.clip(out["image"].reshape(scene.H, scene.W, 3), 0, 1)
                * 255).astype(np.uint8)
         feats = sam_predictor.set_image(rgb)  # [1, g, g, 256]
@@ -138,7 +159,7 @@ def evaluate_sam_features(trainer: Trainer, scene: Scene, sam_predictor,
         pred = render_features(trainer, scene.poses[i], intr, H, W, grid)
         fh, fw = pred.shape[:2]
         meter.update(pred.cpu(), gt[:fh, :fw].cpu())
-        if save_dir is not None:
+        if save_dir is not None and is_main_process():
             os.makedirs(save_dir, exist_ok=True)
             stem = os.path.splitext(str(scene.img_names[i]))[0]
             np.save(os.path.join(save_dir, f"{stem}_samvit.npy"),
@@ -218,7 +239,8 @@ def train_sam_distill(trainer: Trainer, scene: Scene, sam_predictor,
     iters = iters or cfg.iters
     dev = trainer.device
     distill_step = make_sam_distill_step(
-        trainer.model, cfg, frozen_backbone=trainer.backbone_frozen)
+        trainer.model, cfg, frozen_backbone=trainer.backbone_frozen,
+        shard=_stage_shard(trainer))
     step = step0 = trainer.state.step
     seed = cfg.seed * 1000003 + step
     host = torch.Generator().manual_seed(seed)
@@ -282,7 +304,9 @@ def decode(trainer: Trainer, scene: Scene, sam_predictor,
     if feature_container not in ("cache", "distill"):
         raise ValueError(f"unknown feature_container {feature_container}")
     out_dir = out_dir or os.path.join(trainer.workspace, "object_masks")
-    os.makedirs(out_dir, exist_ok=True)
+    main = is_main_process()
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
     valid_dict = {}
     H, W = scene.H, scene.W
     for i in range(scene.poses.shape[0]):
@@ -314,17 +338,19 @@ def decode(trainer: Trainer, scene: Scene, sam_predictor,
             pred_mask = np.zeros((H, W), bool)
             vis = rgb
             is_valid = False
-        _save_image(os.path.join(out_dir, f"{stem}_rgb.png"), vis)
-        np.save(os.path.join(out_dir, f"{stem}_depth.npy"), depth)
-        np.save(os.path.join(out_dir, f"{stem}_obj_mask.npy"),
-                pred_mask.astype(np.uint8)[None])
+        if main:
+            _save_image(os.path.join(out_dir, f"{stem}_rgb.png"), vis)
+            np.save(os.path.join(out_dir, f"{stem}_depth.npy"), depth)
+            np.save(os.path.join(out_dir, f"{stem}_obj_mask.npy"),
+                    pred_mask.astype(np.uint8)[None])
         valid_dict[stem] = int(bool(is_valid))
         err = gate_info.get("depth_err")
         err_s = (f" gate|z-depth| min={err.min():.3f} max={err.max():.3f}"
                  f" tol={depth_tol}" if err is not None and err.size else "")
         trainer.log(f"[decode] {stem} valid={is_valid}{err_s}")
-    with open(os.path.join(out_dir, "valid_dict.json"), "w") as f:
-        json.dump(valid_dict, f, indent=2)
+    if main:
+        with open(os.path.join(out_dir, "valid_dict.json"), "w") as f:
+            json.dump(valid_dict, f, indent=2)
     trainer.log(f"[INFO] decode outputs saved to {out_dir}")
     return out_dir
 
@@ -344,7 +370,8 @@ def train_mask(trainer: Trainer, scene: Scene, iters: Optional[int] = None):
         raise ValueError("stage 3 needs object masks (--mask_root)")
     dev = trainer.device
     mask_step = make_mask_train_step(trainer.model, cfg,
-                                     frozen_backbone=trainer.backbone_frozen)
+                                     frozen_backbone=trainer.backbone_frozen,
+                                     shard=_stage_shard(trainer))
     S = cfg.error_map_size
     V = scene.poses.shape[0]
     error_map = torch.ones((V, S * S), dtype=torch.float32, device=dev)
@@ -466,7 +493,7 @@ def evaluate_masks(trainer: Trainer, scene: Scene,
         pred = probs.argmax(-1)
         if scene.masks is not None:
             meter.update(pred, scene.masks[i])
-        if save_dir:
+        if save_dir and is_main_process():
             os.makedirs(save_dir, exist_ok=True)
             stem = os.path.splitext(str(scene.img_names[i]))[0]
             np.save(os.path.join(save_dir, f"{stem}_mask.npy"), probs)

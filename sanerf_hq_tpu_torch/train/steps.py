@@ -18,6 +18,29 @@ The stage-2 distill step: the MSE of the rendered 64 x 64 SAM feature map
 (resized to the encoder's grid where the two differ) against the
 encoder's features of a full rendering, + lambda_tv * total variation +
 lambda_wd * weight decay of the hash-grid field's s_grid.
+
+Data parallelism (JAX steps.py `_constrain_batch` and the stage-1 mesh):
+each step takes an optional `shard` (parallel/mesh.py `data_sharding`).
+Under it the render inputs are sliced by JAX's rule (leading dim > 1 and
+divisible by the world size W: this rank's contiguous rows; else whole),
+and after backward the grads are all-reduced to their mean over the ranks
+before Adam, so that every rank holds the same parameters and Adam state.
+The loss stays the unsharded batch's loss:
+  - stage 1's terms are per-ray means (MSE, interlevel, distortion,
+    entropy), so the mean over equal shards of a shard's loss is the
+    batch's; every rank draws the whole batch's background and jitter and
+    keeps its rows (render_rays `rows`), and the metrics are averaged over
+    the ranks;
+  - the stage-2 and stage-3 losses couple rays (the feature map's resize,
+    the CE normalised by the batch's labelled count, the 8x8 patches of
+    the label regularisation, the ray-pair loss's anchors, the error-map
+    update), so the per-ray outputs they read are all-gathered
+    (`gather_rays`, whose backward keeps this rank's rows times W) and
+    every rank computes the whole loss, the same on every rank; the
+    error map too (write_cells gives a cell drawn twice one value), so
+    every rank draws the same next batch from it;
+  - the TV / WD terms read the parameters alone: the same on every rank,
+    and so is their mean.
 """
 from __future__ import annotations
 
@@ -28,17 +51,17 @@ from ..config import Config
 from ..models.fields import active_reg_grid
 from ..ops.hashgrid import (total_variation_loss, total_variation_loss_at,
                             weight_decay_loss)
+from ..parallel.mesh import (allreduce_grads, allreduce_mean, gather_rays,
+                             shard_rays, shard_slice)
 from ..render.renderer import RenderSettings, render_rays, render_staged
 from ..utils.resize import resize_bilinear
 
 
-def make_eval_render(model, cfg: Config, perturb: bool = False,
-                     return_mask: bool = False, return_feats: bool = False):
-    """Staged full-frame render for eval/test (chunked; deterministic unless
-    perturb=True and a generator is passed); return_mask adds the object
-    field's 'instance_mask_logits', return_feats the SAM features
-    'samvit'."""
-    settings = RenderSettings(
+def eval_settings(cfg: Config, perturb: bool = False,
+                  return_mask: bool = False,
+                  return_feats: bool = False) -> RenderSettings:
+    """The RenderSettings of the eval and test renders."""
+    return RenderSettings(
         num_steps=tuple(cfg.num_steps),
         use_contract=cfg.contract,
         min_near=cfg.min_near,
@@ -51,6 +74,15 @@ def make_eval_render(model, cfg: Config, perturb: bool = False,
         return_feats=return_feats,
         sam_use_view_direction=cfg.sam_use_view_direction,
     )
+
+
+def make_eval_render(model, cfg: Config, perturb: bool = False,
+                     return_mask: bool = False, return_feats: bool = False):
+    """Staged full-frame render for eval/test (chunked; deterministic unless
+    perturb=True and a generator is passed); return_mask adds the object
+    field's 'instance_mask_logits', return_feats the SAM features
+    'samvit'."""
+    settings = eval_settings(cfg, perturb, return_mask, return_feats)
 
     @torch.inference_mode()
     def eval_render(rays_o, rays_d, bg_color=1.0, cam_near_far=None,
@@ -94,8 +126,28 @@ def update_proposal_at(step: int) -> bool:
     return step <= 3000 or step % 5 == 0
 
 
+def _render_inputs(shard, batch, ro_key="rays_o", rd_key="rays_d"):
+    """(rays_o, rays_d, cam_near_far or None, sliced): a batch's render
+    inputs under `shard` by JAX's rule (shard_rays), and whether the rays
+    were sliced."""
+    rb = {"rays_o": batch[ro_key], "rays_d": batch[rd_key]}
+    if batch.get("cam_near_far") is not None:
+        rb["cam_near_far"] = batch["cam_near_far"]
+    if shard is not None:
+        rb = shard_rays(shard.mesh, rb, shard.axis)
+    return (rb["rays_o"], rb["rays_d"], rb.get("cam_near_far"),
+            rb["rays_o"].shape[0] != batch[ro_key].shape[0])
+
+
+def _apply(state, shard):
+    """Adam after the grads' mean over the ranks (under a shard)."""
+    if shard is not None:
+        allreduce_grads(list(state.model.parameters()))
+    state.apply_gradients()
+
+
 def make_rgb_train_step(model, cfg: Config, perturb: bool = True,
-                        level_kernels: bool = True):
+                        level_kernels: bool = True, shard=None):
     """Stage-1 RGB step.  `train_step(state, batch, generator)` with batch
     {rays_o, rays_d [N, 3], gt_rgb [N, 3 or 4], optional cam_near_far}
     computes the loss at state.step, backpropagates, applies one Adam
@@ -103,7 +155,8 @@ def make_rgb_train_step(model, cfg: Config, perturb: bool = True,
     [distort_loss], loss, psnr}.  `generator` jitters the samples
     (perturb=False renders without jitter) and draws the random
     background.  `train_step.loss_fn(batch, step, update_proposal,
-    generator)` is the loss alone, for grad checks."""
+    generator)` is the loss alone, for grad checks (a shard's loss under
+    `shard`)."""
     settings = RenderSettings(
         num_steps=tuple(cfg.num_steps),
         use_contract=cfg.contract,
@@ -117,13 +170,22 @@ def make_rgb_train_step(model, cfg: Config, perturb: bool = True,
     )
     reg_loss = _grid_regularizers(model, cfg, "rgb")
 
-    def loss_fn(batch, step: int, update_proposal: bool, generator=None):
-        images = batch["gt_rgb"]
+    def loss_fn(batch, step: int, update_proposal, generator=None):
+        N = batch["gt_rgb"].shape[0]
         if cfg.background == "random":
-            bg_color = torch.rand((images.shape[0], 3), generator=generator,
-                                  device=images.device)
+            bg_color = torch.rand((N, 3), generator=generator,
+                                  device=batch["gt_rgb"].device)
         else:
             bg_color = 1.0
+        sl, rows = shard_slice(shard, N), None
+        if sl is not None:
+            # every rank drew the whole batch, its background and, in the
+            # render, its jitter; this rank keeps its rows
+            batch = shard_rays(shard.mesh, batch, shard.axis)
+            rows = (sl.start, N)
+            if cfg.background == "random":
+                bg_color = bg_color[sl]
+        images = batch["gt_rgb"]
         if images.shape[-1] == 4:
             gt_rgb = (images[..., :3] * images[..., 3:]
                       + bg_color * (1.0 - images[..., 3:]))
@@ -132,7 +194,7 @@ def make_rgb_train_step(model, cfg: Config, perturb: bool = True,
         out = render_rays(model, batch["rays_o"], batch["rays_d"], settings,
                           generator=generator, bg_color=bg_color,
                           cam_near_far=batch.get("cam_near_far"),
-                          update_proposal=update_proposal)
+                          update_proposal=update_proposal, rows=rows)
         loss = torch.mean((out["image"] - gt_rgb) ** 2)
         metrics = {"mse": loss}
         if cfg.lambda_proposal > 0:
@@ -159,8 +221,13 @@ def make_rgb_train_step(model, cfg: Config, perturb: bool = True,
         loss, metrics = loss_fn(batch, state.step,
                                 update_proposal_at(state.step), generator)
         loss.backward()
-        state.apply_gradients()
-        return {k: v.detach() for k, v in metrics.items()}
+        _apply(state, shard)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if shard is not None:
+            metrics = allreduce_mean(metrics)
+            metrics["psnr"] = -10.0 * torch.log10(
+                metrics["mse"].clamp_min(1e-10))
+        return metrics
 
     train_step.loss_fn = loss_fn
     return train_step
@@ -228,14 +295,31 @@ def label_regularization(depth, pred_masks, patch_size: int, n_inst: int):
             + (diff_y ** 2 * wy).sum() / wy.sum())
 
 
+def write_cells(error_map, views, cells, values):
+    """A copy of error_map [V, C] with [views[i], cells[i]] set to
+    values[i], where a cell drawn more than once takes its last draw's
+    value (as a sequential write would).  A scatter of repeated indices
+    keeps one of its writes in no fixed order on the card; here every
+    write of a cell carries the same value, so the map is the same on
+    every run and on every rank of a sharded step."""
+    flat = views * error_map.shape[1] + cells
+    pos = torch.arange(flat.shape[0], device=flat.device)
+    last = torch.full((error_map.numel(),), -1, dtype=pos.dtype,
+                      device=flat.device).scatter_reduce_(0, flat, pos,
+                                                          "amax")
+    out = error_map.clone()
+    out.view(-1)[flat] = values[last[flat]]
+    return out
+
+
 def mask_losses(out, batch, step: int, error_map, cfg: Config,
                 generator=None):
     """The stage-3 loss of a rendered batch (JAX steps.py:321-382).  out:
     render_rays' {instance_mask_logits, image, depth} for the batch's
     Ng = cfg.num_rays global rays, then its local patch rays.  Returns
     (loss, metrics {ce, [label_reg], [ray_pair], loss, acc}, the error map
-    with the global rays' cells moved to 0.1 old + 0.9 error, a new
-    tensor)."""
+    with the global rays' cells moved to 0.1 old + 0.9 error by
+    write_cells, a new tensor)."""
     Ng = cfg.num_rays
     P, S = cfg.num_local_sample, cfg.local_sample_patch_size ** 2
     eps = cfg.epsilon
@@ -252,8 +336,8 @@ def mask_losses(out, batch, step: int, error_map, cfg: Config,
     cos = _cosine_similarity(probs[:Ng].detach(), onehot)
     err = torch.exp(-cfg.ray_pair_rgb_exp_weight * cos - eps)
     cell = (batch["img_inds"], batch["inds_coarse"])
-    new_map = error_map.clone()
-    new_map[cell] = 0.1 * error_map[cell] + 0.9 * err
+    new_map = write_cells(error_map, *cell,
+                          0.1 * error_map[cell] + 0.9 * err)
 
     metrics = {"ce": loss}
     if cfg.label_regularization_weight > 0:
@@ -276,7 +360,8 @@ def mask_losses(out, batch, step: int, error_map, cfg: Config,
     return loss, metrics, new_map
 
 
-def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False):
+def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False,
+                         shard=None):
     """Stage-3 object-field step (JAX steps.py:290-392).
 
     `mask_step(state, batch, generator, error_map)` with batch {rays_o,
@@ -290,7 +375,8 @@ def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False):
     K6 on the MLP field (the trainer freezes every backbone parameter).
     `mask_step.loss_fn(batch, step, error_map, generator, tv_points)`
     returns (loss, metrics, error map); tv_points [n, 3] in the unit cube
-    replace the drawn TV points."""
+    replace the drawn TV points.  Under `shard` each rank renders its rows
+    and the logits, image and depth are gathered before the losses."""
     settings = RenderSettings(
         num_steps=tuple(cfg.num_steps),
         use_contract=cfg.contract,
@@ -306,9 +392,12 @@ def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False):
     reg_loss = _grid_regularizers(model, cfg, "mask")
 
     def loss_fn(batch, step: int, error_map, generator=None, tv_points=None):
-        out = render_rays(model, batch["rays_o"], batch["rays_d"], settings,
-                          cam_near_far=batch.get("cam_near_far"),
+        ro, rd, cnf, sliced = _render_inputs(shard, batch)
+        out = render_rays(model, ro, rd, settings, cam_near_far=cnf,
                           update_proposal=False)
+        if sliced:
+            out = {k: gather_rays(out[k], shard)
+                   for k in ("instance_mask_logits", "image", "depth")}
         loss, metrics, new_map = mask_losses(out, batch, step, error_map, cfg,
                                              generator)
         if reg_loss is not None:
@@ -320,7 +409,7 @@ def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False):
         loss, metrics, new_map = loss_fn(batch, state.step, error_map,
                                          generator)
         loss.backward()
-        state.apply_gradients()
+        _apply(state, shard)
         return {k: v.detach() for k, v in metrics.items()}, new_map
 
     mask_step.loss_fn = loss_fn
@@ -328,7 +417,7 @@ def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False):
 
 
 def make_sam_distill_step(model, cfg: Config, feat_hw: int = 64,
-                          frozen_backbone: bool = False):
+                          frozen_backbone: bool = False, shard=None):
     """Stage-2 distill step (JAX steps.py:173-225).
 
     `distill_step(state, batch, generator)` with batch {rays_o_lr,
@@ -343,7 +432,8 @@ def make_sam_distill_step(model, cfg: Config, feat_hw: int = 64,
     on the MLP field (the trainer freezes every backbone parameter).
     `distill_step.loss_fn(batch, generator, tv_points)` returns (loss,
     metrics, the render's outputs); tv_points [n, 3] in the unit cube
-    replace the drawn TV points."""
+    replace the drawn TV points.  Under `shard` each rank renders its rows
+    of the feature map and 'samvit' is gathered before the loss."""
     settings = RenderSettings(
         num_steps=tuple(cfg.num_steps),
         use_contract=cfg.contract,
@@ -360,9 +450,12 @@ def make_sam_distill_step(model, cfg: Config, feat_hw: int = 64,
     reg_loss = _grid_regularizers(model, cfg, "sam")
 
     def loss_fn(batch, generator=None, tv_points=None):
-        out = render_rays(model, batch["rays_o_lr"], batch["rays_d_lr"],
-                          settings, cam_near_far=batch.get("cam_near_far"),
+        ro, rd, cnf, sliced = _render_inputs(shard, batch, "rays_o_lr",
+                                             "rays_d_lr")
+        out = render_rays(model, ro, rd, settings, cam_near_far=cnf,
                           update_proposal=False)
+        if sliced:
+            out["samvit"] = gather_rays(out["samvit"], shard)
         pred = out["samvit"].reshape(feat_hw, feat_hw, -1)
         gt = batch["gt_samvit"]
         if pred.shape[:2] != gt.shape[:2]:
@@ -376,7 +469,7 @@ def make_sam_distill_step(model, cfg: Config, feat_hw: int = 64,
     def distill_step(state, batch, generator=None):
         loss, metrics, _ = loss_fn(batch, generator)
         loss.backward()
-        state.apply_gradients()
+        _apply(state, shard)
         return {k: v.detach() for k, v in metrics.items()}
 
     distill_step.loss_fn = loss_fn

@@ -11,7 +11,15 @@ steps render through the composable route.
 Epoch math as the reference's: steps_per_epoch = number of training views,
 max_epoch = ceil(iters / steps_per_epoch), eval and save intervals from
 eval_cnt and save_cnt; the EMA is updated on the last step of each epoch.
-Multi-GPU comes with a later slice.
+
+Under a process group (parallel/mesh.py; `python -m torch.distributed.run`)
+the stage-1 step is data-parallel (JAX trainer.py's mesh): every rank draws
+the same global batch and jitter from the same seeded generator and trains
+on its slice, the grads all-reduced, so that every rank holds the same
+parameters and EMA; rank 0's weights are broadcast at construction.  Rank
+0 alone logs and writes checkpoints and images; the others wait at a
+barrier where it saves.  With more than one rank the deterministic eval
+renders are sharded over the ranks (parallel/evaluate.py).
 """
 from __future__ import annotations
 
@@ -28,11 +36,14 @@ from ..data.provider import Scene
 from ..data.rays import full_frame_rays
 from ..data.sampler import sample_rgb_batch
 from ..models.mlp_field import MLPField
+from ..parallel.evaluate import make_sharded_render
+from ..parallel.mesh import (broadcast_params, data_sharding, is_distributed,
+                             is_main_process, make_mesh, world_size)
 from .checkpoints import CheckpointManager
 from .metrics import PSNRMeter
 from .state import (TrainState, freeze_mask_from_loaded, mlp_field_lr_scales,
                     partial_load)
-from .steps import make_eval_render, make_rgb_train_step
+from .steps import eval_settings, make_eval_render, make_rgb_train_step
 
 # top-level parameter names of the stage-1 backbone (JAX trainer.py:50-52):
 # the MLP field's, then the hash-grid field's.  The JAX list also names
@@ -51,13 +62,17 @@ def backbone_all_frozen(model, frozen) -> bool:
 
 
 class Logger:
-    """Console + append-mode log file in the workspace."""
+    """Console + append-mode log file in the workspace; silent on every
+    rank but 0."""
 
     def __init__(self, workspace: str, name: str = "ngp"):
         os.makedirs(workspace, exist_ok=True)
         self.path = os.path.join(workspace, f"log_{name}.txt")
+        self.enabled = is_main_process()
 
     def __call__(self, *args):
+        if not self.enabled:
+            return
         msg = " ".join(str(a) for a in args)
         print(msg, flush=True)
         with open(self.path, "a") as f:
@@ -104,8 +119,19 @@ class Trainer:
                 self.log("[WARN] checkpoint optimizer state does not match "
                          "the current optimizer; loaded model weights only "
                          f"(resumed at step {self.state.step})")
-        self.train_step = make_rgb_train_step(model, cfg)
-        self.eval_render = make_eval_render(self.state.ema_model, cfg)
+        self.shard = None
+        if is_distributed():
+            mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axis_names)
+            self.shard = data_sharding(mesh, cfg.mesh_axis_names[0])
+            broadcast_params(model)
+            broadcast_params(self.state.ema_model)
+            self.log(f"[INFO] sharding rays over mesh {mesh.shape}")
+        self.train_step = make_rgb_train_step(model, cfg, shard=self.shard)
+        self.eval_render = (
+            make_sharded_render(self.state.ema_model, eval_settings(cfg),
+                                self.shard.mesh, self.shard.axis)
+            if world_size() > 1 else
+            make_eval_render(self.state.ema_model, cfg))
         self._eval_render_perturb = None
         self._train_data = None
         self.best_metric = -np.inf
@@ -199,9 +225,10 @@ class Trainer:
 
     def render_view(self, pose, intrinsics, H, W, cam_near_far=None,
                     bg_color=1.0, aabb=None, generator=None):
-        """Full-frame render with the EMA weights.  `aabb` overrides the
-        inference bounding box; `generator` jitters sampling (a perturbed
-        render is built on first use).  Returns numpy arrays
+        """Full-frame render with the EMA weights, sharded over the ranks
+        when there is more than one.  `aabb` overrides the inference
+        bounding box; `generator` jitters sampling (a perturbed render,
+        unsharded, is built on first use).  Returns numpy arrays
         {'image' [H*W, 3], 'depth' [H*W], 'weights_sum' [H*W]}."""
         dev = self.device
         ro, rd = full_frame_rays(
@@ -250,7 +277,7 @@ class Trainer:
                 gt = scene.images[i][..., :3]
                 for m in meters:
                     m.update(pred, gt)
-            if save_dir is not None:
+            if save_dir is not None and is_main_process():
                 os.makedirs(save_dir, exist_ok=True)
                 stem = self._stem(scene, i)
                 _save_image(os.path.join(save_dir, f"{stem}_rgb.png"), pred)
@@ -279,15 +306,18 @@ class Trainer:
         if extra not in (None, "sam"):
             raise ValueError(f"unknown extra output {extra!r}")
         save_dir = save_dir or os.path.join(self.workspace, "results")
-        os.makedirs(save_dir, exist_ok=True)
+        main = is_main_process()
+        if main:
+            os.makedirs(save_dir, exist_ok=True)
         meter = PSNRMeter()
         frames = []
         for i in range(scene.poses.shape[0]):
             out, pred = self._render_scene(scene, i)
             stem = self._stem(scene, i)
-            _save_image(os.path.join(save_dir, f"{stem}_rgb.png"), pred)
-            np.save(os.path.join(save_dir, f"{stem}_depth.npy"),
-                    out["depth"].reshape(scene.H, scene.W))
+            if main:
+                _save_image(os.path.join(save_dir, f"{stem}_rgb.png"), pred)
+                np.save(os.path.join(save_dir, f"{stem}_depth.npy"),
+                        out["depth"].reshape(scene.H, scene.W))
             if extra == "sam":
                 from .stages import render_features
 
@@ -295,15 +325,16 @@ class Trainer:
                         else scene.intrinsics)
                 feats = render_features(self, scene.poses[i], intr, scene.H,
                                         scene.W)
-                np.save(os.path.join(save_dir, f"{stem}_sam.npy"),
-                        feats.cpu().numpy())
+                if main:
+                    np.save(os.path.join(save_dir, f"{stem}_sam.npy"),
+                            feats.cpu().numpy())
             if scene.images is not None:
                 meter.update(pred, scene.images[i][..., :3])
             if write_video:
                 frames.append((pred * 255).astype(np.uint8))
         if meter.N:
             self.log("[EVAL] " + meter.report())
-        if frames:
+        if frames and main:
             _write_video(os.path.join(save_dir, "video.mp4"), frames)
         self.log(f"[INFO] test results saved to {save_dir}")
 

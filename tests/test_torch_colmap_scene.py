@@ -66,11 +66,15 @@ def _write_text_model(d, cams, imgs):
 
 
 def test_colmap_readers_match_jax(tmp_path, monkeypatch):
-    # JAX's load_sparse_model reads through its native reader where it is
-    # built (rgb as uint8); the port's is its Python reader's
+    # both load_sparse_model read through their native readers where a
+    # compiler builds them (rgb as uint8); the Python readers are compared
+    # here (the port's native reader against its Python one:
+    # tests/test_torch_colmap_native.py)
     from sanerf_hq_tpu.data import colmap_native
+    from sanerf_hq_tpu_torch.data import colmap_native as t_native
 
     monkeypatch.setattr(colmap_native, "native_available", lambda: False)
+    monkeypatch.setattr(t_native, "compiler", lambda: None)
     d = str(tmp_path / "sparse")
     write_colmap_model(d)
     for fn, name in (("read_cameras_binary", "cameras.bin"),

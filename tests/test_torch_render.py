@@ -129,7 +129,9 @@ def test_training_render_not_ported(setup):
     """The training render is ported (tests/test_torch_train.py holds it to
     JAX): it returns the final weights, the point count and both losses,
     and the proposal loss is 0 without the proposal update.  The JAX
-    renderer's traced update_proposal is what is not ported: it raises."""
+    renderer's traced update_proposal, once the one part not ported, is
+    taken too: a 0-d bool tensor gives the bool form's proposal loss
+    (tests/test_torch_encoding.py holds its grads)."""
     _, _, tm, ro, rd = setup
     o, d = torch.from_numpy(ro), torch.from_numpy(rd)
     s = tr.RenderSettings(**STEPS, training=True, compute_losses=True)
@@ -139,5 +141,8 @@ def test_training_render_not_ported(setup):
     assert out["proposal_loss"].item() > 0 and out["distort_loss"].item() > 0
     off = tr.render_rays(tm, o, d, s, update_proposal=False)
     assert off["proposal_loss"].item() == 0.0
-    with pytest.raises(TypeError, match="Python bool"):
-        tr.render_rays(tm, o, d, s, update_proposal=torch.tensor(True))
+    on = tr.render_rays(tm, o, d, s, update_proposal=torch.tensor(True))
+    assert torch.equal(on["proposal_loss"], out["proposal_loss"])
+    traced_off = tr.render_rays(tm, o, d, s,
+                                update_proposal=torch.tensor(False))
+    assert traced_off["proposal_loss"].item() == 0.0
