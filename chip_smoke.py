@@ -8,6 +8,10 @@
     python3 chip_smoke.py --dp-cards  # phase 15 (a) and (b) on every
                                       # card of the host: world size N
                                       # against 1
+    python3 chip_smoke.py --rich-all  # phase 16's chain three more ways
+                                      # (DISTILL_ITERS=5000, FIELD=hashgrid,
+                                      # KIND=clutter) and its stage 1 on
+                                      # the composable route
 
 (`--dp-worker <spec>` is phase 15's process under torch.distributed.run.)
 
@@ -37,8 +41,8 @@ last line:
        proposal levels (bins max abs <= 1e-3 and equal to K5's, weights
        rel-max < 2e-2), K2 at T = 128 and 64 and K4 at T = 32 (rel-max
        < 2e-2 on every weight and CP grad; the weight grads bitwise equal
-       over two launches; K4's CP grads, summed with atomics, print their
-       run-to-run difference); K7 at both proposal levels (weights rel-max
+       over two launches, and K4's CP grads, summed in a fixed order,
+       too); K7 at both proposal levels (weights rel-max
        < 2e-2, bitwise equal to K1's; prop_level_train's weight grads
        bitwise equal to prop_level_train_sample's under one cotangent);
      - the level kernels' output digests (sha256 of K5, K1, K7, K2, K3,
@@ -280,9 +284,9 @@ last line:
         render_view's; the checkpoint against phase 5's, beside a second
         run without torchrun: bitwise where those two agree bit for bit,
         else the share of elements apart by > 1e-3 under 1% (JAX's bound)
-        and the mean abs under 1e-3, the max abs printed (K4's CP grads
-        are summed with fp32 atomics, and Adam's eps 1e-15 lifts a
-        difference to an lr-sized step on single elements); one step's
+        and the mean abs under 1e-3, the max abs printed (sums in another
+        order differ in their last bits, and Adam's eps 1e-15 lifts such
+        a difference to an lr-sized step on single elements); one step's
         grads,
         sharded and all-reduced, against the unsharded step's on one
         batch: every non-CP grad bitwise equal;
@@ -309,6 +313,22 @@ last line:
      size 1 by the same rule, its eval metrics within 1e-4 rel, one
      step's grads within 1e-4 rel; on one card the line says that this rests on
      the CPU tests over gloo; then one JSON line {"dp_path": {...}}.
+ 16. scripts/bench_rich_scene.sh at its full run lengths (run after 15,
+     before 10's traces): its command lines read out of the script by
+     bash (script_runs) with FIELD=mlp KIND=rich ITERS=5000 SAM_SIZE=vit_b;
+     the scene writer's line through the port's tools.make_synth_scene
+     (24 views of 240x320), each `main.py` line through cli.main on the
+     card, counts set to 0 just before and read just after each: stage 1
+     (5000 steps of 8192 rays; launches K1 2 a step, K2 2 a step while the
+     proposals update, K4 1, K3 1 a step + 1 a chunk of the two evals of
+     the held-out views, K5 2 a chunk), stage 2's vit_b cache and the
+     decode (every view: K3 1 and K5 2 a chunk), stage 3 (200 steps; K6 1
+     a step and a chunk of the error-map rebuild and the eval, K5 2) and
+     its --test; each stage's seconds and steps/s, the train and held-out
+     PSNR, SSIM and LPIPS (the random proxy, not gated), each view's
+     depth-gate residuals, MeanIoU; gates: held-out PSNR >= 26 dB, SSIM
+     >= 0.90, >= 22 of 24 views valid, MeanIoU >= 0.85, every logged loss
+     finite; then one JSON line {"rich_path": {...}}.
  10. the device-only torch.profiler traces of phases 5, 7, 8, 9 and 11,
      taken after every rate, since a trace slows the host's later steps;
      one JSON line with every kernel's numbers (K10's launches those of
@@ -337,7 +357,8 @@ from sanerf_hq_tpu_torch import cli
 from sanerf_hq_tpu_torch.data import colmap
 from sanerf_hq_tpu_torch.data.colmap_native import read_model_native
 from sanerf_hq_tpu_torch.data.png import decode_png, encode_png, read_png
-from sanerf_hq_tpu_torch.data.provider import (load_scene, resize_nearest,
+from sanerf_hq_tpu_torch.data.provider import (load_object_masks,
+                                               load_scene, resize_nearest,
                                                split_indices)
 from sanerf_hq_tpu_torch.data.rays import full_frame_rays
 from sanerf_hq_tpu_torch.data.sampler import (fixed_fovy_intrinsics,
@@ -369,6 +390,8 @@ from sanerf_hq_tpu_torch.render import web_viewer
 from sanerf_hq_tpu_torch.render.gui_api import InteractiveSession
 from sanerf_hq_tpu_torch.render.renderer import RenderSettings, render_rays
 from sanerf_hq_tpu_torch.sam import SamPredictor, build_sam
+from sanerf_hq_tpu_torch.tools import make_synth_scene
+from sanerf_hq_tpu_torch.train import metrics as M
 from sanerf_hq_tpu_torch.train import stages
 from sanerf_hq_tpu_torch.train.checkpoints import CheckpointManager
 from sanerf_hq_tpu_torch.train.lpips import make_lpips_fn, random_lpips_params
@@ -376,7 +399,8 @@ from sanerf_hq_tpu_torch.train.steps import (_grid_regularizers,
                                              make_mask_train_step,
                                              make_rgb_train_step,
                                              make_sam_distill_step,
-                                             mask_losses)
+                                             mask_losses,
+                                             update_proposal_at)
 from sanerf_hq_tpu_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -914,13 +938,15 @@ def check_train_kernels(field):
                     2 * pts * macs, 2 * pts * 3 * field.freq_degree)
     print("[kernel] K4 fused_final_level_bwd T=32 CP-64: rel-max err "
           + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-          + f" (< 2e-2); dW bitwise equal over two launches; dCP run-to-run "
-          f"max abs difference {cp_run_diff:.3e} (fp32 atomics); {ms:.4f} ms, "
+          + f" (< 2e-2); dW and dCP bitwise equal over two launches (dCP "
+          f"max abs difference {cp_run_diff:.3e}); {ms:.4f} ms, "
           f"plain twin {plain:.4f} ms, bound {bms:.4f} ms ({by}, {macs} MAC "
           "a sample)", flush=True)
     k4 = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
           "max_abs_err": abs_err, "rel_max_err": max(rels.values()),
           "dcp_run_to_run_max_abs": cp_run_diff}
+    # the CP grads' chunks are summed in chunk order
+    assert cp_run_diff == 0.0, f"K4 dCP moved between launches {cp_run_diff}"
     k4["parts"], k4["gemm_bounds"] = final_bwd_parts(call, fargs, ws, rank)
     k2["parts"] = k2_parts
     # K3, the training forward, at the same 8192-ray shape
@@ -1351,7 +1377,8 @@ def level_digests(field):
     batch's (8192) view rays, and queries and cotangents from fixed seeds:
     K5 and K1 at both proposal levels (K1's bins and weights), K7, K2's
     weight grads, K3 and K6 (all outputs) and K4's weight grads (its CP
-    grads are summed with atomics and left out).  Builds whose device code
+    grads are left out: earlier builds summed them with atomics, and the
+    digests compare across commits).  Builds whose device code
     computes alike give equal digests: an A/B call compares them across
     commits (--ab)."""
     dev = field.cp_x.device
@@ -4288,7 +4315,7 @@ DP_RAY_PAIR_ITER = 10  # (b): the ray-pair loss on past step 10, cut from 150
 DP_RANK_STEPS = 10  # (b): sharded steps with the ranks' batches compared
 # two trainings of the same flags are held to JAX's rule for its 1-vs-8
 # device test: a sharding fault moves most elements, while fp32 sums in
-# another order (K4's CP-grad atomics; the ranks' partial sums) move a few
+# another order (the ranks' partial sums) move a few
 # by an lr-sized Adam step (eps 1e-15).  So the share of elements apart by
 # more than 1e-3 (JAX's 1%) and the mean abs difference are held; the max
 # abs, one element's step, is printed
@@ -4827,8 +4854,8 @@ def dp_path(work):
           f"{dt:.2f} s, the process's start included", flush=True)
 
     # (a) against the CLI without torchrun: phase 5's run of the same
-    # flags, and a second run now (K4's CP grads are summed with fp32
-    # atomics, so two runs need not agree bit for bit)
+    # flags, and a second run now (bitwise where the two agree bit for
+    # bit, as they do with K4's CP grads summed in a fixed order)
     ref2, _, _ = run_cli(rgb_argv(scene, os.path.join(work, "dp_rgb_ref2")))
     dp_state, ref, ref_b = (load_ckpt(os.path.join(work, w)) for w in
                             ("dp_rgb", "train_ws", "dp_rgb_ref2"))
@@ -4840,11 +4867,11 @@ def dp_path(work):
           f"{d_ref[0]}, max abs {d_ref[1]:.3e}, mean {d_ref[2]:.3e}; one "
           f"step's grads, sharded (all-reduced) against unsharded: every "
           f"non-CP grad bitwise equal, CP grads max abs "
-          f"{a['cp_grads_max_abs_diff']:.3e} (K4's atomics); the eval "
+          f"{a['cp_grads_max_abs_diff']:.3e}; the eval "
           f"images equal render_view's {a['images_equal']}; where the runs "
           f"without it differ, the share apart by > 1e-3 held under "
           f"{DP_SHARE:g} and the mean under {DP_MEAN:g} (Adam's eps 1e-15 "
-          "lifts an atomics difference to an lr-sized step on single "
+          "lifts a last-bit difference to an lr-sized step on single "
           "elements)", flush=True)
     if d_ref[0]:
         assert d_dp[0], "torchrun at world size 1 moved the parameters"
@@ -4985,6 +5012,342 @@ def dp_path(work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: scripts/bench_rich_scene.sh at the full run lengths
+# ---------------------------------------------------------------------------
+
+RICH_ENV = {"ITERS": "5000", "SAM_SIZE": "vit_b"}  # the script's defaults
+# floors a field that did not learn cannot pass (the JAX package's records
+# on the rich scene, docs/PERF.md: held-out PSNR 28.6, SSIM 0.945, 24 of 24
+# views valid, MeanIoU 0.9206)
+RICH_GATES = {"PSNR": 26.0, "SSIM": 0.90, "valid": 22, "MeanIoU": 0.85}
+RICH_ALL_PSNR = 20.0  # --rich-all: no record to hold these runs to
+DEPTH_TOL = 0.05  # the decode's depth gate (stages.decode)
+RICH_ORDER = ("stage1", "stage2", "distill", "decode", "stage3",
+              "stage3_test")
+
+
+def script_runs(name, env):
+    """Every `python` command of scripts/<name> in order, each as its
+    words after `python`, as bash expands them: the script run by bash
+    with env's variables (and PATH alone of the caller's), `python` a
+    shell function that records its arguments in place of running them.
+    So the flag sets follow the script's own defaults, quoting and
+    conditionals."""
+    rec = os.path.join(ROOT, "build", f"{name}.{os.getpid()}.runs")
+    os.makedirs(os.path.dirname(rec), exist_ok=True)
+    stub = ('python() { printf "%s\\0" "$#" "$@" >> "$SMOKE_RUNS"; }; '
+            'export -f python; exec bash "$0"')
+    try:
+        subprocess.run(["bash", "-c", stub,
+                        os.path.join(ROOT, "scripts", name)],
+                       check=True, stdout=subprocess.DEVNULL,
+                       stdin=subprocess.DEVNULL,
+                       env={"PATH": os.environ["PATH"], "SMOKE_RUNS": rec,
+                            **env})
+        with open(rec, "rb") as f:
+            words = [w.decode() for w in f.read().split(b"\0")[:-1]]
+    finally:
+        if os.path.exists(rec):
+            os.remove(rec)
+    runs, i = [], 0
+    while i < len(words):
+        n = int(words[i])
+        runs.append(words[i + 1:i + 1 + n])
+        i += n + 1
+    return runs
+
+
+def rich_stage(argv):
+    """Which stage of scripts/bench_rich_scene.sh a `main.py` argv is."""
+    if "--decode" in argv:
+        return "decode"
+    if "--with_mask" in argv:
+        return "stage3_test" if "--test" in argv else "stage3"
+    if "--with_sam" in argv:
+        return ("distill" if argv[argv.index("--feature_container") + 1]
+                == "distill" else "stage2")
+    return "stage1"
+
+
+def log_text(trainer):
+    with open(trainer.log.path) as f:
+        return f.read()
+
+
+def log_rate(text, what):
+    """The steps/s of the last "[INFO] {what} took ..." line of a log."""
+    return float(re.findall(what + r" took [\d.]+ min \(([\d.]+) steps/s\)",
+                            text)[-1])
+
+
+def rich_expected(stage, field, cfg, n_steps, pv, n_val, n_views, n_train):
+    """The launches of one stage of the bench script, reckoned from the
+    code: pv chunks a view; stage 1 renders the n_val held-out views
+    twice (the in-loop eval at its one eval epoch, then the CLI's PSNR /
+    SSIM / LPIPS eval); stage 2 and the decode render every view once
+    (the cache's val_all); stage 3 renders an error-map view of each of
+    its n_train training views at each rebuild, then the held-out views;
+    its --test renders the held-out views.  The MLP field renders through
+    the level kernels (K5 twice and K3, or over a frozen backbone K6, once
+    a chunk; K1 twice, K2 twice while the proposals update, K3 and K4
+    once a training step), the hash-grid field through the composable
+    route (K10 twice a step and a chunk)."""
+    if stage == "stage1":
+        if field != "mlp":
+            return {"K10": 2 * n_steps + 4 * n_val * pv}
+        upd = sum(update_proposal_at(s_) for s_ in range(n_steps))
+        return {"K1": 2 * n_steps, "K2": 2 * upd, "K4": n_steps,
+                "K3": n_steps + 2 * n_val * pv, "K5": 4 * n_val * pv}
+    if stage in ("stage2", "decode"):
+        chunks, k = n_views * pv, "K3"
+    elif stage == "stage3":
+        chunks = n_steps + rebuild_chunks(cfg, n_train) + n_val * pv
+        k = "K6"
+    else:
+        chunks, k = n_val * pv, "K6"
+    if field != "mlp":
+        return {"K10": 2 * chunks}
+    return {k: chunks, "K5": 2 * chunks}
+
+
+def rich_stage1(tag, trainer, argv, text, s, train, val):
+    """Stage 1's numbers: rate, losses, train and held-out quality."""
+    cfg, n = trainer.cfg, trainer.state.step
+    losses = trainer.stats["loss"]
+    q = _eval_metrics(text)
+    rate = log_rate(text, "training")
+    last = float(re.findall(r"train_psnr=([\d.]+)", text)[-1])
+    # the training views rendered with the EMA weights, as the held-out
+    # ones are (after the counted run)
+    sc = load_scene(cfg.path, cfg.data_type)
+    meter = M.PSNRMeter()
+    for i in train:
+        img = trainer.render_view(sc.poses[i], sc.intrinsics[i], sc.H,
+                                  sc.W)["image"]
+        meter.update(img.reshape(sc.H, sc.W, 3), sc.images[i][..., :3])
+    finite = bool(losses) and bool(np.isfinite(losses).all())
+    print(f"{tag} stage1: {n} steps of {cfg.num_rays} rays (the script's "
+          f"--num_rays {argv[argv.index('--num_rays') + 1]} set to "
+          f"num_points / the final level's samples, as in JAX), "
+          f"{rate:.1f} steps/s; losses finite {finite} (first "
+          f"{losses[0]:.5f}, last {losses[-1]:.5f}); train PSNR {last:.2f} "
+          f"(last batch), {meter.measure():.4f} (the {len(train)} training "
+          f"views); held-out ({len(val)} views) PSNR {q['PSNR']:.4f}, SSIM "
+          f"{q['SSIM']:.4f}, LPIPS {q['LPIPS']:.4f} (the random-VGG proxy, "
+          f"not gated)", flush=True)
+    return finite, {"PSNR": q["PSNR"], "SSIM": q["SSIM"],
+                    "LPIPS": q["LPIPS"], "train_psnr_last_batch": last,
+                    "train_psnr_views": meter.measure(),
+                    "stage1_steps_per_s": rate, "rays": cfg.num_rays,
+                    "n_train": len(train), "n_val": len(val)}
+
+
+def rich_decode(tag, cfg, text):
+    """The decode's valid views and each view's depth-gate residuals."""
+    with open(os.path.join(cfg.workspace, "object_masks",
+                           "valid_dict.json")) as f:
+        valid = json.load(f)
+    gate = {stem: [float(a) if a else None, float(b) if b else None]
+            for stem, a, b in re.findall(
+                r"\[decode\] (\S+) valid=\w+(?: gate\|z-depth\| "
+                r"min=([\d.]+) max=([\d.]+))?", text)}
+    n_valid = sum(valid.values())
+    print(f"{tag} decode: valid {n_valid}/{len(valid)} at depth_tol "
+          f"{DEPTH_TOL}; the gate's |z - depth| (min, max) by view: "
+          + ", ".join(f"{k} {'valid' if valid[k] else 'INVALID'} "
+                      + (f"({a:.3f}, {b:.3f})" if a is not None
+                         else "(no point in the frame)")
+                      for k, (a, b) in gate.items()), flush=True)
+    return {"valid": n_valid, "views": len(valid), "gate": gate}
+
+
+def rich_chain(work, field="mlp", kind="rich", distill_iters=None,
+               gates=RICH_GATES):
+    """One run of scripts/bench_rich_scene.sh with FIELD=field KIND=kind
+    (and DISTILL_ITERS) at the script's full run lengths: its command
+    lines, read out of it by bash, the scene writer's through the port's
+    tools.make_synth_scene and every `main.py` line through cli.main on
+    the card, the launch counts set to 0 just before each and read just
+    after; each stage's wall time, rates, quality numbers and launches
+    printed, the launches held to rich_expected (the distill line's
+    printed).  `gates`: the floors to hold; None holds --rich-all's
+    (finite losses, held-out PSNR >= RICH_ALL_PSNR)."""
+    scene = os.path.join(work, f"{kind}_llff")
+    env = {**RICH_ENV, "KIND": kind, "SCENE": scene, "FIELD": field,
+           "WS": os.path.join(work, f"{kind}_ws")}
+    if distill_iters:
+        env["DISTILL_ITERS"] = str(distill_iters)
+    tag = f"[rich {field} {kind}]"
+    out = {"field": field, "kind": kind, "seconds": {}, "launches": {}}
+    stages_run, finite = [], True
+    t_chain = time.perf_counter()
+    for words in script_runs("bench_rich_scene.sh", env):
+        if words[0] == "scripts/make_synth_scene.py":
+            t0 = time.perf_counter()
+            names = make_synth_scene.main(words[1:])
+            out["seconds"]["scene"] = time.perf_counter() - t0
+            print(f"{tag} scene: python -m sanerf_hq_tpu_torch.tools."
+                  f"make_synth_scene {' '.join(words[1:])}: {len(names)} "
+                  f"views in {out['seconds']['scene']:.2f} s", flush=True)
+            continue
+        assert words[0] == "main.py", words
+        argv, stage = words[1:], rich_stage(words[1:])
+        stages_run.append(stage)
+        print(f"{tag} {stage}: python -m sanerf_hq_tpu_torch "
+              f"{' '.join(argv)}", flush=True)
+        trainer, dt, launches = run_cli(argv)
+        cfg, text = trainer.cfg, log_text(trainer)
+        out["seconds"][stage] = dt
+        out["launches"][stage] = launches
+        s = load_scene(cfg.path, cfg.data_type, load_images=False)
+        test_views = None
+        if cfg.test_view_path:
+            with open(cfg.test_view_path) as f:
+                test_views = json.load(f)["test_view_list"]
+        V = s.poses.shape[0]
+        train = split_indices(V, "train", cfg.val_type, test_views,
+                              s.img_names)
+        val = split_indices(V, "val", cfg.val_type, test_views, s.img_names)
+        pv = -(-s.H * s.W // CHUNK)
+        n_steps, n_train = 0, 0
+        if stage == "stage1":
+            n_steps = trainer.state.step
+            assert n_steps == int(env["ITERS"]), n_steps
+            ok, res = rich_stage1(tag, trainer, argv, text, s, train, val)
+            finite &= ok
+            out.update(res)
+        elif stage == "stage2":
+            assert len(os.listdir(os.path.join(cfg.workspace,
+                                               "sam_cache"))) == V
+            print(f"{tag} stage2: {V} views rendered and encoded "
+                  f"({cfg.sam_model_type}, 1024^2 input), "
+                  f"{dt / V:.3f} s a view", flush=True)
+        elif stage == "distill":
+            vals = [v["loss"] for _, v in trainer.stats["distill"]]
+            finite &= bool(np.isfinite(vals).all())
+            mse = float(text.split("[EVAL stage-2] ")[-1].split("= ")[1]
+                        .split()[0])
+            rate = log_rate(text, "distill training")
+            out.update(distill_mse=mse, distill_steps_per_s=rate,
+                       distill_loss=[vals[0], vals[-1]])
+            print(f"{tag} distill: {trainer.state.step} steps, {rate:.1f} "
+                  f"steps/s, loss {vals[0]:.5f} -> {vals[-1]:.5f}; "
+                  f"rendered-feature MSE {mse:.6f}", flush=True)
+        elif stage == "decode":
+            out.update(rich_decode(tag, cfg, text))
+        elif stage == "stage3":
+            n_steps = trainer.state.step
+            vals = [v["loss"] for _, v in trainer.stats["mask"]]
+            finite &= bool(np.isfinite(vals).all())
+            rate = log_rate(text, "mask training")
+            _, valid_idx = load_object_masks(cfg.mask_root, s.img_names,
+                                             s.H, s.W, seed=cfg.seed)
+            n_train = int(np.isin(train, valid_idx).sum())
+            out.update(stage3_steps_per_s=rate, stage3_miou=miou(text))
+            print(f"{tag} stage3: {n_steps} steps of {cfg.num_rays} + "
+                  f"{cfg.num_local_sample} patches of "
+                  f"{cfg.local_sample_patch_size}^2 rays on {n_train} "
+                  f"views, {rate:.1f} steps/s, loss {vals[0]:.4f} -> "
+                  f"{vals[-1]:.4f}, MeanIoU {miou(text):.4f}", flush=True)
+        else:
+            out["MeanIoU"] = miou(text)
+            print(f"{tag} stage3_test: MeanIoU {out['MeanIoU']:.4f} "
+                  f"(resumed)", flush=True)
+        print(f"{tag} {stage}: {dt:.2f} s", flush=True)
+        if stage == "distill":
+            print(f"{tag} distill launches " + ", ".join(
+                f"{k} {v}" for k, v in launches.items() if v), flush=True)
+        else:
+            check_counts(f"{tag} {stage}", launches, rich_expected(
+                stage, field, cfg, n_steps, pv, len(val), V, n_train))
+            for k, parts in PARTS.items():
+                assert all(launches[p] == launches[k] for p in parts)
+        del trainer
+        torch.cuda.empty_cache()
+    want = [st for st in RICH_ORDER if distill_iters or st != "distill"]
+    assert stages_run == want, stages_run
+    out["seconds"]["chain"] = time.perf_counter() - t_chain
+    out["losses_finite"] = finite
+    floors = gates or {"PSNR": RICH_ALL_PSNR}
+    print(f"{tag} gates on {device_line()}: losses finite {finite}; "
+          + ", ".join(f"{k} {out[k]} >= {v}" for k, v in floors.items()),
+          flush=True)
+    assert finite, out
+    for k, v in floors.items():
+        assert out[k] >= v, (k, out[k], v)
+    return out
+
+
+def rich_composable(work):
+    """The bench script's stage 1 (FIELD=mlp KIND=rich, its flags read out
+    of the script, on the scene under work) with the MLP field's level
+    kernels off: the composable route, on which the JAX package trained
+    the CP-64 field when it recorded the rich scene's quality (its kernels
+    took CP features later).  Held-out PSNR, SSIM and LPIPS, and the
+    launches (K8 and K10, K1-K7 none)."""
+    env = {**RICH_ENV, "KIND": "rich", "FIELD": "mlp",
+           "SCENE": os.path.join(work, "rich_llff"),
+           "WS": os.path.join(work, "rich_composable_ws")}
+    argv = next(w[1:] for w in script_runs("bench_rich_scene.sh", env)
+                if w[0] == "main.py" and rich_stage(w[1:]) == "stage1")
+    tag = "[rich mlp rich, composable route]"
+    print(f"{tag} stage1: python -m sanerf_hq_tpu_torch {' '.join(argv)} "
+          f"(MLPField.supports_fused_final off)", flush=True)
+    mlp_field.MLPField.supports_fused_final = False
+    try:
+        trainer, dt, launches = run_cli(argv)
+    finally:
+        mlp_field.MLPField.supports_fused_final = True
+    text = log_text(trainer)
+    losses = trainer.stats["loss"]
+    q = _eval_metrics(text)
+    out = {"PSNR": q["PSNR"], "SSIM": q["SSIM"], "LPIPS": q["LPIPS"],
+           "stage1_steps_per_s": log_rate(text, "training"), "seconds": dt,
+           "losses_finite": bool(np.isfinite(losses).all()),
+           "launches": launches}
+    print(f"{tag} stage1: {trainer.state.step} steps in {dt:.2f} s, "
+          f"{out['stage1_steps_per_s']:.1f} steps/s; held-out PSNR "
+          f"{q['PSNR']:.4f}, SSIM {q['SSIM']:.4f}, LPIPS {q['LPIPS']:.4f}; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                   if v), flush=True)
+    assert out["losses_finite"] and q["PSNR"] >= RICH_ALL_PSNR, out
+    for k in LEVEL_KERNELS:
+        assert launches[k] == 0, launches
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def rich_all():
+    """`--rich-all`: the bench script's chain three more ways, each at its
+    full run lengths: DISTILL_ITERS=5000 on the MLP field (stage 2b, and
+    a second run of phase 16's chain), FIELD=hashgrid, and KIND=clutter
+    (its extrapolated views held out); then the MLP field's stage 1 on the
+    composable route (rich_composable).  Floors only: finite losses and
+    held-out PSNR >= RICH_ALL_PSNR."""
+    dev_line = device_line()
+    print(dev_line, flush=True)
+    t0 = time.perf_counter()
+    logs = cuda_lib.build_all()
+    print(f"[build] {sorted(logs) or 'up to date'} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    work = os.path.join(ROOT, "build", "rich_all")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {"mlp_rich_distill": rich_chain(work, "mlp", "rich",
+                                          distill_iters=5000, gates=None),
+           "hashgrid_rich": rich_chain(work, "hashgrid", "rich", gates=None),
+           "mlp_clutter": rich_chain(work, "mlp", "clutter", gates=None),
+           "mlp_rich_composable": rich_composable(work)}
+    print(json.dumps({"rich_all": out}), flush=True)
+    print(dev_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
@@ -4993,10 +5356,12 @@ def main(argv):
         return dp_worker(argv[1])
     if argv == ["--dp-cards"]:
         return dp_cards()
+    if argv == ["--rich-all"]:
+        return rich_all()
     ab = argv == ["--ab"]
     if argv and not ab:
-        print(f"error: unknown arguments {argv} (none, or --ab)",
-              file=sys.stderr)
+        print(f"error: unknown arguments {argv} (none, --ab, --dp-cards or "
+              f"--rich-all)", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 twins stay fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -5057,6 +5422,10 @@ def main(argv):
     dp = dp_path(work)
     dp["shard_kernel_errors"] = shard_errs
     print(json.dumps({"dp_path": dp}), flush=True)
+    rich_work = os.path.join(work, "rich")
+    os.makedirs(rich_work)
+    rich = rich_chain(rich_work)
+    print(json.dumps({"rich_path": rich}), flush=True)
     # the device-time breakdowns of phases 5, 7, 8 and 9, traced after
     # every rate: a torch.profiler trace slows the host's later steps
     print("[train] the stage-1 step's device time by kernel (phase 5's "
@@ -5129,6 +5498,10 @@ def main(argv):
                    "launches": tr_launches["K8"], "library_ms": None,
                    **{k: v for k, v in kernels["K8"].items()
                       if k != "per_shape"}})
+    # phase 16's launches, summed over the bench script's stages
+    for row in report:
+        kid = counter.get(row["name"], "K8")  # K9's row runs K8's code
+        row["rich_launches"] = sum(c[kid] for c in rich["launches"].values())
     print(json.dumps({"kernels": report, "level_digests": digests,
                       "render_mrays_per_s": mrays,
                       "train_steps_per_s": sps,
@@ -5139,7 +5512,7 @@ def main(argv):
                       "stage3_launches": s3_launches, "stage3": s3,
                       "hashgrid": hg, "stage3_trainable_launches":
                       tr_launches, "stage3_trainable": trainable,
-                      "scripts_path": scripts}))
+                      "scripts_path": scripts, "rich_path": rich}))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

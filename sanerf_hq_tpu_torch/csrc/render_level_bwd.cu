@@ -43,9 +43,10 @@
 //   three-stage cp.async ring of 64-wide k steps into 128-byte-swizzled
 //   tiles, wgmma, two CTAs an SM; epilogues relu, fp32, or relu mask with
 //   the CP columns' sums), final_composite_kernel (a warp a ray, shuffle
-//   scans), and final_cp_kernel (the CP basis grads, summed in registers
-//   over a run of 8 points while the tap row repeats, then fp32
-//   atomicAdd, so they vary in their last bits).  Not one kernel fused
+//   scans), and the CP basis grads (final_cp_partial_kernel: a slab of
+//   shared memory a chunk of points and an axis, a thread a rank column,
+//   the points added in order; final_cp_reduce_kernel: the chunks summed
+//   in chunk order; the same bits on every run).  Not one kernel fused
 //   over ray groups: its activations and streamed weights take 200 KB of
 //   shared memory, one 8-warp CTA an SM that cannot hide its loads, and
 //   measured it was slower than these GEMMs.  (b) weight_grad_gemm:
@@ -456,8 +457,9 @@ struct FinalBwdParams {
   // scratch: the last layer's output F [P, 16], the contracted positions
   // xn [P, 3] and the CP features' grad E [P, rank], fp32
   float *f, *xn, *e;
-  float* dcp[3];  // [res, rank] each, accumulated with atomicAdd
-  int n_rays, T, deg, rank, res, hidden, kin, opaque_last;
+  float* dcp[3];  // [res, rank] each, written by final_cp_reduce_kernel
+  float* cp_part;  // [chunks, 3, res, rank]: the chunks' CP grads
+  int n_rays, T, deg, rank, res, hidden, kin, opaque_last, cp_chunks;
   float grid_bound, db;
 };
 
@@ -494,63 +496,82 @@ final_composite_kernel(FinalBwdParams p) {
   }
 }
 
-// CP basis grads: the product rule through extra = L_x L_y L_z, scattered
-// to both taps of each axis with fp32 atomicAdd.  A thread takes one rank
-// over a run of CP_RUN consecutive points (a warp: 32 ranks of one run),
-// loads all the run's inputs first, and sums a tap row's grads in
-// registers while consecutive points share it, one atomicAdd a row when
-// it changes.
-constexpr int CP_RUN = 8;
+// CP basis grads: the product rule through extra = L_x L_y L_z, each
+// point's grad split between the two taps of each axis, summed in a fixed
+// order.  CTA (c, a, g) takes axis a, ranks [CP_COLS g, CP_COLS g +
+// CP_COLS) and the CP_CHUNK consecutive points of chunk c: thread t owns
+// column t of a [res, CP_COLS] slab in shared memory and adds the points
+// into it in point order (CP_RUN at a time, their inputs loaded first),
+// then writes the slab to cp_part[c][a].  final_cp_reduce_kernel sums the
+// chunks' slabs in chunk order.  No atomics, so the CP grads are the same
+// bits on every run.
+constexpr int CP_RUN = 8, CP_CHUNK = 1024, CP_COLS = 64;
 
-__global__ void __launch_bounds__(NTHREADS)
-final_cp_kernel(FinalBwdParams p) {
-  const int rank = p.rank;
+// One axis of cp_taps (render_level_common.cuh), the same arithmetic.
+__device__ __forceinline__ void cp_tap(const float* xn, int res, int a,
+                                       int& i0, float& f) {
+  const float pp =
+      fminf(fmaxf((xn[a] + 1.0f) * 0.5f, 0.0f), 1.0f) * (float)(res - 1);
+  const float fl = fminf(fmaxf(floorf(pp), 0.0f), (float)(res - 2));
+  i0 = (int)fl;
+  f = pp - fl;
+}
+
+__global__ void __launch_bounds__(CP_COLS)
+final_cp_partial_kernel(FinalBwdParams p) {
+  extern __shared__ __align__(16) float slab[];  // [res][CP_COLS]
+  const int a = blockIdx.y, t = threadIdx.x, rank = p.rank, res = p.res;
+  const int r = blockIdx.z * CP_COLS + t;
+  const int b = a == 0 ? 1 : 0, c = a == 2 ? 1 : 2;
   const long long P = (long long)p.n_rays * p.T;
-  const long long total = (P + CP_RUN - 1) / CP_RUN * rank;
-  for (long long item = blockIdx.x * (long long)NTHREADS + threadIdx.x;
-       item < total; item += (long long)gridDim.x * NTHREADS) {
-    const long long q0 = item / rank * CP_RUN;
-    const int r = (int)(item % rank);
-    const int n = (int)(P - q0 < CP_RUN ? P - q0 : CP_RUN);
-    int i0[CP_RUN][3];
-    float f[CP_RUN][3], de[CP_RUN], l[CP_RUN][3];
+  const long long q0 = (long long)blockIdx.x * CP_CHUNK;
+  const long long q1 = q0 + CP_CHUNK < P ? q0 + CP_CHUNK : P;
+  float* col = slab + t;
+  for (int j = 0; j < res; ++j) col[j * CP_COLS] = 0.0f;
+  if (r >= rank) return;  // this thread's column is never read
+  for (long long q = q0; q < q1; q += CP_RUN) {
+    const int n = (int)(q1 - q < CP_RUN ? q1 - q : CP_RUN);
+    int ia[CP_RUN];
+    float fa[CP_RUN], dl[CP_RUN];
 #pragma unroll
     for (int k = 0; k < CP_RUN; ++k) {
-      de[k] = 0.0f;
+      ia[k] = 0;
+      fa[k] = dl[k] = 0.0f;
       if (k < n) {
-        cp_taps(p.xn + (q0 + k) * 3, p.res, i0[k], f[k]);
-        de[k] = p.e[(q0 + k) * rank + r];
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-          l[k][a] = cp_line(p.cp[a], rank, i0[k][a], f[k][a], r);
+        const float* xn = p.xn + (q + k) * 3;
+        int ib, ic;
+        float fb, fc;
+        cp_tap(xn, res, a, ia[k], fa[k]);
+        cp_tap(xn, res, b, ib, fb);
+        cp_tap(xn, res, c, ic, fc);
+        dl[k] = p.e[(q + k) * rank + r] * cp_line(p.cp[b], rank, ib, fb, r) *
+                cp_line(p.cp[c], rank, ic, fc, r);
       }
     }
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      int cur = -1;
-      float lo = 0.0f, hi = 0.0f;
-#pragma unroll
-      for (int k = 0; k < CP_RUN; ++k) {
-        if (k >= n) break;
-        if (i0[k][a] != cur) {
-          if (cur >= 0) {
-            float* row = p.dcp[a] + (size_t)cur * rank + r;
-            atomicAdd(row, lo);
-            atomicAdd(row + rank, hi);
-          }
-          cur = i0[k][a];
-          lo = hi = 0.0f;
-        }
-        const int b = a == 0 ? 1 : 0, c = a == 2 ? 1 : 2;
-        const float dl = de[k] * l[k][b] * l[k][c];
-        lo += dl * (1.0f - f[k][a]);
-        hi += dl * f[k][a];
+    for (int k = 0; k < CP_RUN; ++k) {
+      if (k < n) {
+        col[ia[k] * CP_COLS] += dl[k] * (1.0f - fa[k]);
+        col[(ia[k] + 1) * CP_COLS] += dl[k] * fa[k];
       }
-      float* row = p.dcp[a] + (size_t)cur * rank + r;
-      atomicAdd(row, lo);
-      atomicAdd(row + rank, hi);
     }
   }
+  float* out = p.cp_part + ((long long)blockIdx.x * 3 + a) * res * rank;
+  for (int j = 0; j < res; ++j) out[(size_t)j * rank + r] = col[j * CP_COLS];
+}
+
+// dcp[a][j][r] = the sum over the chunks, in chunk order, of cp_part.
+__global__ void __launch_bounds__(NTHREADS)
+final_cp_reduce_kernel(FinalBwdParams p) {
+  const long long per_axis = (long long)p.res * p.rank;
+  const long long i = blockIdx.x * (long long)NTHREADS + threadIdx.x;
+  if (i >= 3 * per_axis) return;
+  const int a = (int)(i / per_axis);
+  const long long j = i - a * per_axis;
+  const float* src = p.cp_part + a * per_axis + j;
+  float s = 0.0f;
+  for (int c = 0; c < p.cp_chunks; ++c) s += src[(long long)c * 3 * per_axis];
+  p.dcp[a][j] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -760,10 +781,11 @@ int sanerf_reduce_partials(const float* part, float* out, int n_part,
 // outputs.  The stash, P = N*T rows each, bf16: xb [A2 | h_in] (H+KIN),
 // a1, a3 (H), d3 (16), d2, d1, d0 (H); the weight grads are dW0 = d0^T
 // xb[:, H:], dW1 = d1^T a1, dW2 = d2^T xb, dW3 = d3^T a3.  Scratch, fp32:
-// f [P, 16], xn [P, 3], e [P, rank] (null when rank is 0).  dcp_* [res,
-// rank] must be zeroed by the caller (null when rank is 0).  Launches, in
-// order: the inputs, four forward products, the compositing, three or
-// four dA products, and the CP grads.
+// f [P, 16], xn [P, 3], e [P, rank] and cp_part [ceil(P / CP_CHUNK), 3,
+// cp_res, rank] (null when rank is 0).  dcp_* [res, rank] (null when rank
+// is 0) are written whole.  Launches, in order: the inputs, four forward
+// products, the compositing, three or four dA products, and the CP grads'
+// partial and reduce kernels.
 int sanerf_final_level_bwd(const float* rays_o, const float* rays_d,
                            const float* real_bins, const float* sh,
                            const void* w0, const void* w1, const void* w2,
@@ -776,7 +798,7 @@ int sanerf_final_level_bwd(const float* rays_o, const float* rays_d,
                            void* d3, void* d2, void* d1, void* d0, float* f,
                            float* xn, float* e,
                            float* dcp_x, float* dcp_y, float* dcp_z,
-                           int n_rays, int T, int freq_degree, int cp_rank,
+                           float* cp_part, int n_rays, int T, int freq_degree, int cp_rank,
                            int cp_res, int hidden, int kin, float grid_bound,
                            int opaque_last, float density_bias,
                            void* stream) {
@@ -839,11 +861,26 @@ int sanerf_final_level_bwd(const float* rays_o, const float* rays_d,
   b.e0 = nf; b.e1 = nf + cp_rank; b.n = (b.e1 + 15) / 16 * 16;
   b.f = p.e; b.ldf = cp_rank; b.eadd = 1;
   if ((rc = launch_layer<EPI_MASK>(b, st))) return rc;
-  const long long items = (P + CP_RUN - 1) / CP_RUN * cp_rank;
-  const long long blocks = (items + NTHREADS - 1) / NTHREADS;
-  return launch_checked((const void*)final_cp_kernel,
-                        (int)(blocks < 65536 * 16 ? blocks : 65536 * 16), 0,
-                        st, &p);
+  const long long chunks = (P + CP_CHUNK - 1) / CP_CHUNK;
+  const size_t slab = (size_t)cp_res * CP_COLS * sizeof(float);
+  if (slab > SMEM_LIMIT || chunks > (1LL << 30) || !cp_part)
+    return (int)cudaErrorInvalidValue;
+  p.cp_part = cp_part;
+  p.cp_chunks = (int)chunks;
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)final_cp_partial_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)slab);
+  if (err != cudaSuccess) return (int)err;
+  void* argv[] = {&p};
+  err = cudaLaunchKernel((const void*)final_cp_partial_kernel,
+                         dim3((unsigned)chunks, 3,
+                              (cp_rank + CP_COLS - 1) / CP_COLS),
+                         dim3(CP_COLS), argv, slab, st);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long outs = 3LL * cp_res * cp_rank;
+  return launch_checked((const void*)final_cp_reduce_kernel,
+                        (int)((outs + NTHREADS - 1) / NTHREADS), 0, st, &p);
 }
 
 // K4 (b).  Returns 0 or a cudaError_t code.  desc holds n_prod products of

@@ -1,9 +1,19 @@
-"""Tiny analytic synthetic scene: a matte colour-by-normal sphere at the
-origin rendered by exact ray-sphere intersection (numpy, no data needed),
-written as an llff scene (`write_llff_scene`) or in the Mip-NeRF 360
-COLMAP layout (`write_colmap_scene`), its object masks in the decode
-output format (`write_sphere_masks`), and the decode's 3-D point prompts
-on its surface (`write_sphere_points`)."""
+"""Analytic synthetic scenes (numpy, no data needed).
+
+The sphere scene: a matte colour-by-normal sphere at the origin rendered
+by exact ray-sphere intersection, written as an llff scene
+(`write_llff_scene`) or in the Mip-NeRF 360 COLMAP layout
+(`write_colmap_scene`), its object masks in the decode output format
+(`write_sphere_masks`), and the decode's 3-D point prompts on its surface
+(`write_sphere_points`).
+
+The quality scenes of the JAX package's `data/synthetic.py`, the same
+arithmetic in the same dtypes: the rich scene (`render_rich_scene`,
+`make_rich_dataset`: a checkered ground and three textured spheres with
+object ids) and the clutter scene (`render_clutter_scene`,
+`make_clutter_dataset`: seven objects with fine textures, occlusion and
+extrapolated held-out views).  `tools/make_synth_scene.py` writes them to
+disk."""
 from __future__ import annotations
 
 import numpy as np
@@ -233,3 +243,303 @@ def write_sphere_points(path: str, pts3d: np.ndarray, poses: np.ndarray):
         json.dump({"points": pts.tolist(), "negative_labels": [],
                    "crucial_point_index": [], "valid_threshold": 1}, f)
     return pts.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Rich multi-object scene: textured ground + shaded spheres + box, object-id
+# maps for stage-3 mIoU.  Still fully analytic (no data dependency), but
+# with enough texture/parallax/occlusion to be a meaningful quality
+# benchmark for the full 3-stage pipeline.
+# ---------------------------------------------------------------------------
+
+_SPHERES = [
+    # (center, radius, base color, texture)
+    (np.array([0.0, -0.1, 0.0], np.float32), 0.5,
+     np.array([0.85, 0.3, 0.25], np.float32), "stripes"),
+    (np.array([0.9, -0.35, -0.4], np.float32), 0.25,
+     np.array([0.25, 0.5, 0.9], np.float32), "solid"),
+    (np.array([-0.8, -0.3, 0.5], np.float32), 0.3,
+     np.array([0.3, 0.8, 0.35], np.float32), "checker"),
+]
+_PLANE_Y = -0.6
+_SUN = np.array([0.4, 0.8, 0.45], np.float32) / np.linalg.norm(
+    [0.4, 0.8, 0.45])
+
+
+def _sphere_hit(o, dn, center, radius):
+    oc = o - center
+    b = 2 * np.sum(dn * oc, -1)
+    c = np.sum(oc * oc, -1) - radius * radius
+    disc = b * b - 4 * c
+    hit = disc > 0
+    t = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0))) / 2, np.inf)
+    return np.where(hit & (t > 1e-4), t, np.inf)
+
+
+def _shade(albedo, normal):
+    lam = np.clip(np.sum(normal * _SUN, -1, keepdims=True), 0, 1)
+    return albedo * (0.35 + 0.65 * lam)
+
+
+def render_rich_scene(pose, intrinsics, H, W):
+    """Returns (img [H,W,3] float, obj_id [H,W] int: 0 bg, 1 plane,
+    2..N spheres)."""
+    fx, fy, cx, cy = intrinsics
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    xs = (xx + 0.5 - cx) / fx
+    ys = -(yy + 0.5 - cy) / fy
+    zs = -np.ones_like(xs)
+    dirs = np.stack([xs, ys, zs], -1) @ pose[:3, :3].T
+    dn = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    o = pose[:3, 3]
+
+    t_best = np.full((H, W), np.inf, np.float32)
+    obj_id = np.zeros((H, W), np.int32)
+    img = np.zeros((H, W, 3), np.float32)
+
+    # sky: direction-dependent gradient
+    sky = (np.array([0.62, 0.72, 0.9], np.float32)[None, None]
+           + 0.25 * np.clip(dn[..., 1:2], -1, 1))
+    img[:] = sky
+
+    # ground plane with checker texture (finite disk radius 4)
+    denom = dn[..., 1]
+    tp = (_PLANE_Y - o[1]) / np.where(np.abs(denom) < 1e-6, 1e-6, denom)
+    p = o + dn * tp[..., None]
+    in_disk = (tp > 1e-4) & (p[..., 0] ** 2 + p[..., 2] ** 2 < 16.0)
+    checker = ((np.floor(p[..., 0] * 2.5) + np.floor(p[..., 2] * 2.5))
+               % 2).astype(np.float32)
+    plane_col = (0.25 + 0.5 * checker)[..., None] * np.array(
+        [1.0, 0.95, 0.85], np.float32)
+    m = in_disk & (tp < t_best)
+    t_best = np.where(m, tp, t_best)
+    obj_id = np.where(m, 1, obj_id)
+    img = np.where(m[..., None], _shade(plane_col,
+                                        np.array([0, 1, 0], np.float32)), img)
+
+    for k, (center, radius, base, tex) in enumerate(_SPHERES):
+        ts = _sphere_hit(o, dn, center, radius)
+        m = ts < t_best
+        if not m.any():
+            continue
+        p = o + dn * np.where(np.isfinite(ts), ts, 0.0)[..., None]
+        normal = (p - center) / radius
+        if tex == "stripes":
+            fac = 0.55 + 0.45 * np.sign(np.sin(p[..., 1] * 18.0))
+        elif tex == "checker":
+            fac = 0.55 + 0.45 * ((np.floor(p[..., 0] * 8)
+                                  + np.floor(p[..., 2] * 8)) % 2)
+        else:
+            fac = np.ones_like(ts)
+        albedo = base[None, None] * fac[..., None]
+        t_best = np.where(m, ts, t_best)
+        obj_id = np.where(m, k + 2, obj_id)
+        img = np.where(m[..., None], _shade(albedo, normal), img)
+
+    return np.clip(img, 0, 1).astype(np.float32), obj_id
+
+
+# ---------------------------------------------------------------------------
+# Clutter scene: the harder quality benchmark: 7 labeled
+# objects (spheres, a box, a cylinder), high-frequency textures, strong
+# inter-object occlusion, and an extrapolated-view val split (higher
+# elevation + closer radius than any train view).
+# ---------------------------------------------------------------------------
+
+_CL_SPHERES = [
+    # (center, radius, base color, texture)
+    (np.array([0.0, -0.05, 0.0], np.float32), 0.45,
+     np.array([0.85, 0.3, 0.25], np.float32), "stripes_fine"),
+    (np.array([0.95, -0.35, -0.35], np.float32), 0.25,
+     np.array([0.25, 0.5, 0.9], np.float32), "marble"),
+    (np.array([-0.85, -0.32, 0.45], np.float32), 0.28,
+     np.array([0.3, 0.8, 0.35], np.float32), "checker_fine"),
+    # small sphere tucked behind the box from most ring views (occlusion)
+    (np.array([0.45, -0.42, 0.95], np.float32), 0.18,
+     np.array([0.95, 0.8, 0.2], np.float32), "stripes_fine"),
+]
+_CL_BOX = (np.array([0.35, -0.6, 0.65], np.float32),   # min corner
+           np.array([0.95, -0.05, 1.15], np.float32))  # max corner
+_CL_CYL = (np.array([-0.55, 0.0, -0.85], np.float32), 0.2, -0.6, 0.35)
+# (xz center in x/z components, radius, y_min, y_max)
+
+
+def _box_hit(o, dn, bmin, bmax):
+    """Slab-method ray-AABB; returns (t, axis-normal) with t=inf on miss."""
+    inv = 1.0 / np.where(np.abs(dn) < 1e-9, 1e-9, dn)
+    t0 = (bmin - o) * inv
+    t1 = (bmax - o) * inv
+    tmin = np.minimum(t0, t1)
+    tmax = np.maximum(t0, t1)
+    t_near = tmin.max(-1)
+    t_far = tmax.min(-1)
+    hit = (t_near <= t_far) & (t_far > 1e-4)
+    t = np.where(t_near > 1e-4, t_near, t_far)
+    t = np.where(hit, t, np.inf)
+    axis = tmin.argmax(-1)  # the slab that sets t_near
+    return t, axis
+
+
+def _cyl_hit(o, dn, center, radius, y0, y1):
+    """Finite open vertical cylinder |p.xz - c.xz| = r, y in [y0, y1]."""
+    ox, oz = o[0] - center[0], o[2] - center[2]
+    dx, dz = dn[..., 0], dn[..., 2]
+    a = dx * dx + dz * dz
+    b = 2 * (ox * dx + oz * dz)
+    c = ox * ox + oz * oz - radius * radius
+    disc = b * b - 4 * a * c
+    ok = (disc > 0) & (a > 1e-9)
+    sq = np.sqrt(np.maximum(disc, 0))
+    t = np.where(ok, (-b - sq) / np.where(a > 1e-9, 2 * a, 1.0), np.inf)
+    y = o[1] + dn[..., 1] * t
+    t = np.where(ok & (t > 1e-4) & (y >= y0) & (y <= y1), t, np.inf)
+    return t
+
+
+def render_clutter_scene(pose, intrinsics, H, W):
+    """Returns (img [H,W,3], obj_id [H,W]: 0 sky, 1 ground, 2..5 spheres,
+    6 box, 7 cylinder)."""
+    fx, fy, cx, cy = intrinsics
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    xs = (xx + 0.5 - cx) / fx
+    ys = -(yy + 0.5 - cy) / fy
+    dirs = np.stack([xs, ys, -np.ones_like(xs)], -1) @ pose[:3, :3].T
+    dn = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    o = pose[:3, 3]
+
+    t_best = np.full((H, W), np.inf, np.float32)
+    obj_id = np.zeros((H, W), np.int32)
+    img = (np.array([0.6, 0.7, 0.88], np.float32)[None, None]
+           + 0.25 * np.clip(dn[..., 1:2], -1, 1)
+           + 0.05 * np.sin(6.0 * dn[..., 0:1]))  # banded sky
+
+    # ground: fine checker * radial rings
+    denom = dn[..., 1]
+    tp = (_PLANE_Y - o[1]) / np.where(np.abs(denom) < 1e-6, 1e-6, denom)
+    p = o + dn * tp[..., None]
+    r2 = p[..., 0] ** 2 + p[..., 2] ** 2
+    in_disk = (tp > 1e-4) & (r2 < 16.0)
+    checker = ((np.floor(p[..., 0] * 6.0) + np.floor(p[..., 2] * 6.0)) % 2)
+    rings = 0.5 + 0.5 * np.sin(6.0 * np.sqrt(np.maximum(r2, 1e-9)))
+    base = (0.2 + 0.45 * checker + 0.2 * rings)[..., None] * np.array(
+        [1.0, 0.93, 0.8], np.float32)
+    m = in_disk & (tp < t_best)
+    t_best = np.where(m, tp, t_best)
+    obj_id = np.where(m, 1, obj_id)
+    img = np.where(m[..., None],
+                   _shade(base, np.array([0, 1, 0], np.float32)), img)
+
+    for k, (center, radius, col, tex) in enumerate(_CL_SPHERES):
+        ts = _sphere_hit(o, dn, center, radius)
+        m = ts < t_best
+        if not m.any():
+            continue
+        p = o + dn * np.where(np.isfinite(ts), ts, 0.0)[..., None]
+        normal = (p - center) / radius
+        if tex == "stripes_fine":
+            fac = 0.55 + 0.45 * np.sign(np.sin(p[..., 1] * 40.0))
+        elif tex == "checker_fine":
+            fac = 0.55 + 0.45 * ((np.floor(p[..., 0] * 16)
+                                  + np.floor(p[..., 2] * 16)) % 2)
+        else:  # marble
+            fac = 0.6 + 0.4 * np.sin(10.0 * p[..., 0]
+                                     + 4.0 * np.sin(3.0 * p[..., 2]))
+        albedo = col[None, None] * fac[..., None]
+        t_best = np.where(m, ts, t_best)
+        obj_id = np.where(m, k + 2, obj_id)
+        img = np.where(m[..., None], _shade(albedo, normal), img)
+
+    # box (object 6): per-axis face colors + diagonal stripes
+    tb, axis = _box_hit(o, dn, *_CL_BOX)
+    m = tb < t_best
+    if m.any():
+        p = o + dn * np.where(np.isfinite(tb), tb, 0.0)[..., None]
+        stripes = 0.6 + 0.4 * np.sign(
+            np.sin(18.0 * (p[..., 0] + p[..., 1] + p[..., 2])))
+        tint = (0.75 + 0.12 * axis)[..., None]  # per-face shade
+        albedo = np.array([0.9, 0.45, 0.15], np.float32) * stripes[..., None] \
+            * tint
+        # slab normal: sign from ray direction
+        normal = np.zeros_like(p)
+        for a in range(3):
+            sel = axis == a
+            normal[..., a] = np.where(sel, -np.sign(dn[..., a]), 0.0)
+        t_best = np.where(m, tb, t_best)
+        obj_id = np.where(m, 6, obj_id)
+        img = np.where(m[..., None], _shade(albedo, normal), img)
+
+    # cylinder (object 7): helical stripes
+    cc, cr, cy0, cy1 = _CL_CYL
+    tc = _cyl_hit(o, dn, cc, cr, cy0, cy1)
+    m = tc < t_best
+    if m.any():
+        p = o + dn * np.where(np.isfinite(tc), tc, 0.0)[..., None]
+        theta = np.arctan2(p[..., 2] - cc[2], p[..., 0] - cc[0])
+        helix = 0.55 + 0.45 * np.sign(np.sin(4.0 * theta + 14.0 * p[..., 1]))
+        albedo = np.array([0.55, 0.25, 0.75], np.float32)[None, None] \
+            * helix[..., None]
+        normal = np.stack([p[..., 0] - cc[0], np.zeros_like(tc),
+                           p[..., 2] - cc[2]], -1) / cr
+        t_best = np.where(m, tc, t_best)
+        obj_id = np.where(m, 7, obj_id)
+        img = np.where(m[..., None], _shade(albedo, normal), img)
+
+    return np.clip(img, 0, 1).astype(np.float32), obj_id
+
+
+def make_clutter_dataset(n_views: int = 28, H: int = 240, W: int = 320,
+                         fovy_deg: float = 55.0, radius: float = 2.7,
+                         n_extrap: int = 4):
+    """Train ring at elevations {0.5, 1.0} plus `n_extrap` EXTRAPOLATED
+    val views (elevation 1.7, radius 0.75x — outside the train rig's
+    envelope).  Returns the usual dataset dict + 'val_names': the view
+    indices meant for a val_split test-view list (extrapolated views
+    last, names v{i:03d})."""
+    focal = 0.5 * H / np.tan(0.5 * np.deg2rad(fovy_deg))
+    intr = np.array([focal, focal, W / 2, H / 2], np.float32)
+    images, poses, ids = [], [], []
+
+    def add(eye):
+        pose = look_at_pose(eye, center=(0.0, -0.2, 0.0))
+        img, oid = render_clutter_scene(pose, intr, H, W)
+        images.append(img)
+        poses.append(pose)
+        ids.append(oid)
+
+    for i in range(n_views):
+        theta = 2 * np.pi * i / n_views
+        r = radius * (0.85 if i % 6 == 0 else 1.0)
+        elev = 0.5 if i % 2 == 0 else 1.0
+        add(np.array([r * np.cos(theta), elev, r * np.sin(theta)],
+                     np.float32))
+    for j in range(n_extrap):
+        theta = 2 * np.pi * (j + 0.37) / n_extrap
+        r = radius * 0.75
+        add(np.array([r * np.cos(theta), 1.7, r * np.sin(theta)],
+                     np.float32))
+    val_names = [f"v{n_views + j:03d}" for j in range(n_extrap)]
+    return {"images": np.stack(images), "poses": np.stack(poses),
+            "intrinsics": intr, "obj_ids": np.stack(ids), "H": H, "W": W,
+            "val_names": val_names, "n_inst": 8}
+
+
+def make_rich_dataset(n_views: int = 24, H: int = 240, W: int = 320,
+                      fovy_deg: float = 55.0, radius: float = 2.6):
+    """Orbit rig at two elevations + closer accent views; returns images,
+    poses, intrinsics, obj_ids."""
+    focal = 0.5 * H / np.tan(0.5 * np.deg2rad(fovy_deg))
+    intr = np.array([focal, focal, W / 2, H / 2], np.float32)
+    images, poses, ids = [], [], []
+    for i in range(n_views):
+        theta = 2 * np.pi * i / n_views
+        r = radius * (0.82 if i % 5 == 0 else 1.0)
+        elev = 0.55 if i % 2 == 0 else 1.1
+        eye = np.array([r * np.cos(theta), elev, r * np.sin(theta)],
+                       np.float32)
+        pose = look_at_pose(eye, center=(0.0, -0.2, 0.0))
+        img, oid = render_rich_scene(pose, intr, H, W)
+        images.append(img)
+        poses.append(pose)
+        ids.append(oid)
+    return {"images": np.stack(images), "poses": np.stack(poses),
+            "intrinsics": intr, "obj_ids": np.stack(ids), "H": H, "W": W}

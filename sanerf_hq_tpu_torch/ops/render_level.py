@@ -52,6 +52,7 @@ from .fused_mlp import _round16, bf16_round, trunk_input, trunk_with_inputs
 
 GEO = 15  # geometry features the final level composites
 SH_DIM = 16
+CP_CHUNK = 1024  # K4's CP grads: points a partial sum (render_level_bwd.cu)
 
 
 def _geometry(rays_o, rays_d, real_bins, grid_bound):
@@ -994,19 +995,23 @@ def final_level_bwd_stash(rays_o, rays_d, real_bins, sh, ws: Sequence, g_f,
     # positions [P, 3] and the CP features' grad [P, rank]
     f, xn, e = torch.empty((P * (16 + 3 + rank),), dtype=torch.float32,
                            device=dev).split([P * 16, P * 3, P * rank])
-    dcps = [torch.zeros_like(c) for c in cps]
+    dcps = [torch.empty_like(c) for c in cps]
+    # the CP grads of each chunk of CP_CHUNK points, summed in chunk order
+    cp_part = (torch.empty((-(-P // CP_CHUNK) * 3 * cp_res * rank,),
+                           dtype=torch.float32, device=dev) if rank else None)
     null = ctypes.c_void_p(0)
     cp_ptrs = [_ptr(c) for c in cps] if cps else [null] * 3
     dcp_ptrs = [_ptr(c) for c in dcps] if cps else [null] * 3
     # the dA products take the weights transposed, [in, out]
     wts = [w.t().contiguous() for w in (w0, w1, w2, w3)]
-    lib, fn = _fn("render_level_bwd", "sanerf_final_level_bwd", 32, 7)
+    lib, fn = _fn("render_level_bwd", "sanerf_final_level_bwd", 33, 7)
     rc = fn(_ptr(rays_o), _ptr(rays_d), _ptr(real_bins), _ptr(sh), _ptr(w0),
             _ptr(w1), _ptr(w2), _ptr(w3), *(_ptr(w) for w in wts), *cp_ptrs,
             _ptr(g_f), _ptr(g_depth),
             _ptr(g_wsum), _ptr(g_w), *(_ptr(x) for x in (xb, a1, a3, d3, d2,
                                                          d1, d0)),
-            _ptr(f), _ptr(xn), _ptr(e) if rank else null, *dcp_ptrs, N, T,
+            _ptr(f), _ptr(xn), _ptr(e) if rank else null, *dcp_ptrs,
+            _ptr(cp_part) if rank else null, N, T,
             freq_degree, rank, cp_res, H, kin, grid_bound, int(opaque_last),
             density_bias, _stream(dev))
     cuda_lib.check(lib, rc, "final_level_bwd_stash")

@@ -300,7 +300,9 @@ for m in mods:
 NEW = {"sanerf_hq_tpu_torch.parallel.mesh",
        "sanerf_hq_tpu_torch.parallel.evaluate", "sanerf_hq_tpu_torch.train.lpips",
        "sanerf_hq_tpu_torch.ops.freq", "sanerf_hq_tpu_torch.ops.encoding",
-       "sanerf_hq_tpu_torch.data.colmap_native"}
+       "sanerf_hq_tpu_torch.data.colmap_native",
+       "sanerf_hq_tpu_torch.tools.make_synth_scene",
+       "sanerf_hq_tpu_torch.tools.colmap2nerf"}
 assert NEW <= set(mods), sorted(NEW - set(mods))
 import chip_smoke
 print(len(mods))
@@ -309,13 +311,14 @@ print(len(mods))
 
 def test_port_and_chip_smoke_import_no_jax():
     """Every module of the port (the SAM, viewer and trajectory modules,
-    and the data-parallel, LPIPS, encoder and native COLMAP reader modules
-    too) and chip_smoke.py import with JAX, the JAX package, OpenCV,
-    transformers, imageio and matplotlib blocked."""
+    the data-parallel, LPIPS, encoder and native COLMAP reader modules,
+    and the scene writer and colmap2nerf of tools/ too) and chip_smoke.py
+    import with JAX, the JAX package, OpenCV, transformers, imageio and
+    matplotlib blocked."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 62  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 65  # every module was imported
 
 
 _SCRIPTS = r"""

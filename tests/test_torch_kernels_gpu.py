@@ -228,7 +228,7 @@ def test_final_bwd_kernel_matches_twin(dev, N, T, hidden, rank):
     for a, (x, y, z) in enumerate(zip(dcps, want_c, dcps2)):
         assert torch.isfinite(x).all(), a
         assert _rel(x, y) < 2e-2, ("dcp", a, _rel(x, y))
-        assert _rel(z, x) < 1e-4, ("dcp atomics", a)
+        assert torch.equal(z, x), ("dcp", a)  # chunks summed in order
 
 
 def test_training_functions_launch_their_kernels(dev):
