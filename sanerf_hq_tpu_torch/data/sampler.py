@@ -10,6 +10,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .rays import coarse_inds_from_fine, rays_from_pixels, sample_random_pixels
 
 
@@ -24,25 +25,26 @@ def sample_rgb_batch(generator: Optional[torch.Generator], images, poses,
     random_image_batch draws every ray's view at random; otherwise one
     random view serves the whole batch.  Each ray carries its own view's
     intrinsics and near/far, as the reference collate does."""
-    V, H, W = images.shape[0], images.shape[1], images.shape[2]
-    dev = images.device
-    if random_image_batch:
-        img_inds = torch.randint(0, V, (n_rays,), generator=generator,
-                                 device=dev)
-    else:
-        img_inds = torch.randint(0, V, (1,), generator=generator,
-                                 device=dev).expand(n_rays)
-    pix_inds, x, y = sample_random_pixels(H, W, n_rays, dev, generator)
-    rows = torch.div(pix_inds, W, rounding_mode="floor")
-    cols = pix_inds % W
-    intr = intrinsics[img_inds] if intrinsics.dim() == 2 else intrinsics
-    rays_o, rays_d = rays_from_pixels(poses[img_inds], intr, x, y)
-    batch = {"rays_o": rays_o, "rays_d": rays_d,
-             "gt_rgb": images[img_inds, rows, cols],
-             "img_inds": img_inds, "pix_inds": pix_inds}
-    if cam_near_far is not None:
-        batch["cam_near_far"] = cam_near_far[img_inds]
-    return batch
+    with span("sanerf.batch"):
+        V, H, W = images.shape[0], images.shape[1], images.shape[2]
+        dev = images.device
+        if random_image_batch:
+            img_inds = torch.randint(0, V, (n_rays,), generator=generator,
+                                     device=dev)
+        else:
+            img_inds = torch.randint(0, V, (1,), generator=generator,
+                                     device=dev).expand(n_rays)
+        pix_inds, x, y = sample_random_pixels(H, W, n_rays, dev, generator)
+        rows = torch.div(pix_inds, W, rounding_mode="floor")
+        cols = pix_inds % W
+        intr = intrinsics[img_inds] if intrinsics.dim() == 2 else intrinsics
+        rays_o, rays_d = rays_from_pixels(poses[img_inds], intr, x, y)
+        batch = {"rays_o": rays_o, "rays_d": rays_d,
+                 "gt_rgb": images[img_inds, rows, cols],
+                 "img_inds": img_inds, "pix_inds": pix_inds}
+        if cam_near_far is not None:
+            batch["cam_near_far"] = cam_near_far[img_inds]
+        return batch
 
 
 def draw_cells(generator: Optional[torch.Generator], weights, n: int):
@@ -83,69 +85,72 @@ def sample_mask_batch(generator: Optional[torch.Generator], masks, poses,
     Returns {rays_o, rays_d [n_rays + num_local*patch_size^2, 3] (global
     rays first), gt_masks [same], img_inds, inds_coarse [n_rays],
     local_error [num_local*patch_size^2] (the map at each patch ray)}."""
-    V, S = poses.shape[0], error_map_size
-    dev = poses.device
+    with span("sanerf.batch"):
+        V, S = poses.shape[0], error_map_size
+        dev = poses.device
 
-    def rand(*shape):
-        return torch.rand(shape, generator=generator, device=dev)
+        def rand(*shape):
+            return torch.rand(shape, generator=generator, device=dev)
 
-    sx, sy = H / S, W / S
-    if use_error_map:
-        # one draw a ray over every view's cells, each view's row scaled
-        # to sum 1: the view is uniform and the cell follows its view's
-        # map, as the Gumbel argmax draws them
-        idx = draw_cells(generator, error_map.clamp_min(1e-12), n_rays)
-        img_inds = torch.div(idx, S * S, rounding_mode="floor")
-        inds_coarse = idx % (S * S)
-        rows = ((torch.div(inds_coarse, S, rounding_mode="floor") * sx
-                 + rand(n_rays) * sx).long()).clamp(0, H - 1)
-        cols = (((inds_coarse % S) * sy + rand(n_rays) * sy).long()).clamp(
-            0, W - 1)
-    else:
-        img_inds = torch.randint(0, V, (n_rays,), generator=generator,
-                                 device=dev)
-        pix, _, _ = sample_random_pixels(H, W, n_rays, dev, generator)
-        rows, cols = torch.div(pix, W, rounding_mode="floor"), pix % W
-        inds_coarse = coarse_inds_from_fine(pix, H, W, S)
-    rays_o, rays_d = rays_from_pixels(poses[img_inds], intrinsics,
-                                      cols.float() + 0.5, rows.float() + 0.5)
-    gt_g = masks[img_inds, rows, cols]
+        sx, sy = H / S, W / S
+        if use_error_map:
+            # one draw a ray over every view's cells, each view's row scaled
+            # to sum 1: the view is uniform and the cell follows its view's
+            # map, as the Gumbel argmax draws them
+            idx = draw_cells(generator, error_map.clamp_min(1e-12), n_rays)
+            img_inds = torch.div(idx, S * S, rounding_mode="floor")
+            inds_coarse = idx % (S * S)
+            rows = ((torch.div(inds_coarse, S, rounding_mode="floor") * sx
+                     + rand(n_rays) * sx).long()).clamp(0, H - 1)
+            cols = (((inds_coarse % S) * sy + rand(n_rays) * sy).long()).clamp(
+                0, W - 1)
+        else:
+            img_inds = torch.randint(0, V, (n_rays,), generator=generator,
+                                     device=dev)
+            pix, _, _ = sample_random_pixels(H, W, n_rays, dev, generator)
+            rows, cols = torch.div(pix, W, rounding_mode="floor"), pix % W
+            inds_coarse = coarse_inds_from_fine(pix, H, W, S)
+        rays_o, rays_d = rays_from_pixels(poses[img_inds], intrinsics,
+                                          cols.float() + 0.5,
+                                          rows.float() + 0.5)
+        gt_g = masks[img_inds, rows, cols]
 
-    S2 = patch_size * patch_size
-    local_views = torch.randint(0, V, (num_local,), generator=generator,
-                                device=dev)
-    if use_error_map:
-        centers = torch.multinomial(error_map[local_views].clamp_min(1e-12),
-                                    1, generator=generator)[:, 0]
-        # truncation toward zero, then the clamp, as the JAX int cast
-        x0 = (torch.div(centers, S, rounding_mode="floor") * sx
-              - patch_size // 2).long().clamp(0, H - patch_size - 1)
-        y0 = ((centers % S) * sy - patch_size // 2).long().clamp(
-            0, W - patch_size - 1)
-    else:
-        x0 = torch.randint(0, H - patch_size, (num_local,),
-                           generator=generator, device=dev)
-        y0 = torch.randint(0, W - patch_size, (num_local,),
-                           generator=generator, device=dev)
-    off = torch.arange(patch_size, device=dev)
-    lrows = (x0[:, None, None] + off[None, :, None]).expand(
-        -1, -1, patch_size).reshape(-1)
-    lcols = (y0[:, None, None] + off[None, None, :]).expand(
-        -1, patch_size, -1).reshape(-1)
-    lviews = local_views.repeat_interleave(S2)
-    lro, lrd = rays_from_pixels(poses[lviews], intrinsics,
-                                lcols.float() + 0.5, lrows.float() + 0.5)
-    scale = S / H
-    l_coarse = ((lrows.float() * scale).long() * S
-                + (lcols.float() * scale).long())
-    return {
-        "rays_o": torch.cat([rays_o, lro]),
-        "rays_d": torch.cat([rays_d, lrd]),
-        "gt_masks": torch.cat([gt_g, masks[lviews, lrows, lcols]]),
-        "img_inds": img_inds,
-        "inds_coarse": inds_coarse,
-        "local_error": error_map[lviews, l_coarse],
-    }
+        S2 = patch_size * patch_size
+        local_views = torch.randint(0, V, (num_local,), generator=generator,
+                                    device=dev)
+        if use_error_map:
+            centers = torch.multinomial(
+                error_map[local_views].clamp_min(1e-12), 1,
+                generator=generator)[:, 0]
+            # truncation toward zero, then the clamp, as the JAX int cast
+            x0 = (torch.div(centers, S, rounding_mode="floor") * sx
+                  - patch_size // 2).long().clamp(0, H - patch_size - 1)
+            y0 = ((centers % S) * sy - patch_size // 2).long().clamp(
+                0, W - patch_size - 1)
+        else:
+            x0 = torch.randint(0, H - patch_size, (num_local,),
+                               generator=generator, device=dev)
+            y0 = torch.randint(0, W - patch_size, (num_local,),
+                               generator=generator, device=dev)
+        off = torch.arange(patch_size, device=dev)
+        lrows = (x0[:, None, None] + off[None, :, None]).expand(
+            -1, -1, patch_size).reshape(-1)
+        lcols = (y0[:, None, None] + off[None, None, :]).expand(
+            -1, patch_size, -1).reshape(-1)
+        lviews = local_views.repeat_interleave(S2)
+        lro, lrd = rays_from_pixels(poses[lviews], intrinsics,
+                                    lcols.float() + 0.5, lrows.float() + 0.5)
+        scale = S / H
+        l_coarse = ((lrows.float() * scale).long() * S
+                    + (lcols.float() * scale).long())
+        return {
+            "rays_o": torch.cat([rays_o, lro]),
+            "rays_d": torch.cat([rays_d, lrd]),
+            "gt_masks": torch.cat([gt_g, masks[lviews, lrows, lcols]]),
+            "img_inds": img_inds,
+            "inds_coarse": inds_coarse,
+            "local_error": error_map[lviews, l_coarse],
+        }
 
 
 def fixed_fovy_intrinsics(resolution: int, fovy_deg: float = 60.0):

@@ -33,6 +33,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span, time_backward
+
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
            2165219737)
 _U32 = 0xFFFFFFFF
@@ -219,9 +221,13 @@ def hash_encode_unit(table, x, spec: HashGridSpec,
 
 def hash_encode(table, x, spec: HashGridSpec, bound: float = 1.0,
                 max_level: Optional[int] = None):
-    """Encode world coords in [-bound, bound]."""
-    x = (x + bound) / (2.0 * bound)
-    return hash_encode_unit(table, x, spec, max_level=max_level)
+    """Encode world coords in [-bound, bound].  The span `sanerf.encode`
+    times the forward and, where the table learns, its backward."""
+    with span("sanerf.encode") as rec:
+        x = (x + bound) / (2.0 * bound)
+        out = hash_encode_unit(table, x, spec, max_level=max_level)
+    time_backward(rec, out, table)
+    return out
 
 
 # ---------------------------------------------------------------------------

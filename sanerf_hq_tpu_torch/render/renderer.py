@@ -40,6 +40,7 @@ from ..ops.contraction import contract
 from ..ops.ray import (near_far_from_aabb, sample_pdf, spacing_fn,
                        spacing_fn_inv, stratified_queries, uniform_rows)
 from ..ops.sh import sh_encode
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +81,14 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
     (final level) and 'num_points', and with compute_losses
     'proposal_loss' and 'distort_loss'; return_feats adds 'samvit',
     return_mask 'instance_mask_logits'."""
+    with span("sanerf.render"):
+        return _render_rays(field, rays_o, rays_d, settings, generator,
+                            bg_color, cam_near_far, aabb, update_proposal,
+                            rows)
+
+
+def _render_rays(field, rays_o, rays_d, settings, generator, bg_color,
+                 cam_near_far, aabb, update_proposal, rows):
     N, dev = rays_o.shape[0], rays_o.device
     n_levels = len(settings.num_steps)
     training = settings.training
@@ -118,132 +127,145 @@ def render_rays(field, rays_o, rays_d, settings: RenderSettings,
     bins = weights = rays_t = colors = fused_out = folded = None
     geo_feat = xyzs_final = None
     all_bins, all_weights = [], []
-    for level, T in enumerate(settings.num_steps):
-        if level == 0:
-            bins = torch.linspace(0.0, 1.0, T + 1, device=dev).expand(N, T + 1)
-            if gen is not None:
-                bins = (bins + (uniform_rows(N, T + 1, dev, gen, rows)
-                                - 0.5) / T).clamp(0, 1)
-            bins = bins.contiguous()
-        elif folded is not None:
-            bins, folded = folded, None
-        else:
-            bins = sample_pdf(bins, weights.detach(), T + 1, generator=gen,
-                              rows=rows)
 
-        real_bins = spacing_fn_inv(s_nears * (1.0 - bins) + s_fars * bins)
-        if frozen and level == n_levels - 1:
+    def level_bins(level, T):
+        """The level's edges in [0, 1] (from the level before: its weights,
+        or the edges its kernel folded) and on the ray."""
+        if level == 0:
+            b = torch.linspace(0.0, 1.0, T + 1, device=dev).expand(N, T + 1)
+            if gen is not None:
+                b = (b + (uniform_rows(N, T + 1, dev, gen, rows)
+                          - 0.5) / T).clamp(0, 1)
+            b = b.contiguous()
+        elif folded is not None:
+            b = folded
+        else:
+            b = sample_pdf(bins, weights.detach(), T + 1, generator=gen,
+                           rows=rows)
+        return b, spacing_fn_inv(s_nears * (1.0 - b) + s_fars * b)
+
+    def sample_points(real_bins):
+        rays_t = (real_bins[..., 1:] + real_bins[..., :-1]) / 2.0  # [N, T]
+        xyzs = rays_o[:, None, :] + rays_d[:, None, :] * rays_t[..., None]
+        return rays_t, (contract(xyzs) if settings.use_contract else xyzs)
+
+    for level, T in enumerate(settings.num_steps[:-1]):
+        with span("sanerf.render.proposal"):
+            bins, real_bins = level_bins(level, T)
+            folded = None
+            if fused or frozen:
+                # next level's s-space edges straight from the proposal
+                # kernel; in inference the per-sample weights never reach
+                # device memory
+                u = stratified_queries(N, settings.num_steps[level + 1] + 1,
+                                       dev, gen, rows).contiguous()
+                if training and not frozen:
+                    weights, folded = field.fused_prop_weights_train_sample(
+                        rays_o, rays_d, real_bins, bins, u, proposal=level,
+                        opaque_last=opaque)
+                    all_bins.append(bins)
+                    all_weights.append(gate(weights))
+                else:
+                    folded = field.fused_prop_next_bins(
+                        rays_o, rays_d, real_bins, bins, u, proposal=level,
+                        opaque_last=opaque, frozen=frozen)
+                continue
+            _, xyzs = sample_points(real_bins)
+            sigmas = gate(field.density(xyzs, proposal=level))
+            deltas = real_bins[..., 1:] - real_bins[..., :-1]
+            weights, _ = compute_weights(deltas, sigmas, opaque_last=opaque)
+            if training:
+                all_bins.append(bins)
+                all_weights.append(weights)
+
+    with span("sanerf.render.final"):
+        bins, real_bins = level_bins(n_levels - 1, settings.num_steps[-1])
+        if frozen:
             *fused_out, weights, geo_feat = field.fused_final_render_frozen(
                 rays_o, rays_d, real_bins, opaque_last=opaque,
                 need_geo=settings.return_mask)
-            rays_t = (real_bins[..., 1:] + real_bins[..., :-1]) / 2.0
-            xyzs_final = (rays_o[:, None, :]
-                          + rays_d[:, None, :] * rays_t[..., None])
-            if settings.use_contract:
-                xyzs_final = contract(xyzs_final)
+            rays_t, xyzs_final = sample_points(real_bins)
             xyzs_final = xyzs_final.detach()
-            break
-        if fused and level == n_levels - 1:
-            if training:
-                *fused_out, weights = field.fused_final_render_train(
-                    rays_o, rays_d, real_bins, opaque_last=opaque)
-                all_bins.append(bins)
-                all_weights.append(weights)
-            else:
-                fused_out = field.fused_final_render(
-                    rays_o, rays_d, real_bins, opaque_last=opaque)
-            break
-        if fused or frozen:
-            # next level's s-space edges straight from the proposal kernel;
-            # in inference the per-sample weights never reach device memory
-            u = stratified_queries(N, settings.num_steps[level + 1] + 1, dev,
-                                   gen, rows).contiguous()
-            if training and not frozen:
-                weights, folded = field.fused_prop_weights_train_sample(
-                    rays_o, rays_d, real_bins, bins, u, proposal=level,
-                    opaque_last=opaque)
-                all_bins.append(bins)
-                all_weights.append(gate(weights))
-            else:
-                folded = field.fused_prop_next_bins(
-                    rays_o, rays_d, real_bins, bins, u, proposal=level,
-                    opaque_last=opaque, frozen=frozen)
-            continue
-
-        rays_t = (real_bins[..., 1:] + real_bins[..., :-1]) / 2.0  # [N, T]
-        xyzs = rays_o[:, None, :] + rays_d[:, None, :] * rays_t[..., None]
-        if settings.use_contract:
-            xyzs = contract(xyzs)
-        if level != n_levels - 1:
-            sigmas = gate(field.density(xyzs, proposal=level))
-        else:
-            dirs = rays_d[:, None, :].expand(xyzs.shape)
-            dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
-            sigmas, geo_feat, colors, _ = field.forward_color(xyzs, dirs)
-            xyzs_final = xyzs
-        deltas = real_bins[..., 1:] - real_bins[..., :-1]
-        weights, _ = compute_weights(deltas, sigmas, opaque_last=opaque)
-        if training:
+        elif fused and training:
+            *fused_out, weights = field.fused_final_render_train(
+                rays_o, rays_d, real_bins, opaque_last=opaque)
             all_bins.append(bins)
             all_weights.append(weights)
+        elif fused:
+            fused_out = field.fused_final_render(
+                rays_o, rays_d, real_bins, opaque_last=opaque)
+        else:
+            rays_t, xyzs_final = sample_points(real_bins)
+            dirs = rays_d[:, None, :].expand(xyzs_final.shape)
+            dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+            sigmas, geo_feat, colors, _ = field.forward_color(xyzs_final,
+                                                              dirs)
+            deltas = real_bins[..., 1:] - real_bins[..., :-1]
+            weights, _ = compute_weights(deltas, sigmas, opaque_last=opaque)
+            if training:
+                all_bins.append(bins)
+                all_weights.append(weights)
+        if fused_out is not None:
+            f_image, depth, weights_sum = fused_out
+        else:
+            weights_sum = weights.sum(dim=-1)
+            depth = (weights * rays_t).sum(dim=-1)
+            f_image = (weights[..., None] * colors).sum(dim=-2)  # [N, 31]
+        image = torch.sigmoid(field.apply_view_mlp(f_image))
+        results = {}
+        if training:
+            results["num_points"] = N * settings.num_steps[-1]
+            results["weights"] = weights
+            if settings.compute_losses:
+                if static_upd:
+                    results["proposal_loss"] = (
+                        proposal_loss(all_bins, all_weights) if update_proposal
+                        else torch.zeros((), device=dev))
+                else:
+                    results["proposal_loss"] = (
+                        proposal_loss(all_bins, all_weights) * upd.float())
+                results["distort_loss"] = distort_loss(bins, weights)
+        image = image + (1.0 - weights_sum)[..., None] * bg_color
+        results.update(weights_sum=weights_sum, depth=depth, image=image)
 
-    if fused_out is not None:
-        f_image, depth, weights_sum = fused_out
-    else:
-        weights_sum = weights.sum(dim=-1)
-        depth = (weights * rays_t).sum(dim=-1)
-        f_image = (weights[..., None] * colors).sum(dim=-2)  # [N, 31]
-    image = torch.sigmoid(field.apply_view_mlp(f_image))
-    results = {}
-    if training:
-        results["num_points"] = N * settings.num_steps[-1]
-        results["weights"] = weights
-        if settings.compute_losses:
-            if static_upd:
-                results["proposal_loss"] = (
-                    proposal_loss(all_bins, all_weights) if update_proposal
-                    else torch.zeros((), device=dev))
+        if settings.return_feats:
+            # SAM feature branch (JAX renderer.py:290-306)
+            features = field.sam_features(xyzs_final)  # [N, T, C]
+            f_sam = (weights[..., None] * features).sum(dim=-2)
+            if settings.sam_use_view_direction:
+                f = torch.cat([f_sam, f_image, image, depth[..., None]],
+                              dim=-1)
             else:
-                results["proposal_loss"] = (
-                    proposal_loss(all_bins, all_weights) * upd.float())
-            results["distort_loss"] = distort_loss(bins, weights)
-    image = image + (1.0 - weights_sum)[..., None] * bg_color
-    results.update(weights_sum=weights_sum, depth=depth, image=image)
+                # on the frozen route without the trunk features the kernel
+                # has composited them: f_image[:, :15] is sum_s w_s geo_s
+                geo_sum = (f_image[..., :GEOM_FEAT_DIM] if geo_feat is None
+                           else (weights[..., None] * geo_feat).sum(dim=-2))
+                f = torch.cat([f_sam, geo_sum, image, depth[..., None]],
+                              dim=-1)
+            results["samvit"] = field.apply_samvit_mlp(f)  # [N, 256]
 
-    if settings.return_feats:
-        # SAM feature branch (JAX renderer.py:290-306)
-        features = field.sam_features(xyzs_final)  # [N, T, C]
-        f_sam = (weights[..., None] * features).sum(dim=-2)
-        if settings.sam_use_view_direction:
-            f = torch.cat([f_sam, f_image, image, depth[..., None]], dim=-1)
-        else:
-            # on the frozen route without the trunk features the kernel
-            # has composited them: f_image[:, :15] is sum_s w_s geo_s
-            geo_sum = (f_image[..., :GEOM_FEAT_DIM] if geo_feat is None
-                       else (weights[..., None] * geo_feat).sum(dim=-2))
-            f = torch.cat([f_sam, geo_sum, image, depth[..., None]], dim=-1)
-        results["samvit"] = field.apply_samvit_mlp(f)  # [N, 256]
-
-    if settings.return_mask:
-        # object-field branch: the mask MLP on per-sample features,
-        # composited with detached weights (JAX renderer.py:308-333)
-        masks = field.mask_features(xyzs_final)  # [N, T, C]
-        if field.mask_mlp_type == "default":
-            m = torch.cat([masks, geo_feat.detach()], dim=-1)
-        else:
-            if colors is None:
-                # frozen route: rebuild the per-sample colours [geo | sh]
-                # (sh is per ray)
-                dn = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-                sh = sh_encode(dn, SH_DEGREE)
-                colors = torch.cat(
-                    [geo_feat, sh[:, None, :].expand(*geo_feat.shape[:2], -1)],
-                    dim=-1)
-            m = torch.cat([masks, colors.detach()], dim=-1)
-        point_masks = field.apply_mask_mlp(m)  # [N, T, n_inst]
-        results["instance_mask_logits"] = (
-            weights.detach()[..., None] * point_masks).sum(dim=-2)
-    return results
+        if settings.return_mask:
+            # object-field branch: the mask MLP on per-sample features,
+            # composited with detached weights (JAX renderer.py:308-333)
+            masks = field.mask_features(xyzs_final)  # [N, T, C]
+            if field.mask_mlp_type == "default":
+                m = torch.cat([masks, geo_feat.detach()], dim=-1)
+            else:
+                if colors is None:
+                    # frozen route: rebuild the per-sample colours [geo | sh]
+                    # (sh is per ray)
+                    dn = rays_d / torch.linalg.norm(rays_d, dim=-1,
+                                                    keepdim=True)
+                    sh = sh_encode(dn, SH_DEGREE)
+                    colors = torch.cat(
+                        [geo_feat,
+                         sh[:, None, :].expand(*geo_feat.shape[:2], -1)],
+                        dim=-1)
+                m = torch.cat([masks, colors.detach()], dim=-1)
+            point_masks = field.apply_mask_mlp(m)  # [N, T, n_inst]
+            results["instance_mask_logits"] = (
+                weights.detach()[..., None] * point_masks).sum(dim=-2)
+        return results
 
 
 def render_staged(field, rays_o, rays_d, settings: RenderSettings,
@@ -258,8 +280,9 @@ def render_staged(field, rays_o, rays_d, settings: RenderSettings,
     outs = []
     for i in range(0, N, chunk):
         nf = cam_near_far[i:i + chunk] if per_ray else cam_near_far
-        outs.append(render_rays(field, rays_o[i:i + chunk],
-                                rays_d[i:i + chunk], settings,
-                                generator=generator, bg_color=bg_color,
-                                cam_near_far=nf, aabb=aabb))
+        with span("sanerf.view.chunk"):
+            outs.append(render_rays(field, rays_o[i:i + chunk],
+                                    rays_d[i:i + chunk], settings,
+                                    generator=generator, bg_color=bg_color,
+                                    cam_near_far=nf, aabb=aabb))
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}

@@ -36,6 +36,7 @@ from ..sam.predictor import PIXEL_MEAN, PIXEL_STD
 from ..utils.cache import Cache
 from ..utils.overlays import overlay_mask, overlay_point
 from ..utils.points import PointPrompts, project_points_to_view
+from ..utils.profiling import span
 from ..utils.resize import resize_bilinear
 from .metrics import MeanIoUMeter, MSEMeter
 from .steps import (make_eval_render, make_mask_train_step,
@@ -461,18 +462,22 @@ def update_error_map(trainer: Trainer, masks, poses, intr, H: int, W: int):
     S = cfg.error_map_size
     small = downscale_intrinsics(intr, H, W, S)
     rows = []
-    for i in range(len(poses)):
-        probs, _, _ = render_instance_mask(trainer, poses[i], small, S, S)
-        gt = resize_linear(np.asarray(masks[i], np.float32), S, S)
-        gt = np.rint(np.clip(gt, 0, cfg.n_inst - 1)).astype(np.int64)
-        onehot = np.eye(cfg.n_inst, dtype=np.float32)[gt]
-        cos = (probs * onehot).sum(-1) / np.maximum(
-            np.linalg.norm(probs, axis=-1) * np.linalg.norm(onehot, axis=-1),
-            1e-8)
-        err = np.exp(-cfg.ray_pair_rgb_exp_weight * cos - cfg.epsilon)
-        rows.append(err.reshape(-1))
-    return torch.as_tensor(np.stack(rows).astype(np.float32),
-                           device=trainer.device)
+    with span("sanerf.rebuild"):
+        for i in range(len(poses)):
+            with span("sanerf.rebuild.render"):
+                probs, _, _ = render_instance_mask(trainer, poses[i], small,
+                                                   S, S)
+            with span("sanerf.rebuild.score"):
+                gt = resize_linear(np.asarray(masks[i], np.float32), S, S)
+                gt = np.rint(np.clip(gt, 0, cfg.n_inst - 1)).astype(np.int64)
+                onehot = np.eye(cfg.n_inst, dtype=np.float32)[gt]
+                cos = (probs * onehot).sum(-1) / np.maximum(
+                    np.linalg.norm(probs, axis=-1)
+                    * np.linalg.norm(onehot, axis=-1), 1e-8)
+                err = np.exp(-cfg.ray_pair_rgb_exp_weight * cos - cfg.epsilon)
+                rows.append(err.reshape(-1))
+        return torch.as_tensor(np.stack(rows).astype(np.float32),
+                               device=trainer.device)
 
 
 def evaluate_masks(trainer: Trainer, scene: Scene,

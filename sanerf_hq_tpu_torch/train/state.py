@@ -21,6 +21,8 @@ from typing import Dict, Iterable, Optional, Set
 
 import torch
 
+from ..utils.profiling import span
+
 
 def exp_decay_lr(base_lr: float, total_iters: int, step: int) -> float:
     return base_lr * 0.1 ** min(step / total_iters, 1.0)
@@ -102,8 +104,10 @@ class TrainState:
     def update_ema(self):
         n = self.ema_updates + 1
         d = min(self.ema_decay, (1.0 + n) / (10.0 + n))
-        for e, p in zip(self.ema_model.parameters(), self.model.parameters()):
-            e.mul_(d).add_(p, alpha=1.0 - d)
+        with span("sanerf.ema"):
+            for e, p in zip(self.ema_model.parameters(),
+                            self.model.parameters()):
+                e.mul_(d).add_(p, alpha=1.0 - d)
         self.ema_updates = n
 
     def state_dict(self) -> dict:

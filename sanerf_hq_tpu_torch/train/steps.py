@@ -54,6 +54,7 @@ from ..ops.hashgrid import (total_variation_loss, total_variation_loss_at,
 from ..parallel.mesh import (allreduce_grads, allreduce_mean, gather_rays,
                              shard_rays, shard_slice)
 from ..render.renderer import RenderSettings, render_rays, render_staged
+from ..utils.profiling import span
 from ..utils.resize import resize_bilinear
 
 
@@ -139,11 +140,20 @@ def _render_inputs(shard, batch, ro_key="rays_o", rd_key="rays_d"):
             rb["rays_o"].shape[0] != batch[ro_key].shape[0])
 
 
-def _apply(state, shard):
-    """Adam after the grads' mean over the ranks (under a shard)."""
-    if shard is not None:
-        allreduce_grads(list(state.model.parameters()))
-    state.apply_gradients()
+def _forward_backward_apply(state, shard, forward):
+    """forward() -> (loss, ...); backpropagate the loss, then Adam after
+    the grads' mean over the ranks (under a shard), each phase in its span
+    (`sanerf.step.forward`, `.backward`, `.optimizer`).  Returns
+    forward's outputs."""
+    with span("sanerf.step.forward"):
+        out = forward()
+    with span("sanerf.step.backward"):
+        out[0].backward()
+    with span("sanerf.step.optimizer"):
+        if shard is not None:
+            allreduce_grads(list(state.model.parameters()))
+        state.apply_gradients()
+    return out
 
 
 def make_rgb_train_step(model, cfg: Config, perturb: bool = True,
@@ -218,15 +228,14 @@ def make_rgb_train_step(model, cfg: Config, perturb: bool = True,
         return loss, metrics
 
     def train_step(state, batch, generator=None):
-        loss, metrics = loss_fn(batch, state.step,
-                                update_proposal_at(state.step), generator)
-        loss.backward()
-        _apply(state, shard)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if shard is not None:
-            metrics = allreduce_mean(metrics)
-            metrics["psnr"] = -10.0 * torch.log10(
-                metrics["mse"].clamp_min(1e-10))
+        with span("sanerf.step"):
+            _, metrics = _forward_backward_apply(state, shard, lambda: loss_fn(
+                batch, state.step, update_proposal_at(state.step), generator))
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if shard is not None:
+                metrics = allreduce_mean(metrics)
+                metrics["psnr"] = -10.0 * torch.log10(
+                    metrics["mse"].clamp_min(1e-10))
         return metrics
 
     train_step.loss_fn = loss_fn
@@ -406,10 +415,10 @@ def make_mask_train_step(model, cfg: Config, frozen_backbone: bool = False,
         return loss, metrics, new_map
 
     def mask_step(state, batch, generator, error_map):
-        loss, metrics, new_map = loss_fn(batch, state.step, error_map,
-                                         generator)
-        loss.backward()
-        _apply(state, shard)
+        with span("sanerf.step"):
+            _, metrics, new_map = _forward_backward_apply(
+                state, shard,
+                lambda: loss_fn(batch, state.step, error_map, generator))
         return {k: v.detach() for k, v in metrics.items()}, new_map
 
     mask_step.loss_fn = loss_fn
@@ -467,9 +476,9 @@ def make_sam_distill_step(model, cfg: Config, feat_hw: int = 64,
         return loss, {"loss": loss, "mse": mse}, out
 
     def distill_step(state, batch, generator=None):
-        loss, metrics, _ = loss_fn(batch, generator)
-        loss.backward()
-        _apply(state, shard)
+        with span("sanerf.step"):
+            _, metrics, _ = _forward_backward_apply(
+                state, shard, lambda: loss_fn(batch, generator))
         return {k: v.detach() for k, v in metrics.items()}
 
     distill_step.loss_fn = loss_fn

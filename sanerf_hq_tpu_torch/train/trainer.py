@@ -39,6 +39,7 @@ from ..models.mlp_field import MLPField
 from ..parallel.evaluate import make_sharded_render
 from ..parallel.mesh import (broadcast_params, data_sharding, is_distributed,
                              is_main_process, make_mesh, world_size)
+from ..utils.profiling import span
 from .checkpoints import CheckpointManager
 from .metrics import PSNRMeter
 from .state import (TrainState, freeze_mask_from_loaded, mlp_field_lr_scales,
@@ -231,25 +232,29 @@ class Trainer:
         unsharded, is built on first use).  Returns numpy arrays
         {'image' [H*W, 3], 'depth' [H*W], 'weights_sum' [H*W]}."""
         dev = self.device
-        ro, rd = full_frame_rays(
-            torch.as_tensor(np.asarray(pose, np.float32), device=dev),
-            torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev),
-            H, W)
-        cnf = None
-        if cam_near_far is not None:
-            cnf = torch.as_tensor(np.asarray(cam_near_far, np.float32),
-                                  device=dev).reshape(1, 2)
-        render = self.eval_render
-        if generator is not None:
-            if self._eval_render_perturb is None:
-                self._eval_render_perturb = make_eval_render(
-                    self.state.ema_model, self.cfg, perturb=True)
-            render = self._eval_render_perturb
-        out = render(ro, rd, bg_color=bg_color, cam_near_far=cnf,
-                     aabb=None if aabb is None else torch.as_tensor(
-                         aabb, dtype=torch.float32, device=dev),
-                     generator=generator)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with span("sanerf.view"):
+            with span("sanerf.view.rays"):
+                ro, rd = full_frame_rays(
+                    torch.as_tensor(np.asarray(pose, np.float32), device=dev),
+                    torch.as_tensor(np.asarray(intrinsics, np.float32),
+                                    device=dev), H, W)
+                cnf = None
+                if cam_near_far is not None:
+                    cnf = torch.as_tensor(np.asarray(cam_near_far,
+                                                     np.float32),
+                                          device=dev).reshape(1, 2)
+            render = self.eval_render
+            if generator is not None:
+                if self._eval_render_perturb is None:
+                    self._eval_render_perturb = make_eval_render(
+                        self.state.ema_model, self.cfg, perturb=True)
+                render = self._eval_render_perturb
+            out = render(ro, rd, bg_color=bg_color, cam_near_far=cnf,
+                         aabb=None if aabb is None else torch.as_tensor(
+                             aabb, dtype=torch.float32, device=dev),
+                         generator=generator)
+            with span("sanerf.view.readback"):
+                return {k: v.cpu().numpy() for k, v in out.items()}
 
     def _render_scene(self, scene: Scene, i: int):
         intr = (scene.intrinsics[i] if scene.intrinsics.ndim == 2

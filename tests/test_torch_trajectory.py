@@ -1,7 +1,7 @@
 """The port's trajectory poses (`data/trajectory.py`), pose dump
 (`utils/vis_pose.py`), overlays and incoherent mask (`utils/overlays.py`)
-and timing helpers (`utils/profiling.py`) against the JAX package on the
-same numpy inputs, made from a seed.
+against the JAX package on the same numpy inputs, made from a seed; and
+the tracer and seeding of `utils/profiling.py`.
 
 Bars: poses and intrinsics 1e-6 abs; the PLY byte for byte; overlays and
 the incoherent mask exact (JAX's resizes are OpenCV's; the port's numpy
@@ -145,22 +145,31 @@ def test_incoherent_mask_matches_opencv(shape, sfact):
 
 
 def test_profiling_helpers_on_the_cpu(tmp_path):
-    calls = []
-    t = profiling.device_time(lambda x: calls.append(x), 1, iters=3,
-                              device="cpu")
-    assert t >= 0 and len(calls) == 4  # one warm-up, three timed
-    ro = torch.zeros(1000, 3)
-    assert profiling.mrays_per_sec(lambda o, d: o + d, ro, ro, iters=2) > 0
+    """The tracer on the CPU (spans; device times and syncs noted as not
+    measured) and seed_everything."""
     g = profiling.seed_everything(3, device="cpu")
     assert torch.equal(torch.rand(4, generator=g),
                        torch.rand(4, generator=torch.Generator().manual_seed(3)))
-    with profiling.trace(str(tmp_path)) as prof:
-        torch.ones(8).sum()
-    assert prof.key_averages() is not None
-    assert (tmp_path / "trace.json").exists()
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            profiling.device_time(lambda: None)
+    tracer = profiling.enable()
+    try:
+        with profiling.span("sanerf.view") as rec:
+            torch.ones(8).sum()
+        assert rec.path == "sanerf.view"
+        snap = profiling.snapshot()
+        view = snap["spans"]["sanerf.view"]
+        assert view["calls"] == 1 and view["host_ms"] >= 0
+        assert view["device_ms"] is None and view["syncs"] is None
+        assert snap["device"] == "cpu" and snap["notes"] == [
+            "device times not measured and syncs not counted: no CUDA "
+            "device"]
+        profiling.write(str(tmp_path / "spans.json"))
+        assert (tmp_path / "spans.trace.json").exists()
+    finally:
+        assert profiling.disable() is tracer
+    with pytest.raises(RuntimeError, match="tracer is off"):
+        profiling.snapshot()
+    with profiling.span("sanerf.view") as rec:
+        assert rec is None
 
 
 _CLI = r"""
