@@ -12,6 +12,7 @@
                                       # (DISTILL_ITERS=5000, FIELD=hashgrid,
                                       # KIND=clutter) and its stage 1 on
                                       # the composable route
+    python3 chip_smoke.py --k11     # phases 1 and 2 and K11's check alone
 
 (`--dp-worker <spec>` is phase 15's process under torch.distributed.run.)
 
@@ -68,6 +69,13 @@ last line:
        CP grads rel-max < 2e-2) and its weight-grad GEMM (rel-max < 1e-4
        against d^T x in fp32 on the same stash; torch's bf16 matmul of the
        same pairs timed beside it);
+     - K11 (the hash-grid encoder) at each encode of a stage-1 step (8192
+       rays; proposal grids at 128 and 64 samples, the main grid at 32)
+       and of a stage-3 step (6256 rays; m_grid at 32): forward and
+       backward on the device alone, a forward call from the host, the
+       twin's times, the bound in bytes, the output against the twin
+       (max abs <= 1e-9) and the table grads (rel-max <= 1e-5) beside the
+       twin's own run-to-run spread (`--k11` runs this check alone);
   4. inference path: a synthetic llff scene written under build/, the
      port's CLI `--test` on it at flagship width with a seeded field (2
      views of 512x512, 16 chunks each), with the launch counts set to 0
@@ -113,11 +121,14 @@ last line:
      1e-6, timed beside a searchsorted composite (this check runs with
      phase 3); the CLI without --field_type, 20 steps of 8192 rays on the
      phase-4 scene, counts set to 0 just before and read just after: K10
-     twice a step and twice an eval chunk, K1-K8 never; a finite loss,
+     twice a step and twice an eval chunk, K11 six times a step (three
+     encodes forward and backward) and three times an eval chunk, K1-K8
+     never; a finite loss,
      checkpoints, the step rate with its breakdown (CUDA events: the
      sampler, the three hash encodes forward and backward, K10, the MLPs,
      compositing and losses, Adam; one device-only torch.profiler trace,
-     taken in 10); a --test resuming it (K10 twice a chunk) and the render rate; the
+     taken in 10); a --test resuming it (K10 twice and K11 three times a
+     chunk) and the render rate; the
      card against the CPU on one 1024-ray batch with the same weights
      (the CPU handed the card's resampled bins: image, depth, losses max
      abs <= 1e-3, table grads rel-max <= 1e-3; on its own bins the output
@@ -372,7 +383,8 @@ from sanerf_hq_tpu_torch.data.synthetic import (look_at_pose,
                                                 write_sphere_points)
 from sanerf_hq_tpu_torch.models import SANeRFField, make_field, mlp_field
 from sanerf_hq_tpu_torch.models.fields import (feature_grid_spec,
-                                               lightweight_mask_grid_spec)
+                                               lightweight_mask_grid_spec,
+                                               main_grid_spec, prop_grid_spec)
 from sanerf_hq_tpu_torch.ops import cuda_lib, fused_mlp
 from sanerf_hq_tpu_torch.ops import ray as ray_ops
 from sanerf_hq_tpu_torch.ops import render_level as rl
@@ -380,7 +392,9 @@ from sanerf_hq_tpu_torch.ops.composite import (compute_weights, distort_loss,
                                                proposal_loss)
 from sanerf_hq_tpu_torch.ops.contraction import contract
 from sanerf_hq_tpu_torch.ops.fused_mlp import fused_freq_mlp
-from sanerf_hq_tpu_torch.ops.hashgrid import hash_encode
+from sanerf_hq_tpu_torch.ops import hashgrid as hg_ops
+from sanerf_hq_tpu_torch.ops.hashgrid import (hash_encode, hash_encode_cuda,
+                                              hash_encode_unit)
 from sanerf_hq_tpu_torch.ops.ray import (near_far_from_aabb, spacing_fn,
                                          spacing_fn_inv, stratified_queries)
 from sanerf_hq_tpu_torch.ops.sample_pdf import (sample_pdf_lookup,
@@ -409,6 +423,7 @@ SOURCE_BWD = "sanerf_hq_tpu_torch/csrc/render_level_bwd.cu"
 SOURCE_GEMM = "sanerf_hq_tpu_torch/csrc/render_level_gemm.cuh"
 SOURCE_PDF = "sanerf_hq_tpu_torch/csrc/sample_pdf.cu"
 SOURCE_MLP = "sanerf_hq_tpu_torch/csrc/fused_mlp.cu"
+SOURCE_HASH = "sanerf_hq_tpu_torch/csrc/hashgrid.cu"
 TPU_FILE = "sanerf_hq_tpu/ops/render_level_pallas.py"
 TPU_FILE_PDF = "sanerf_hq_tpu/ops/sample_pdf_pallas.py"
 TPU_FILE_MLP = "sanerf_hq_tpu/ops/fused_mlp.py"
@@ -429,7 +444,7 @@ COUNTERS = {"K5": rl.fused_prop_level_sample, "K3": rl.fused_final_level,
             "K1": rl.fused_prop_level_sample_train,
             "K2": rl.fused_prop_level_bwd, "K4": rl.fused_final_level_bwd,
             "K7": rl.fused_prop_level, "K8": fused_freq_mlp,
-            "K10": sample_pdf_lookup,
+            "K10": sample_pdf_lookup, "K11": hash_encode_cuda,
             # the parts of K2 and K4: each call of K2 or K4 launches each
             # of its parts once
             "K2.partials": rl.prop_level_bwd_partials,
@@ -2077,7 +2092,122 @@ def check_sample_pdf_kernel(dev):
     return k10
 
 
-HG_GROUPS = (("K10", ("sample_pdf_lookup",)),
+# K11's shapes: (cell, encode, spec, points, the table learns) for each
+# encode of a stage-1 step (8192 rays: proposals at 128 and 64 samples, the
+# main grid at 32) and of a stage-3 step (6256 rays; the backbone frozen)
+K11_SHAPES = (
+    ("stage1", "prop 0", prop_grid_spec(128), BATCH * 128, True),
+    ("stage1", "prop 1", prop_grid_spec(256), BATCH * 64, True),
+    ("stage1", "main", main_grid_spec(2.0), BATCH * 32, True),
+    ("stage3", "prop 0", prop_grid_spec(128), MASK_BATCH * 128, False),
+    ("stage3", "prop 1", prop_grid_spec(256), MASK_BATCH * 64, False),
+    ("stage3", "main", main_grid_spec(2.0), MASK_BATCH * 32, False),
+    ("stage3", "m_grid", feature_grid_spec(), MASK_BATCH * 32, True))
+
+
+def hash_points(dev, n, bound, seed):
+    """n points as a step's samples come: 32 a ray, each ray a segment
+    through the contracted cube [-bound, bound]."""
+    g = torch.Generator(dev).manual_seed(seed)
+    rays = -(-n // 32)
+    o = (torch.rand(rays, 1, 3, generator=g, device=dev) * 2 - 1) * bound
+    d = F.normalize(torch.randn(rays, 1, 3, generator=g, device=dev), dim=-1)
+    t = torch.linspace(0.0, 0.5 * bound, 32, device=dev)[None, :, None]
+    return (o + d * t).clamp(-bound, bound).reshape(-1, 3)[:n].contiguous()
+
+
+def check_hash_kernel(dev):
+    """Phase 3, K11 against its plain twin at the cells' shapes: each
+    encode's forward and, where the table learns, backward on the device
+    alone (CUDA graph), a forward call from the host (CUDA events), the
+    twin's forward and backward, the bound in bytes (each point, output and
+    dL/dout once, each row the points touch read once; the backward's rows
+    read and written once; the gradient's memset, an aten launch, timed
+    with the backward but left out of the bound), the output's max abs gap
+    and whether it equals the twin's bit for bit, the table grads' rel-max
+    gap beside the twin's own spread over two runs.  The headline numbers
+    are the sums over a stage-1 step's three encodes."""
+    bound_w = 2.0  # the field's grid_bound
+    res = {"per_shape": {}}
+    for cell, enc, spec, n, learns in K11_SHAPES:
+        L, C = spec.num_levels, spec.level_dim
+        g = torch.Generator(dev).manual_seed(n)
+        table = (torch.rand(spec.total_params, spec.row_dim, generator=g,
+                            device=dev) * 2e-4 - 1e-4).contiguous()
+        x = hash_points(dev, n, bound_w, seed=n)
+        cot = torch.randn(n, spec.output_dim, generator=g, device=dev)
+        out, rows, _ = hash_encode_cuda(table, x, spec, bound_w, debug=True)
+        u = (x + bound_w) / (2.0 * bound_w)
+        twin = hash_encode_unit(table, u, spec)
+        torch.cuda.synchronize()
+        err = (out - twin).abs().max().item()
+        equal = torch.equal(out, twin)
+        assert err <= 1e-9, f"K11 {cell} {enc}: max abs gap {err}"
+        touched = torch.unique(rows).numel()
+        row_b = spec.row_dim * 4
+        fwd_bytes = n * 12 + n * L * C * 4 + touched * row_b
+        fwd = graph_ms(lambda: hg_ops._fwd(table, x, spec, bound_w, L))
+        call = cuda_ms(lambda: hash_encode(table, x, spec, bound_w))
+        plain = cuda_ms(lambda: hash_encode_unit(table, u, spec))
+        row = {"fwd_ms": fwd, "call_ms": call, "plain_fwd_ms": plain,
+               "points": n, "touched_rows": touched,
+               "fwd_bound_ms": bound(fwd_bytes, 0, 0)[0],
+               "max_abs_err": err, "bitwise_equal": equal}
+        if learns:
+            bwd = graph_ms(lambda: hg_ops._bwd(x, cot, table.shape, spec,
+                                               bound_w, L))
+
+            def twin_grad():
+                t = table.clone().requires_grad_()
+                (hash_encode_unit(t, u, spec) * cot).sum().backward()
+                return t.grad
+
+            t1 = table.clone().requires_grad_()
+            (hash_encode(t1, x, spec, bound_w) * cot).sum().backward()
+            ga, gb = twin_grad(), twin_grad()
+            plain_fb = cuda_ms(twin_grad)
+            torch.cuda.synchronize()
+            row.update(bwd_ms=bwd, plain_fwd_bwd_ms=plain_fb,
+                       bwd_bound_ms=bound(n * 12 + n * L * C * 4
+                                          + 2 * touched * row_b, 0, 0)[0],
+                       grad_rel_max=rel_max(t1.grad, ga),
+                       twin_spread_rel_max=rel_max(gb, ga))
+            assert row["grad_rel_max"] <= 1e-5, (cell, enc, row)
+        key = f"{cell} {enc}"
+        res["per_shape"][key] = row
+        print(f"[kernel] K11 hash_encode_cuda {key} ({n} points, {L} x {C}, "
+              f"2^{spec.log2_hashmap_size}, {touched} rows touched): "
+              f"forward {fwd:.4f} ms on the device ({call:.4f} ms a call "
+              f"from the host), bound {row['fwd_bound_ms']:.4f} ms (bytes); "
+              + (f"backward {row['bwd_ms']:.4f} ms with the gradient's "
+                 f"memset, bound {row['bwd_bound_ms']:.4f} ms; "
+                 f"grads rel-max {row['grad_rel_max']:.2e} (the twin's own "
+                 f"spread {row['twin_spread_rel_max']:.2e}); twin forward "
+                 f"and backward {row['plain_fwd_bwd_ms']:.4f} ms; "
+                 if learns else "")
+              + f"twin forward {plain:.4f} ms; output max abs gap "
+              f"{err:.2e} (bitwise equal {equal})", flush=True)
+        del table, x, cot, out, rows, u, twin
+        torch.cuda.empty_cache()
+    for cell in ("stage1", "stage3"):
+        shapes = [v for k, v in res["per_shape"].items()
+                  if k.startswith(cell)]
+        res[cell] = {k: sum(v.get(k, 0.0) for v in shapes) for k in (
+            "fwd_ms", "bwd_ms", "call_ms", "fwd_bound_ms", "bwd_bound_ms",
+            "plain_fwd_ms", "plain_fwd_bwd_ms")}
+        print(f"[kernel] K11 a {cell} step's encodes: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res[cell].items()), flush=True)
+    s1 = res["stage1"]
+    res.update(ms=s1["fwd_ms"] + s1["bwd_ms"],
+               bound_ms=s1["fwd_bound_ms"] + s1["bwd_bound_ms"],
+               bound_by="bytes", plain_ms=s1["plain_fwd_bwd_ms"],
+               max_abs_err=max(v["max_abs_err"]
+                               for v in res["per_shape"].values()))
+    return res
+
+
+HG_GROUPS = (("K11", ("hash_encode_fwd", "hash_encode_bwd")),
+             ("K10", ("sample_pdf_lookup",)),
              ("gather and scatter-add (hash encode)", ("index",)),
              ("matrix products", ("gemm", "cutlass")),
              ("Adam", ("adam", "multi_tensor")))
@@ -2117,6 +2247,9 @@ def hashgrid_train_path(work):
           f"{dt:.2f} s; launches " + ", ".join(
               f"{k} {v}" for k, v in launches.items()), flush=True)
     assert views > 0 and eval_k10 == 2 * per_view * views, launches
+    # K11: three encodes forward and backward a step, three forward an
+    # eval chunk
+    assert launches["K11"] == 6 * n + 3 * per_view * views, launches
     for k in LEVEL_KERNELS + ("K8",):
         assert launches[k] == 0, launches
     losses = trainer.stats["loss"]
@@ -2164,6 +2297,7 @@ def hashgrid_train_path(work):
     assert tested.resumed and tested.state.step == n, tested.state.step
     assert isinstance(tested.model, SANeRFField)
     assert test_launches["K10"] == 2 * 2 * per_view, test_launches
+    assert test_launches["K11"] == 3 * 2 * per_view, test_launches
     for k in LEVEL_KERNELS + ("K8",):
         assert test_launches[k] == 0, test_launches
     for stem in ("v00", "v16"):
@@ -2184,7 +2318,8 @@ def hashgrid_train_path(work):
     assert np.isfinite(out["image"]).all()
     mrays = VIEW * VIEW / float(np.median(times)) / 1e6
     print(f"[hashgrid] --test resumed at step {tested.state.step}, launches "
-          f"K10 {test_launches['K10']} (2 a chunk, {2 * per_view} chunks); "
+          f"K10 {test_launches['K10']} (2 a chunk, {2 * per_view} chunks), "
+          f"K11 {test_launches['K11']} (3 a chunk); "
           f"render {mrays:.4f} Mrays/s ({VIEW}x{VIEW} view, median of 3, "
           f"{np.median(times) * 1e3:.2f} ms a view)", flush=True)
     return trainer, launches, {
@@ -2661,7 +2796,8 @@ def trainable_step_parts(trainer, draw, gen, em):
 # index_select gathers (forward, the backbone's three and m_grid), their
 # index_add_ (m_grid's backward), the elementwise kernels (the encodes'
 # index and weight arithmetic, most of the rest), K10, the products, Adam
-SCRIPTS_GROUPS = (("K10", ("sample_pdf_lookup",)),
+SCRIPTS_GROUPS = (("K11", ("hash_encode_fwd", "hash_encode_bwd")),
+                  ("K10", ("sample_pdf_lookup",)),
                   ("gathers (index_select)", ("gather_kernel",)),
                   ("scatter-add (index_add_)", ("indexfunc",)),
                   ("matrix products", ("gemm", "cutlass")),
@@ -5358,10 +5494,10 @@ def main(argv):
         return dp_cards()
     if argv == ["--rich-all"]:
         return rich_all()
-    ab = argv == ["--ab"]
-    if argv and not ab:
-        print(f"error: unknown arguments {argv} (none, --ab, --dp-cards or "
-              f"--rich-all)", file=sys.stderr)
+    ab, k11_only = argv == ["--ab"], argv == ["--k11"]
+    if argv and not (ab or k11_only):
+        print(f"error: unknown arguments {argv} (none, --ab, --k11, "
+              f"--dp-cards or --rich-all)", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 twins stay fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -5378,6 +5514,10 @@ def main(argv):
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
+    if k11_only:
+        print(json.dumps({"K11": check_hash_kernel(torch.device("cuda"))}))
+        print(dev_line)
+        return 0
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -5402,6 +5542,7 @@ def main(argv):
     kernels["K3"]["train_shape_ms"] = kernels.pop("K3_train_ms")
     kernels["K7"] = check_prop_weights_kernel(field)
     kernels["K8"] = check_mlp_kernel(field, trunk0)
+    kernels["K11"] = check_hash_kernel(torch.device("cuda"))
     with torch.inference_mode():
         shard_errs = check_shard_sizes(field)
     launches, mrays = main_path(work)
@@ -5498,6 +5639,13 @@ def main(argv):
                    "launches": tr_launches["K8"], "library_ms": None,
                    **{k: v for k, v in kernels["K8"].items()
                       if k != "per_shape"}})
+    # K11: replaces no TPU kernel (JAX's encoder is XLA); its launches
+    # those of phase 8's stage 1 and phase 11's stage 3
+    report.append({"name": "hash_encode_cuda", "route": "cuda",
+                   "source": SOURCE_HASH, "replaces": None,
+                   "launches": hg_launches["K11"]
+                   + scripts["launches"]["stage3"]["K11"],
+                   "library_ms": None, **kernels["K11"]})
     # phase 16's launches, summed over the bench script's stages
     for row in report:
         kid = counter.get(row["name"], "K8")  # K9's row runs K8's code

@@ -10,6 +10,7 @@ another order); gradients rel-max <= 1e-4 (the table gradient is a
 scatter-add in another order; the input gradient a sum of table
 differences); level metadata exactly equal.
 """
+import ctypes
 import dataclasses
 
 import jax
@@ -176,3 +177,136 @@ def test_init_hash_table_range_and_seed():
     assert float(t.abs().max()) <= 1e-4 and float(t.std()) > 4e-5
     again = thg.init_hash_table(torch.Generator().manual_seed(0), spec)
     assert torch.equal(t, again)
+
+
+# ---------------------------------------------------------------------------
+# K11's routing and level constants (the kernel itself runs only on the
+# card: tests/test_torch_kernels_gpu.py)
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensor_takes_the_twin_and_launches_nothing(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("K11 launched for a CPU tensor")
+
+    monkeypatch.setattr(thg, "_fwd", refuse)
+    monkeypatch.setattr(thg, "_bwd", refuse)
+    before = thg.hash_encode_cuda.launches
+    kw, _ = CASES["linear"]
+    spec = thg.HashGridSpec(**kw)
+    assert thg.route("cpu", spec) == "twin"
+    table = thg.init_hash_table(torch.Generator().manual_seed(0),
+                                spec).requires_grad_()
+    x = torch.rand((9, 3), generator=torch.Generator().manual_seed(1))
+    out = thg.hash_encode(table, x * 2 - 1, spec)
+    out.sum().backward()
+    assert torch.equal(out, thg.hash_encode_unit(table, x, spec))
+    assert table.grad is not None
+    assert thg.hash_encode_cuda.launches == before == 0
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("name", list(_specs(tfields)))
+def test_level_struct_matches_level_meta(name, packed):
+    spec = dataclasses.replace(_specs(tfields)[name], packed=packed)
+    lv = thg.level_struct(spec)
+    meta = spec.level_meta()
+    L = spec.num_levels
+    strides = thg._levels(spec, L, torch.device("cpu")).strides  # [D, L]
+    assert ctypes.sizeof(thg.HashLevels) == 8 * thg.MAX_LEVELS * 4
+    for l in range(thg.MAX_LEVELS):
+        got = (lv.res[l], lv.offset[l], lv.size[l], bool(lv.use_hash[l]))
+        if l < L:
+            assert got == meta[l]
+            assert list(lv.stride[l]) == strides[:, l].tolist()
+            fits = meta[l][2] * spec.row_dim * 4 <= thg.SHARED_BYTES
+            assert lv.shared[l] == int(fits)
+        else:
+            assert got == (0, 0, 0, False) and list(lv.stride[l]) == [0] * 3
+            assert lv.shared[l] == 0
+    # the shared-memory path's level: the main grid's level 0 at C = 2
+    if name.startswith("main") and not packed:
+        assert [lv.shared[l] for l in range(L)] == [1] + [0] * (L - 1)
+
+
+@pytest.mark.parametrize("change,reason", [
+    (dict(input_dim=2), "input_dim 2"),
+    (dict(level_dim=3), "level_dim 3"),
+    (dict(num_levels=17), "17 levels"),
+    ("float64", "dtypes"),
+    ("points_need_grad", "gradient to the points"),
+])
+def test_cuda_case_k11_does_not_take_raises(change, reason):
+    spec = thg.HashGridSpec(**_spec())
+    dtypes, need = (torch.float32, torch.float32), False
+    if change == "float64":
+        dtypes = (torch.float32, torch.float64)
+    elif change == "points_need_grad":
+        need = True
+    else:
+        spec = dataclasses.replace(spec, **change)
+    assert thg.route("cpu", spec, dtypes, need) == "twin"
+    with pytest.raises(ValueError, match=reason):
+        thg.route("cuda", spec, dtypes, need)
+    # what K11 does take; any other device raises
+    assert thg.route("cuda", thg.HashGridSpec(**_spec())) == "k11"
+    with pytest.raises(ValueError, match="unsupported device"):
+        thg.route("meta", thg.HashGridSpec(**_spec()))
+
+
+@pytest.mark.parametrize("name", ["main_2", "feature", "lightweight_mask",
+                                  "prop_128"])
+def test_every_spec_of_the_field_is_k11s(name):
+    for packed in (False, True):
+        spec = dataclasses.replace(_specs(tfields)[name], packed=packed)
+        assert thg.unsupported(spec) is None
+        assert thg.route("cuda", spec) == "k11"
+
+
+def test_launch_arguments_scale_as_aten_on_the_card():
+    """x / (2 bound) by a CPU scalar is a product with the fp32 reciprocal
+    on the card: the kernel gets that reciprocal."""
+    spec = thg.HashGridSpec(**_spec(interpolation="smoothstep",
+                                    align_corners=True, packed=True))
+    args = thg._launch_args(spec, 3.0, 2)
+    assert args[:5] == (4, 2, 2, 1, 3.0)
+    assert args[5] == float(np.float32(1.0) / np.float32(6.0))
+    assert args[6:8] == (1, 1)
+
+
+def test_launch_reader_counts_over_the_span_slice(monkeypatch):
+    """The benchmark's K11 launch metric: the counter over the span slice's
+    steps, whichever reader installed the slice; silent without a card."""
+    from types import SimpleNamespace
+
+    from benchmark.harness import manifest
+    root = __file__.rsplit("/tests/", 1)[0]
+    mod = manifest.load_metric(f"{root}/benchmark",
+                               "hash_kernel_launches_per_step.train")
+    sync = manifest.load_metric(f"{root}/benchmark",
+                                "host_syncs_per_step.train")
+
+    def hooks(device):
+        def window(seconds, steps=None):
+            thg.hash_encode_cuda.launches += 6 * steps
+            return {"steps": steps, "seconds": 0.01}
+
+        cell = SimpleNamespace(traffic={"trace_steps": 3})
+        driver = SimpleNamespace(cell=cell, window=window,
+                                 device=torch.device(device))
+        return SimpleNamespace(driver=driver, probes={}, after=[])
+
+    monkeypatch.setattr(thg.hash_encode_cuda, "launches", 0)
+    h = hooks("cpu")
+    mod.install(h)
+    for fn in h.after:
+        fn()
+    assert mod.read({"probes": h.probes}) is None  # a CPU run
+    h = hooks("cuda")  # the tracer times nothing here: no card
+    sync.install(h)  # the slice's callback first, as in BENCHMARK.json
+    h.after.insert(0, lambda: h.driver.window(0, steps=5))  # another hook
+    mod.install(h)
+    mod.install(h)  # once a run
+    assert len(h.after) == 2
+    for fn in h.after:
+        fn()
+    assert mod.read({"probes": h.probes}) == 6.0

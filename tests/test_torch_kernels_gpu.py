@@ -1,5 +1,5 @@
-"""CUDA kernels K5, K3, K6, K1, K2, K4, K7, K8 and K10 against their plain
-twins on the card, and the parts of K2 (partial slabs, their reduction)
+"""CUDA kernels K5, K3, K6, K1, K2, K4, K7, K8, K10 and K11 against their
+plain twins on the card, and the parts of K2 (partial slabs, their reduction)
 and K4 (the stash of the weight products' operands, the weight-grad GEMM)
 against their plain parts, at shapes the flagship smoke (chip_smoke.py) does not
 reach: ragged ray and point counts, sample counts that do not divide a pass
@@ -18,7 +18,9 @@ Tolerances as chip_smoke.py: 1e-3 abs on the s-bins of K5 and K1, rel-max
 weight and CP grads of K2 and K4, rel-max 1e-4 on the weight-grad GEMM
 against the fp32 product of the same operands, rel-L2 1e-2 on the
 operands K4's first kernel stashes, 1e-6 abs on K10's resampled edges
-(rows with ties included).
+(rows with ties included); K11's rows, fractions and outputs bit for bit,
+its table grads within the bound any two summation orders keep (see its
+test).
 """
 import pytest
 import torch
@@ -849,3 +851,168 @@ def test_final_level_part_wrappers_check_inputs(dev):
     with pytest.raises(ValueError, match="shape"):
         rl.final_composite(f[:-1], real, sh)
     assert [c.launches for c in counters] == before
+
+
+# ---------------------------------------------------------------------------
+# K11, the hash-grid encoder (csrc/hashgrid.cu), against its plain twin
+# ---------------------------------------------------------------------------
+
+def _hash_spec(name, **change):
+    import dataclasses
+
+    from sanerf_hq_tpu_torch.models import fields as F
+    spec = {"main": F.main_grid_spec(2.0), "prop_128": F.prop_grid_spec(128),
+            "prop_256": F.prop_grid_spec(256),
+            "feature": F.feature_grid_spec(),
+            "lightweight": F.lightweight_mask_grid_spec()}[name]
+    return dataclasses.replace(spec, **change)
+
+
+def _hash_inputs(dev, spec, n, bound, seed=0):
+    """A table U(-1, 1), n points (half along rays, as a step's samples
+    come, half uniform; about one in ten outside [-bound, bound] on some
+    axis) and a cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    table = torch.rand(spec.total_params, spec.row_dim, generator=g) * 2 - 1
+    rays = (n // 2 + 31) // 32
+    o = torch.rand(rays, 1, 3, generator=g) * 2 - 1
+    d = torch.nn.functional.normalize(torch.randn(rays, 1, 3, generator=g),
+                                      dim=-1)
+    t = torch.linspace(0.0, 0.6, 32)[None, :, None]
+    along = (o + d * t).reshape(-1, 3)[: n // 2]
+    x = torch.cat([along, torch.rand(n - along.shape[0], 3, generator=g)
+                   * 2 - 1]) * (1.04 * bound)
+    cot = torch.randn(n, spec.output_dim, generator=g)
+    return [v.to(dev).contiguous() for v in (table, x, cot)]
+
+
+def _hash_sequential(table, rows, w, spec, levels, oob, absolute=False):
+    """The encoding summed corner by corner in order, each product and sum
+    rounded in fp32 (what K11 computes), from the twin's rows and weights;
+    with absolute, the sum of |w_k v_k|."""
+    L, C = spec.num_levels, spec.level_dim
+    B = w.shape[-1]
+    acc = torch.zeros(levels, B, C, device=table.device)
+    for k in range(8):
+        if spec.packed:
+            v = table[rows[:, 0]].view(levels, B, 8, C)[:, :, k]
+        else:
+            v = table[rows[:, k]]
+        p = w[:, k, :, None] * v
+        acc = acc + (p.abs() if absolute else p)
+    out = torch.zeros(B, L * C, device=table.device)
+    out[:, : levels * C] = acc.permute(1, 0, 2).reshape(B, levels * C)
+    return out.masked_fill(oob[:, None], 0.0)
+
+
+# (spec, changes, points, max_level): every spec the port builds on the
+# card at the cells' point counts (stage 1: proposal 0 at 128 samples,
+# proposal 1 at 64, the main grid at 32 a ray of 8192; stage 3: m_grid at
+# 32 a ray of 6256), their packed forms, and the variants at a ragged count
+HASH_CASES = [
+    ("main", {}, 262144, None),
+    ("prop_128", {}, 1048576, None),
+    ("prop_256", {}, 524288, None),
+    ("feature", {}, 200192, None),
+    ("lightweight", {}, 200192, None),
+    ("main", {"packed": True}, 262144, None),
+    ("prop_128", {"packed": True}, 70001, None),
+    ("feature", {"packed": True}, 70001, None),
+    ("lightweight", {"packed": True}, 70001, None),
+    ("main", {"interpolation": "smoothstep"}, 70001, None),
+    ("main", {"align_corners": True}, 70001, None),
+    ("main", {"gridtype": "tiled"}, 70001, None),
+    ("main", {}, 70001, 7),
+    ("main", {"level_dim": 1}, 70001, None),
+    ("main", {"level_dim": 4, "packed": True}, 70001, None),
+    ("prop_128", {"interpolation": "smoothstep", "align_corners": True,
+                  "packed": True}, 70001, 3),
+]
+
+
+@pytest.mark.parametrize("name,change,n,max_level", HASH_CASES,
+                         ids=[f"{c[0]}-{'-'.join(f'{k}={v}' for k, v in c[1].items()) or 'plain'}-{c[2]}-{c[3]}"
+                              for c in HASH_CASES])
+def test_hash_kernel_matches_twin(dev, name, change, n, max_level):
+    """Rows and fractions bit for bit (K11's debug output); the output bit
+    for bit the twin's corners summed in corner order, and within 16 ulp
+    of the sum of |w_k v_k| of the twin's own sum; the table gradient
+    within 2 n eps of the sum of |w_k g| over a row's n contributions,
+    which bounds any two orders of the same sum (index_add_'s atomics and
+    K11's both vary run to run); the launch count."""
+    from sanerf_hq_tpu_torch.ops import hashgrid as thg
+
+    spec = _hash_spec(name, **change)
+    bound = 2.0
+    table, x, cot = _hash_inputs(dev, spec, n, bound)
+    L = spec.num_levels
+    levels = L if max_level is None else min(max_level, L)
+    out, rows, frac = thg.hash_encode_cuda(table, x, spec, bound, max_level,
+                                           debug=True)
+    u = (x + bound) / (2.0 * bound)  # a product with the reciprocal here
+    oob = ((u < 0.0) | (u > 1.0)).any(-1)
+    assert oob.any() and (~oob).any()
+    want_rows, w, want_frac = thg.corners(u.clamp(0.0, 1.0), spec, levels)
+    assert torch.equal(rows.long(), want_rows)
+    assert torch.equal(frac, want_frac)
+    assert torch.equal(out, _hash_sequential(table, want_rows, w, spec,
+                                             levels, oob))
+    twin = thg.hash_encode_unit(table, u, spec, max_level=max_level)
+    mag = _hash_sequential(table, want_rows, w, spec, levels, oob, True)
+    assert ((out - twin).abs() <= 16 * 2.0 ** -24 * mag).all()
+
+    before = thg.hash_encode_cuda.launches
+    t1 = table.clone().requires_grad_()
+    y = thg.hash_encode(t1, x, spec, bound, max_level)
+    (y * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert thg.hash_encode_cuda.launches == before + 2
+    assert torch.equal(y.detach(), out)
+
+    def twin_grad(c):
+        t = table.clone().requires_grad_()
+        (thg.hash_encode_unit(t, u, spec, max_level=max_level) * c).sum() \
+            .backward()
+        return t.grad
+
+    g_twin, g_again = twin_grad(cot), twin_grad(cot)
+    sum_abs = twin_grad(cot.abs())  # w >= 0: sum over contributions |w g|
+    count = torch.bincount(want_rows[:, :, ~oob].reshape(-1),
+                           minlength=spec.total_params)[:, None]
+    tol = 2 * count * 2.0 ** -24 * sum_abs
+    gap = (t1.grad - g_twin).abs()
+    assert (gap <= tol).all(), (gap.max().item(),
+                                (g_again - g_twin).abs().max().item())
+    assert torch.equal(t1.grad[count[:, 0] == 0],
+                       torch.zeros_like(t1.grad[count[:, 0] == 0]))
+
+
+def test_hash_kernel_is_the_only_cuda_path(dev, monkeypatch):
+    """On CUDA, hash_encode never runs the twin; points that need a
+    gradient are refused (no path of the port hands such points in)."""
+    from sanerf_hq_tpu_torch.ops import hashgrid as thg
+
+    def refuse(*a, **k):
+        raise AssertionError("the twin ran on a CUDA tensor")
+
+    spec = _hash_spec("prop_128")
+    table, x, cot = _hash_inputs(dev, spec, 4097, 2.0)
+    monkeypatch.setattr(thg, "hash_encode_unit", refuse)
+    before = thg.hash_encode_cuda.launches
+    t = table.clone().requires_grad_()
+    (thg.hash_encode(t, x, spec, 2.0) * cot).sum().backward()
+    with torch.no_grad():
+        thg.hash_encode(table, x.requires_grad_(), spec, 2.0)
+    assert thg.hash_encode(table, x[:0].detach(), spec, 2.0).shape == (
+        0, spec.output_dim)
+    torch.cuda.synchronize()
+    assert thg.hash_encode_cuda.launches == before + 3
+    with pytest.raises(ValueError, match="gradient to the points"):
+        thg.hash_encode(table, x, spec, 2.0)
+    with pytest.raises(ValueError, match="float32"):
+        thg.hash_encode(table, x.detach().double(), spec, 2.0)
+    with pytest.raises(ValueError, match="shape"):
+        thg.hash_encode(table[:-1], x.detach(), spec, 2.0)
+    buf = torch.empty(table.numel() + 1, device=dev)
+    with pytest.raises(ValueError, match="aligned"):  # vector loads
+        thg.hash_encode(buf[1:].view(table.shape), x.detach(), spec, 2.0)
