@@ -1,15 +1,14 @@
 """One run of one cell: set-up, the measured window, with --trace 1 the
 traced slice, the check, and one JSON line on stdout.
 
-The cell's name resolves to its files (manifest.py); its traffic mix's
-`stage` picks the driver (drivers.py); every metric's number comes from
-its reader in benchmark/metrics/."""
+The cell's name resolves to its files (manifest.py): its traffic mix's
+`stage` to the stage's module in benchmark/stages/ (its driver, its
+numbers of the check, its work counts, its scene), every metric to its
+reader in benchmark/metrics/."""
 from __future__ import annotations
 
 import argparse
 import json
-import math
-import os
 import shutil
 import subprocess
 import sys
@@ -20,9 +19,7 @@ from types import SimpleNamespace
 import torch
 
 from . import check, guard, manifest
-from .counts import counts_for
-from .drivers import DRIVERS
-from .scene import write_scene
+from .hoststats import HostStats
 from .trace import profile
 
 
@@ -63,19 +60,25 @@ def _device_info(device, chips: int) -> dict:
 
 
 def run(args, cell, device, workdir: str, t0: float) -> int:
+    stage = cell.stage_module()
     t_scene = time.time()
-    scene = write_scene(os.path.join(workdir, "scene"), cell.config["scene"])
-    driver = DRIVERS[cell.traffic["stage"]](cell, args.seed, device, workdir,
-                                            scene, args.fault)
+    scene = (stage.scene(workdir, cell) if hasattr(stage, "scene")
+             else None)
+    driver = stage.Driver(cell, args.seed, device, workdir, scene,
+                          args.fault)
     driver.setup()
     setup_s = time.time() - t0
     phases = {"start": round(t_scene - t0, 3),
               "scene": round(driver._t0 - t_scene, 3), **driver.phases}
     print("setup phases (s): " + ", ".join(f"{k} {v}" for k, v in
                                             phases.items()), file=sys.stderr)
+    stats = HostStats()
+    stats.start()
     win = driver.window(args.seconds)
+    print("host stats: " + json.dumps(stats.stop(win)), file=sys.stderr)
     rec = {"cell": cell, "setup_s": setup_s, "window": win,
-           "counts": counts_for(cell.config["field"]), "trace": None,
+           "counts": stage.counts(cell) if hasattr(stage, "counts")
+           else None, "trace": None,
            "traced": None, "probes": {}, "driver": driver}
     wanted = cell.per_layer if args.trace else cell.end_to_end
     readers = {m["name"]: cell.metric_module(m["name"]) for m in wanted}
@@ -110,10 +113,8 @@ def run(args, cell, device, workdir: str, t0: float) -> int:
     rec = readers = hooks = None  # the program's state goes before the check
     driver.free()
     limits = cell.limits
-    nums = {k: v for k, v in check.numbers(driver, control=args.control)
-            .items() if k in limits}
-    over = [k for k, v in nums.items()
-            if not (math.isfinite(v) and v <= limits[k])]
+    nums, over = check.judge(stage.numbers(driver, control=args.control),
+                             limits)
     out = {"correct": not over,
            "attempted": int(win["steps"]),
            "failed": len(over),

@@ -5,10 +5,13 @@ and the files each name in it resolves to:
   - a traffic mix `<traffic>`: `benchmark/traffic/<traffic>.json`;
   - a cell `<config>.<traffic>`: those two, and its limits
     `benchmark/limits/<cell>.json`;
-  - a per-layer metric `<metric>`: the reader
-    `benchmark/metrics/<metric with dots as underscores>.py`.
-Nothing here names a cell, a mix or a metric: a new one is new files and
-new entries."""
+  - a metric `<metric>`: the reader
+    `benchmark/metrics/<metric with dots as underscores>.py`;
+  - a stage `<stage>`, the mix's `stage` key: its driver, its numbers of
+    the check, its work counts and its scene, `benchmark/stages/<stage>.py`
+    (benchmark/stages/__init__.py says what it defines).
+Nothing here names a cell, a mix, a stage or a metric: a new one is new
+files and new entries."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,6 +44,9 @@ class Cell:
     def metric_module(self, name: str):
         return load_metric(self.bench_dir, name)
 
+    def stage_module(self):
+        return load_stage(self.bench_dir, self.traffic["stage"])
+
 
 def _read(path: str) -> dict:
     with open(path) as f:
@@ -51,13 +57,24 @@ def metric_path(bench_dir: str, name: str) -> str:
     return os.path.join(bench_dir, "metrics", name.replace(".", "_") + ".py")
 
 
-def load_metric(bench_dir: str, name: str):
-    path = metric_path(bench_dir, name)
+def stage_path(bench_dir: str, name: str) -> str:
+    return os.path.join(bench_dir, "stages", name + ".py")
+
+
+def _load(path: str, prefix: str, name: str):
     spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        prefix + re.sub(r"[.\-]", "_", name), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_metric(bench_dir: str, name: str):
+    return _load(metric_path(bench_dir, name), "bench_metric_", name)
+
+
+def load_stage(bench_dir: str, name: str):
+    return _load(stage_path(bench_dir, name), "bench_stage_", name)
 
 
 def load(root: str) -> dict:
@@ -110,6 +127,17 @@ def problems(root: str, bench_dir: str = None) -> List[str]:
             if not os.path.exists(os.path.join(bench_dir, sub,
                                                stem + ".json")):
                 out.append(f"{w['name']}: missing {sub}/{stem}.json")
+        mix = os.path.join(bench_dir, "traffic", w["traffic"] + ".json")
+        if os.path.exists(mix):
+            stage = _read(mix).get("stage")
+            if not isinstance(stage, str) or not NAME.match(stage):
+                out.append(f"{w['name']}: bad stage {stage!r}")
+            elif not os.path.exists(stage_path(bench_dir, stage)):
+                out.append(f"{w['name']}: missing stages/{stage}.py")
+            elif not all(hasattr(load_stage(bench_dir, stage), k)
+                         for k in ("Driver", "numbers")):
+                out.append(f"{w['name']}: stages/{stage}.py defines no "
+                           f"Driver and numbers")
     e2e = {m["name"] for m in man["end_to_end"]}
     for m in man["per_layer"]:
         if not os.path.exists(metric_path(bench_dir, m["name"])):

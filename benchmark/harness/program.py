@@ -3,7 +3,8 @@ configuration and the traffic mix go through the CLI's parser and
 `config_from_args`, the field through `make_field`, the scene through the
 loader and the split, and the Trainer over them.  Only the parameters are
 replaced, by the benchmark's draws from the seed, before the Trainer
-copies them into its EMA."""
+copies them into its EMA.  `field_flags`: the field's sizes the CLI
+takes as flags, as the stage reads them from the configuration."""
 from __future__ import annotations
 
 import copy
@@ -46,7 +47,8 @@ class Program:
     benchmark's copy of the parameters it drew (params)."""
 
     def __init__(self, cell, scene_dir: str, workspace: str, seed: int,
-                 device: torch.device, trainable: Optional[str] = None):
+                 device: torch.device, trainable: Optional[str] = None,
+                 field_flags: Optional[dict] = None):
         from sanerf_hq_tpu_torch.cli import build_parser, config_from_args
         from sanerf_hq_tpu_torch.data.provider import (load_object_masks,
                                                        load_scene,
@@ -57,8 +59,7 @@ class Program:
         argv = [scene_dir, "--workspace", workspace, "--seed", str(seed),
                 "--device", str(device.type),
                 *flags_argv(cell.config["flags"]),
-                *flags_argv({k: cell.config["field"][k]
-                             for k in cell.config.get("field_flags", [])}),
+                *flags_argv(field_flags or {}),
                 *flags_argv(cell.traffic["flags"])]
         if cell.traffic.get("masks"):
             argv += ["--mask_root", f"{scene_dir}/masks"]

@@ -3,7 +3,7 @@ profiling`), read over a slice of the cell's work after the traced slice.
 
 Readers call `install(hooks)` from their own `install`; the first call of
 a run registers one callback, however many readers ask.  The callback
-runs the traffic's `trace_steps` steps (views in a render cell) through
+runs the traffic's `trace_steps` steps (or views, as the cell counts) through
 the cell's `window` with the tracer on, puts the tracer's snapshot in
 `hooks.probes["spans"]`, with the slice's steps and seconds under
 `window`, turns the tracer off and prints the slice's time a step and

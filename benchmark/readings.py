@@ -21,8 +21,6 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from benchmark.harness import check, manifest  # noqa: E402
-from benchmark.harness.drivers import DRIVERS  # noqa: E402
-from benchmark.harness.scene import write_scene  # noqa: E402
 from benchmark.reference import steps as ref_steps  # noqa: E402
 from benchmark.reference.common import Draws  # noqa: E402
 
@@ -53,7 +51,7 @@ def _pair_margins(draws, rgb, probs, incoherent, cfg):
             "coherence": float((gate - 0.8).abs().min())}
 
 
-def look_later(d, stated):
+def look_later(stage, d, stated):
     """The later steps' widest leaves, and the ray-pair switches' margins
     at the first later step, the one whose gradient is compared."""
     seen = []
@@ -65,8 +63,7 @@ def look_later(d, stated):
 
     ref_steps.ray_pair_loss = probe
     try:
-        ref = check.train_reference(d, stated, later=True,
-                                    follow=d.later["maps"])
+        ref = stage.reference(d, stated, later=True, follow=d.later["maps"])
     finally:
         ref_steps.ray_pair_loss = plain
     grads, changes = check.leaf_gaps(d.later, ref)
@@ -97,24 +94,24 @@ def main(argv):
                         "leaves with the widest gaps")
     args = p.parse_args(argv)
     cell = manifest.cell(ROOT, args.workload)
+    stage = cell.stage_module()
     dev = torch.device(args.device)
     work = tempfile.mkdtemp(prefix="readings-")
     try:
-        scene = write_scene(os.path.join(work, "scene"), cell.config["scene"])
+        scene = (stage.scene(work, cell) if hasattr(stage, "scene")
+                 else None)
         for s in args.seeds.split(","):
             t = time.time()
-            d = DRIVERS[cell.traffic["stage"]](cell, int(s), dev, work, scene,
-                                               args.fault)
+            d = stage.Driver(cell, int(s), dev, work, scene, args.fault)
             d.setup()
             if args.window > 0:
                 d.window(args.window)
             d.free()
-            out = {"seed": int(s), "program": check.numbers(d)}
+            out = {"seed": int(s), "program": stage.numbers(d)}
             if args.control:
-                out["control"] = check.numbers(d, control=True)
-            if args.look and cell.traffic["stage"] != "render":
-                ref = check.train_reference(
-                    d, cell.config["precision"]["stated"])
+                out["control"] = stage.numbers(d, control=True)
+            if args.look and hasattr(stage, "reference"):
+                ref = stage.reference(d, cell.config["precision"]["stated"])
                 grads, changes = check.leaf_gaps(d.readings, ref)
                 out["look"] = {
                     "loss_steps": [abs(a - b) / abs(b) for a, b in
@@ -127,7 +124,7 @@ def main(argv):
                         changes.items(), key=lambda kv: -kv[1])[:4]}}
                 if getattr(d, "later", None) is not None:
                     out["look"]["later"] = look_later(
-                        d, cell.config["precision"]["stated"])
+                        stage, d, cell.config["precision"]["stated"])
             out["seconds"] = round(time.time() - t, 1)
             print(json.dumps(out), flush=True)
             del d
