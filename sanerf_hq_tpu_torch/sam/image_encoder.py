@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..utils.profiling import span
 from ..utils.resize import resize_bilinear
 from .common import LayerNorm2d, MLPBlock
 
@@ -163,14 +164,21 @@ class ImageEncoderViT(nn.Module):
 
     def forward(self, x, return_interm: bool = False):
         """x: [B, img, img, 3] normalised.  Returns [B, img/16, img/16,
-        out_chans] (and the global blocks' outputs if return_interm)."""
-        x = self.patch_embed(x) + self.pos_embed
-        interm = []
-        for i, blk in enumerate(self.blocks):
-            x = blk(x)
-            if i in self.global_attn_indexes:
-                interm.append(x)
-        y = self.neck(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        out_chans] (and the global blocks' outputs if return_interm).
+        Spans: `sanerf.sam.encode`, children `.patch`, `.window` (each
+        windowed block), `.global` (each global block), `.neck`."""
+        with span("sanerf.sam.encode"):
+            with span("sanerf.sam.encode.patch"):
+                x = self.patch_embed(x) + self.pos_embed
+            interm = []
+            for i, blk in enumerate(self.blocks):
+                with span("sanerf.sam.encode.global" if blk.window_size == 0
+                          else "sanerf.sam.encode.window"):
+                    x = blk(x)
+                if i in self.global_attn_indexes:
+                    interm.append(x)
+            with span("sanerf.sam.encode.neck"):
+                y = self.neck(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return (y, interm) if return_interm else y
 
 

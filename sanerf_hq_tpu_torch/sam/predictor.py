@@ -10,6 +10,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from ..utils.resize import resize_bilinear, resize_uint8_linear
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
@@ -58,8 +59,9 @@ class SamPredictor:
 
     def set_image(self, image):
         """image: uint8 RGB [H, W, 3].  Returns the features [1, g, g,
-        256]."""
-        x, input_size = self.preprocess(image)
+        256].  Spans: `sanerf.sam.preprocess`, then the encoder's."""
+        with span("sanerf.sam.preprocess"):
+            x, input_size = self.preprocess(image)
         feats, interm = self.encode(x)
         self.features = feats
         self.interm_features = interm

@@ -101,26 +101,40 @@ def render_features(trainer: Trainer, pose, intr, H: int, W: int,
 # Stage 2: the SAM feature cache
 # ---------------------------------------------------------------------------
 
+def encode_view(trainer: Trainer, sam_predictor, pose, intrinsics, H: int,
+                W: int) -> Optional[np.ndarray]:
+    """One view of the feature cache: render it (EMA weights), encode the
+    uint8 rendering with SAM's image encoder (`set_image`) and read the
+    features [g, g, 256] (g = img_size / 16) back.  Every rank renders
+    (the render is sharded over the ranks); rank 0 alone encodes, the
+    others return None.  Spans: `sanerf.sam.view` around it all, the
+    render's `sanerf.view`, set_image's, `sanerf.sam.readback`."""
+    with span("sanerf.sam.view"):
+        out = trainer.render_view(pose, intrinsics, H, W)
+        if not is_main_process():
+            return None
+        rgb = (np.clip(out["image"].reshape(H, W, 3), 0, 1)
+               * 255).astype(np.uint8)
+        feats = sam_predictor.set_image(rgb)  # [1, g, g, 256]
+        with span("sanerf.sam.readback"):
+            return feats[0].cpu().numpy()
+
+
 def store_sam_features(trainer: Trainer, scene: Scene, sam_predictor,
                        out_dir: Optional[str] = None):
-    """Render each of scene's views, encode the rendering with SAM's
-    image encoder and save the features [g, g, 256] (g = img_size / 16)
-    to sam_cache/{stem}.npy."""
+    """Encode each of scene's views (`encode_view`) and save the features
+    [g, g, 256] to sam_cache/{stem}.npy."""
     out_dir = out_dir or os.path.join(trainer.workspace, "sam_cache")
     main = is_main_process()
     if main:
         os.makedirs(out_dir, exist_ok=True)
     for i in range(scene.poses.shape[0]):
-        out = trainer.render_view(scene.poses[i], _view_intrinsics(scene, i),
-                                  scene.H, scene.W)
+        feats = encode_view(trainer, sam_predictor, scene.poses[i],
+                            _view_intrinsics(scene, i), scene.H, scene.W)
         if not main:
             continue
-        rgb = (np.clip(out["image"].reshape(scene.H, scene.W, 3), 0, 1)
-               * 255).astype(np.uint8)
-        feats = sam_predictor.set_image(rgb)  # [1, g, g, 256]
         stem = os.path.splitext(str(scene.img_names[i]))[0]
-        np.save(os.path.join(out_dir, stem + ".npy"),
-                feats[0].cpu().numpy())
+        np.save(os.path.join(out_dir, stem + ".npy"), feats)
         trainer.log(f"[SAM-cache] {stem} saved")
     trainer.log(f"[INFO] stored SAM features to {out_dir}")
 

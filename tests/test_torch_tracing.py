@@ -2,8 +2,9 @@
 program: nothing recorded while it is off, paths, parents and self time,
 a new tracer starting from empty, the JSON and Chrome-trace export, the spans inside a
 `torch.profiler` trace with the tracer off, and the span trees of a
-stage-1 step, a mask step with an error-map rebuild and a view (PERF.md
-§3 lists them).  The card-marked tests (device events, the sync counter,
+stage-1 step, a mask step with an error-map rebuild, a view and a
+feature-cache view through SAM's encoder (PERF.md §3 lists them), whose
+features the tracer leaves bit for bit.  The card-marked tests (device events, the sync counter,
 the encoder's backward) run on the card:
 python -m pytest --noconftest -m gpu tests/test_torch_tracing.py
 """
@@ -21,7 +22,9 @@ from sanerf_hq_tpu_torch.data.sampler import sample_mask_batch
 from sanerf_hq_tpu_torch.data.synthetic import make_synthetic_dataset
 from sanerf_hq_tpu_torch.models import SANeRFField
 from sanerf_hq_tpu_torch.ops.hashgrid import HashGridSpec, hash_encode
-from sanerf_hq_tpu_torch.train.stages import update_error_map
+from sanerf_hq_tpu_torch.sam import SamPredictor, build_sam
+from sanerf_hq_tpu_torch.sam import build as sam_build
+from sanerf_hq_tpu_torch.train.stages import encode_view, update_error_map
 from sanerf_hq_tpu_torch.train.steps import make_mask_train_step
 from sanerf_hq_tpu_torch.train.trainer import Trainer
 from sanerf_hq_tpu_torch.utils import profiling
@@ -54,10 +57,21 @@ REBUILD = (["sanerf.rebuild", "sanerf.rebuild/sanerf.rebuild.render",
 VIEW = (["sanerf.view", "sanerf.view/sanerf.view.rays",
          "sanerf.view/sanerf.view.readback", "sanerf.view/" + CHUNK]
         + ["sanerf.view/" + CHUNK + "/" + p for p in RENDER])
+SAM_VIEW = "sanerf.sam.view"
+ENCODE = SAM_VIEW + "/sanerf.sam.encode"
+SAM = ([SAM_VIEW, SAM_VIEW + "/sanerf.sam.preprocess", ENCODE,
+        SAM_VIEW + "/sanerf.sam.readback"]
+       + [ENCODE + "/sanerf.sam.encode." + p
+          for p in ("patch", "window", "global", "neck")]
+       + [SAM_VIEW + "/" + p for p in VIEW])
+# ViT-H's depth and global blocks at a tiny width: a 5x5 grid (image 80)
+# in windows of 4, padded to 8x8
+SAM_VIT = dict(embed_dim=16, depth=32, num_heads=2, window_size=4,
+               global_attn_indexes=(7, 15, 23, 31))
 # the span tree of each piece of work, as PERF.md §3 has it
 TREES = {"stage1_step": STEP + ["sanerf.ema"],
          "mask_step_and_rebuild": STEP + REBUILD,
-         "view": VIEW}
+         "view": VIEW, "sam_view": SAM}
 
 
 @pytest.fixture(autouse=True)
@@ -106,8 +120,20 @@ def work(tmp_path_factory):
     def view():
         tr.render_view(scene.poses[0], s["intrinsics"], HW, HW)
 
+    sam_build._CONFIGS["vit_trace"] = lambda: dict(SAM_VIT)
+    try:
+        pred = SamPredictor(build_sam("vit_trace", img_size=80, seed=0,
+                                      device="cpu"), img_size=80)
+    finally:
+        del sam_build._CONFIGS["vit_trace"]
+
+    def sam_view():
+        return encode_view(tr, pred, scene.poses[0], s["intrinsics"], HW,
+                           HW)
+
     return {"stage1_step": stage1_step,
-            "mask_step_and_rebuild": mask_step_and_rebuild, "view": view}
+            "mask_step_and_rebuild": mask_step_and_rebuild, "view": view,
+            "sam_view": sam_view}
 
 
 def test_off_records_nothing(work, monkeypatch):
@@ -238,6 +264,10 @@ def test_span_tree(work, piece):
     assert snap["syncs_outside"] is None and len(snap["notes"]) == 1
     if piece == "view":
         assert spans["sanerf.view/" + CHUNK]["calls"] == 2  # 256 / 128 rays
+    if piece == "sam_view":
+        assert [spans[ENCODE + "/sanerf.sam.encode." + p]["calls"]
+                for p in ("patch", "window", "global", "neck")] == [1, 28,
+                                                                    4, 1]
     if piece == "mask_step_and_rebuild":
         assert spans["sanerf.rebuild/sanerf.rebuild.render"]["calls"] == 3
         assert spans[FWD + "sanerf.render/sanerf.render.final/"
@@ -248,6 +278,20 @@ def test_span_tree(work, piece):
         np.testing.assert_allclose(
             s["self_ms"], s["host_ms"] - sum(spans[k]["host_ms"]
                                              for k in kids), atol=1e-6)
+
+
+def test_sam_view_is_bit_identical_with_the_tracer_on(work):
+    """The spans change no value: a cache view's features with the tracer
+    off, on, and off again are equal bit for bit."""
+    off = work["sam_view"]()
+    profiling.enable()
+    on = work["sam_view"]()
+    assert profiling.snapshot()["spans"][SAM_VIEW]["calls"] == 1
+    profiling.disable()
+    assert off.shape == (5, 5, 256) and off.dtype == np.float32
+    assert np.array_equal(off.view(np.uint32), on.view(np.uint32))
+    assert np.array_equal(off.view(np.uint32),
+                          work["sam_view"]().view(np.uint32))
 
 
 def _card():
